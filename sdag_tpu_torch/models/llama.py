@@ -1,0 +1,290 @@
+"""Llama-class decoder in PyTorch (single device).
+
+Counterpart of ``sdag_tpu/models/llama.py``: RMSNorm, RoPE (with HF
+"llama3" frequency scaling), GQA attention, SwiGLU MLP.  The prefill runs
+the SDAG block-sparse attention (kernel K1 on CUDA) with document metadata
+given, plain causal without; decode attends the whole KV cache causally
+(reference decode semantics).
+
+Parameters are a plain dict with the JAX package's tree layout and weight
+orientation (``x @ w``, w: [in, out]), so ``params_from_numpy`` maps a JAX
+pytree across by key path.  The KV cache is updated in place (the JAX
+package returns a new cache each step; in place saves a cache-sized copy).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sdag_tpu_torch.ops.attention import (masked_decode_attention,
+                                          prefill_mask_plan,
+                                          sdag_prefill_attention)
+from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
+from sdag_tpu_torch.utils.device import resolve_device
+
+
+@dataclass(frozen=True)
+class DecoderConfig:
+    vocab_size: int = 512
+    d_model: int = 256
+    n_layers: int = 4
+    n_heads: int = 4
+    n_kv_heads: int = 2
+    d_ff: int = 512
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    dtype: Any = torch.float32
+    tie_embeddings: bool = True
+    # HF "llama3" RoPE frequency scaling (Llama-3.1+): (factor,
+    # low_freq_factor, high_freq_factor, original_max_position). None = off.
+    rope_scaling: Optional[Tuple[float, float, float, int]] = None
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @staticmethod
+    def tiny() -> "DecoderConfig":
+        return DecoderConfig(vocab_size=512, d_model=64, n_layers=2,
+                             n_heads=4, n_kv_heads=2, d_ff=128)
+
+    @staticmethod
+    def llama3_8b() -> "DecoderConfig":
+        """meta-llama/Llama-3.1-8B-Instruct geometry (reference
+        ``config.py:43``)."""
+        return DecoderConfig(vocab_size=128256, d_model=4096, n_layers=32,
+                             n_heads=32, n_kv_heads=8, d_ff=14336,
+                             rope_theta=500000.0, dtype=torch.bfloat16,
+                             tie_embeddings=False,
+                             rope_scaling=(8.0, 1.0, 4.0, 8192))
+
+
+def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
+                        device="cuda") -> Dict[str, Any]:
+    """Random weights drawn from ``generator`` (a torch.Generator on
+    ``device``): normal * fan_in^-0.5, norm gains 1 -- the JAX init's
+    distribution (not its draws: jax.random and torch differ)."""
+    dev = resolve_device(device)
+    d, hd = cfg.d_model, cfg.head_dim
+    n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
+
+    def dense(shape):
+        w = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        w.normal_(0.0, shape[0] ** -0.5, generator=generator)
+        return w
+
+    def ones():
+        return torch.ones(d, dtype=cfg.dtype, device=dev)
+
+    layers = []
+    for _ in range(cfg.n_layers):
+        layers.append({
+            "attn": {"wq": dense((d, n_q * hd)), "wk": dense((d, n_kv * hd)),
+                     "wv": dense((d, n_kv * hd)), "wo": dense((n_q * hd, d))},
+            "mlp": {"gate": dense((d, cfg.d_ff)), "up": dense((d, cfg.d_ff)),
+                    "down": dense((cfg.d_ff, d))},
+            "ln1": ones(), "ln2": ones(),
+        })
+    params: Dict[str, Any] = {"embed": dense((cfg.vocab_size, d)),
+                              "layers": layers, "final_norm": ones()}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense((d, cfg.vocab_size))
+    return params
+
+
+def params_from_numpy(tree, cfg: DecoderConfig, device="cuda"):
+    """The JAX package's parameter pytree (nested dicts/lists of numpy
+    arrays, e.g. ``jax.tree.map(np.asarray, params)``) as the port's."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, cfg, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, cfg, dev) for v in tree]
+    arr = np.array(tree, dtype=np.float32)
+    return torch.from_numpy(arr).to(device=dev, dtype=cfg.dtype)
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    x32 = x.float()
+    var = (x32 * x32).mean(-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def _llama3_scale_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
+    """HF 'llama3' rope_type frequency rescaling (Llama-3.1)."""
+    factor, low_ff, high_ff, orig_max = scaling
+    low_wl = orig_max / low_ff
+    high_wl = orig_max / high_ff
+    wavelen = 2.0 * math.pi / freqs
+    scaled = torch.where(wavelen > low_wl, freqs / factor, freqs)
+    smooth = (orig_max / wavelen - low_ff) / (high_ff - low_ff)
+    smoothed = (1.0 - smooth) / factor * freqs + smooth * freqs
+    is_medium = (wavelen <= low_wl) & (wavelen >= high_wl)
+    return torch.where(is_medium, smoothed, scaled)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         rope_scaling=None) -> torch.Tensor:
+    """Rotary embedding.  x: [B, H, L, Dh]; positions: [B, L]."""
+    dh = x.shape[-1]
+    half = dh // 2
+    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** exps)
+    if rope_scaling is not None:
+        freqs = _llama3_scale_freqs(freqs, rope_scaling)
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
+def _project_qkv(attn: Dict[str, torch.Tensor], x: torch.Tensor,
+                 cfg: DecoderConfig):
+    """[B, L, d] -> q [B, Hq, L, Dh], k/v [B, Hkv, L, Dh] (contiguous)."""
+    B, L, _ = x.shape
+    hd = cfg.head_dim
+
+    def heads(y):
+        return y.reshape(B, L, y.shape[-1] // hd, hd).transpose(1, 2)
+
+    return (heads(x @ attn["wq"]).contiguous(),
+            heads(x @ attn["wk"]).contiguous(),
+            heads(x @ attn["wv"]).contiguous())
+
+
+def _mlp(mlp: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    return (torch.nn.functional.silu(x @ mlp["gate"]) * (x @ mlp["up"])
+            ) @ mlp["down"]
+
+
+def _unembed(params: Dict[str, Any], cfg: DecoderConfig,
+             x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
+                  x: torch.Tensor, positions: torch.Tensor,
+                  doc_id: torch.Tensor, nbr_bits: torch.Tensor,
+                  sys_user_len: torch.Tensor, valid_len: torch.Tensor,
+                  mask_plan=None):
+    """One decoder layer (attention + MLP with residuals).
+    Returns (x, (k, v))."""
+    B, L, _ = x.shape
+    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(layer["attn"], h, cfg)
+    q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    attn_out = sdag_prefill_attention(q, k, v, doc_id, nbr_bits,
+                                      sys_user_len, valid_len=valid_len,
+                                      mask_plan=mask_plan)
+    attn_out = attn_out.transpose(1, 2).reshape(B, L, -1)
+    x = x + attn_out @ layer["attn"]["wo"]
+    x = x + _mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps))
+    return x, (k, v)
+
+
+def make_kv_cache(cfg: DecoderConfig, batch: int, size: int,
+                  device="cuda") -> Dict[str, torch.Tensor]:
+    """Native-dtype cache {k, v}: [n_layers, B, Hkv, size, Dh]."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def positions_from_doc_id(doc_id: torch.Tensor) -> torch.Tensor:
+    """RoPE positions counting only *active* tokens, so block-aligned hole
+    padding (doc_id == HOLE_DOC_ID) does not shift later positions."""
+    active = (doc_id != HOLE_DOC_ID).to(torch.int32)
+    return (torch.cumsum(active, dim=1) - 1).clamp(min=0).to(torch.int32)
+
+
+def prefill(params: Dict[str, Any], cfg: DecoderConfig,
+            input_ids: torch.Tensor,
+            doc_id: Optional[torch.Tensor] = None,
+            nbr_bits: Optional[torch.Tensor] = None,
+            sys_user_len: Optional[torch.Tensor] = None,
+            valid_len: Optional[torch.Tensor] = None,
+            cache_size: Optional[int] = None,
+            with_cache: bool = True,
+            positions: Optional[torch.Tensor] = None,
+            logits_last_only: bool = False,
+            ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Full-prompt forward.  input_ids: [B, L] right-padded.
+
+    With doc metadata -> SDAG block-sparse prefill; without -> plain causal
+    (doc_id all -1).  Returns (logits [B, L, V] f32, kv cache sized
+    cache_size).  logits_last_only=True unembeds only position
+    valid_len-1 (logits [B, 1, V])."""
+    B, L = input_ids.shape
+    dev = input_ids.device
+    cache_size = cache_size or L
+    if doc_id is None:
+        doc_id = torch.full((B, L), -1, dtype=torch.int32, device=dev)
+    if nbr_bits is None:
+        nbr_bits = torch.zeros((B, L), dtype=torch.int32, device=dev)
+    if sys_user_len is None:
+        sys_user_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if valid_len is None:
+        valid_len = torch.full((B,), L, dtype=torch.int32, device=dev)
+    if positions is None:
+        positions = positions_from_doc_id(doc_id)
+    x = params["embed"][input_ids.long()].to(cfg.dtype)
+
+    # layer-invariant kernel metadata (block kinds, live-tile worklists):
+    # computed once per prefill, shared by every layer
+    mask_plan = prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len)
+
+    cache = (make_kv_cache(cfg, B, cache_size, device=dev)
+             if with_cache else None)
+    for li, layer in enumerate(params["layers"]):
+        x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
+                                  nbr_bits, sys_user_len, valid_len,
+                                  mask_plan=mask_plan)
+        if with_cache:
+            cache["k"][li, :, :, :L] = k
+            cache["v"][li, :, :, :L] = v
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if logits_last_only:
+        last = (valid_len.long() - 1).clamp(min=0)
+        x = x[torch.arange(B, device=dev), last][:, None, :]
+    logits = _unembed(params, cfg, x).float()
+    return logits, cache
+
+
+def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
+                tokens: torch.Tensor,          # [B] current input token
+                positions: torch.Tensor,       # [B] true (RoPE) positions
+                cache: Dict[str, torch.Tensor],
+                write_index: int,              # cache slot to write
+                cache_mask: torch.Tensor,      # [B, S] valid cache slots
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step: plain causal attention over all valid cache slots
+    (reference decode semantics, no isolation after prefill).  Writes the
+    step's K/V into ``cache`` in place; cache_mask must already include
+    the written slot.  Returns (logits [B, V] f32, cache)."""
+    B = tokens.shape[0]
+    x = params["embed"][tokens.long()].to(cfg.dtype)[:, None, :]  # B,1,d
+    pos = positions[:, None]
+    for li, layer in enumerate(params["layers"]):
+        h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
+        q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
+        cache["k"][li, :, :, write_index] = k[:, :, 0]
+        cache["v"][li, :, :, write_index] = v[:, :, 0]
+        attn_out = masked_decode_attention(q[:, :, 0, :], cache["k"][li],
+                                           cache["v"][li], cache_mask)
+        x = x + attn_out.reshape(B, 1, -1) @ layer["attn"]["wo"]
+        x = x + _mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps))
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x)[:, 0, :].float(), cache

@@ -1,0 +1,416 @@
+"""SDAG block-sparse prefill attention + causal decode attention (PyTorch).
+
+Counterpart of ``sdag_tpu/ops/attention.py``.  The four Pallas schedules
+there (grid, KV-resident, worklist, splash) compute one function; on
+Hopper one hand-written CUDA kernel covers them all:
+``csrc/sdag_prefill.cu`` (kernel K1).  ``sdag_prefill_attention`` runs K1
+on a CUDA tensor and the plain dense-mask version
+(``sdag_attention_reference``) on a CPU tensor; any other device raises.
+
+K1 walks, per (batch, q-tile), the packed list of live key tiles
+(``compute_block_kinds`` + ``_pack_kv_lists`` at K1's own 64x64 tiles) and
+specializes the mask by tile kind: FULL tiles take no mask, CAUSAL tiles
+the 3-op causal rule, PARTIAL tiles the full SDAG rule evaluated in-kernel
+from O(L) metadata.  The TPU path's int8 mask tiles (``use_mask_tiles``)
+traded VMEM DMA against VPU work; K1 computes the rule in-kernel instead.
+bf16 inputs run on the tensor cores (mma.sync, f32 accumulation); f32
+inputs stay f32 on CUDA-core FMA.
+
+Decode keeps reference semantics: generated tokens attend the whole cache
+with plain causal attention; it is plain PyTorch (XLA in the JAX package).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from sdag_tpu_torch import _build
+
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+HOLE = -2  # inactive padding (block-aligned packing); see sdag/mask.py
+
+BLOCK_SKIP, BLOCK_FULL, BLOCK_PARTIAL, BLOCK_CAUSAL = 0, 1, 2, 3
+
+# K1's tile sizes (csrc/sdag_prefill.cu BQ/BK); block kinds are computed at
+# these sizes, not at the TPU kernels' 512
+K1_BLOCK_Q = 64
+K1_BLOCK_K = 64
+K1_HEAD_DIMS = (32, 64, 128)
+_ROW_CHUNK = 1024   # q rows per dense-mask step of the plain version
+
+
+def _tile_mask(i, j, dq, dk, nbr_q, sys_user_len, valid_len):
+    """Token-level SDAG attention rule (broadcasting tensors).
+
+    i, j: global row/col indices; dq, dk: doc ids (-1 = non-doc, -2 = hole);
+    nbr_q: neighbor bitmask of the q rows; sys_user_len/valid_len scalars.
+    Hole keys are never visible; hole rows behave causally (outputs unused).
+    """
+    causal = j <= i
+    is_doc_q = dq >= 0
+    same_doc = (dq == dk) & is_doc_q
+    prefix = (dk == -1) & (j < sys_user_len)
+    # neighbor windows only address docs 0..31; bit dk of the int32 mask
+    # ((x >> s) & 1 is the same for arithmetic and logical shifts)
+    nbr = (dk >= 0) & (dk < 32) & (
+        ((nbr_q >> dk.clamp(0, 31)) & 1) == 1)
+    doc_row = (causal & (same_doc | prefix)) | nbr
+    nondoc_row = causal & (dk != HOLE)
+    mask = (is_doc_q & doc_row) | (~is_doc_q & nondoc_row)
+    return mask & (j < valid_len) & (i < valid_len)
+
+
+def _per_batch(x, B: int, default: int, device) -> torch.Tensor:
+    if x is None:
+        return torch.full((B,), default, dtype=torch.int32, device=device)
+    return torch.as_tensor(x, dtype=torch.int32, device=device).expand(B)
+
+
+def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
+                             valid_len=None, scale: Optional[float] = None,
+                             q_offset=0, doc_id_q=None, nbr_bits_q=None):
+    """Dense-mask attention: the plain version of kernel K1.
+
+    q: [B, H, Lq, Dh]; k/v: [B, Hkv, Lk, Dh] (GQA groups repeated here);
+    doc_id/nbr_bits describe the KEY sequence [B, Lk]; sys_user_len,
+    valid_len, q_offset: [B] or scalar; doc_id_q/nbr_bits_q: the q rows'
+    metadata when q covers rows [q_offset, q_offset+Lq).  Scores in f32,
+    probabilities cast to v's dtype before the value product (as the JAX
+    reference).  Rows are processed _ROW_CHUNK at a time so the dense mask
+    stays bounded at long L; rows are independent, so chunking does not
+    change the result."""
+    B, H, Lq, Dh = q.shape
+    Lk = k.shape[2]
+    dev = q.device
+    if k.shape[1] != H:
+        rep = H // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else Dh ** -0.5
+    sys_user_len = _per_batch(sys_user_len, B, 0, dev)
+    valid_len = _per_batch(valid_len, B, Lk, dev)
+    q_offset = _per_batch(q_offset, B, 0, dev)
+    doc_id_q = doc_id if doc_id_q is None else doc_id_q
+    nbr_bits_q = nbr_bits if nbr_bits_q is None else nbr_bits_q
+    j = torch.arange(Lk, dtype=torch.int32, device=dev)[None, :]
+    out = torch.empty(B, H, Lq, Dh, dtype=v.dtype, device=dev)
+    kf, vf = k.float(), v
+    for b in range(B):
+        for r0 in range(0, Lq, _ROW_CHUNK):
+            r1 = min(r0 + _ROW_CHUNK, Lq)
+            i = (q_offset[b] + torch.arange(r0, r1, dtype=torch.int32,
+                                            device=dev))[:, None]
+            mask = _tile_mask(i, j, doc_id_q[b, r0:r1, None],
+                              doc_id[b, None, :], nbr_bits_q[b, r0:r1, None],
+                              sys_user_len[b], valid_len[b])
+            scores = (q[b, :, r0:r1].float() @ kf[b].transpose(-1, -2)
+                      ) * scale
+            scores = torch.where(mask[None], scores,
+                                 torch.tensor(DEFAULT_MASK_VALUE,
+                                              device=dev))
+            probs = torch.softmax(scores, dim=-1)
+            out[b, :, r0:r1] = probs.to(vf.dtype) @ vf[b]
+    return out
+
+
+def _reduce_blocks(x: torch.Tensor, op) -> torch.Tensor:
+    """Bitwise reduce over the last axis by folding halves (torch has no
+    bitwise reductions).  x: int64 [..., n]."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = n // 2
+        folded = op(x[..., :h], x[..., h:2 * h])
+        x = torch.cat([folded, x[..., 2 * h:]], dim=-1) if n % 2 else folded
+    return x[..., 0]
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def compute_block_kinds(doc_id, nbr_bits, sys_user_len, valid_len,
+                        block_q: int, block_k: int,
+                        doc_id_q=None, nbr_bits_q=None, q_offset=0):
+    """Classify every (q-block, kv-block) tile from O(L) metadata:
+
+    0 = SKIP (no visible pair), 1 = FULL (every pair visible), 2 = PARTIAL
+    (evaluate the full SDAG token rule in-tile), 3 = CAUSAL (the mask is
+    exactly causal & valid).  Conservative toward PARTIAL, exactly as the
+    JAX function; returns int32 [B, nQ, nK].  Bit masks are carried in
+    int64 restricted to 32 bits, so bit 31 needs no sign handling."""
+    B, L = doc_id.shape
+    dev = doc_id.device
+    doc_id_q = doc_id if doc_id_q is None else doc_id_q
+    nbr_bits_q = nbr_bits if nbr_bits_q is None else nbr_bits_q
+    Lq = doc_id_q.shape[1]
+    nq, nk = Lq // block_q, L // block_k
+    big = 2 ** 30
+    sul = torch.as_tensor(sys_user_len, dtype=torch.int64,
+                          device=dev).expand(B)[:, None]
+    vl = torch.as_tensor(valid_len, dtype=torch.int64,
+                         device=dev).expand(B)
+    qoff = torch.as_tensor(q_offset, dtype=torch.int64,
+                           device=dev).expand(B)
+
+    dqb = doc_id_q.to(torch.int64).reshape(B, nq, block_q)
+    nbrb = nbr_bits_q.to(torch.int64).reshape(B, nq, block_q) & _MASK32
+    q_min_d = dqb.amin(-1)
+    q_max_d = dqb.amax(-1)
+    q_homo_doc = (q_min_d == q_max_d) & (q_min_d >= 0)
+    q_all_nondoc = q_max_d < 0           # hole rows behave like non-doc
+    q_has_doc = q_max_d >= 0
+    q_has_nondoc = q_min_d < 0
+    one = torch.ones((), dtype=torch.int64, device=dev)
+    q_doc_bits = _reduce_blocks(
+        torch.where(dqb >= 0, one << dqb.clamp(0, 31), 0),
+        torch.bitwise_or)
+    q_nbr_or = _reduce_blocks(nbrb, torch.bitwise_or)
+    q_nbr_all = _reduce_blocks(nbrb, torch.bitwise_and)
+    qmin_i = qoff[:, None] + torch.arange(nq, device=dev) * block_q
+    qmax_i = qmin_i + block_q - 1
+    q_any_valid = qmin_i < vl[:, None]
+    q_all_valid = qmax_i < vl[:, None]
+
+    dkb = doc_id.to(torch.int64).reshape(B, nk, block_k)
+    k_min_d = dkb.amin(-1)
+    k_max_d = dkb.amax(-1)
+    k_homo_doc = (k_min_d == k_max_d) & (k_min_d >= 0)
+    k_all_nondoc = (k_min_d == -1) & (k_max_d == -1)
+    k_all_active = k_min_d >= -1
+    k_any_active = k_max_d >= -1
+    k_doc_bits = _reduce_blocks(
+        torch.where(dkb >= 0, one << dkb.clamp(0, 31), 0),
+        torch.bitwise_or)
+    pos = torch.arange(L, device=dev).reshape(nk, block_k)
+    k_nondoc_min_j = torch.where(dkb == -1, pos,
+                                 torch.full_like(pos, big)).amin(-1)
+    kmin_j = (torch.arange(nk, device=dev) * block_k)[None, :]
+    kmax_j = kmin_j + block_k - 1
+    k_any_valid = (kmin_j < vl[:, None]) & k_any_active
+    k_all_valid = (kmax_j < vl[:, None]) & k_all_active
+
+    Q = (slice(None), slice(None), None)   # [B, nq] -> [B, nq, 1]
+    K = (slice(None), None, slice(None))   # [B, nk] -> [B, 1, nk]
+    causal_any = kmin_j[:, None, :] <= qmax_i[Q]
+    same_any = (k_doc_bits[K] & q_doc_bits[Q]) != 0
+    prefix_any = (k_nondoc_min_j < sul)[K]
+    nbr_any = (k_doc_bits[K] & q_nbr_or[Q]) != 0
+    any_vis = q_any_valid[Q] & k_any_valid[K] & (
+        (q_has_nondoc[Q] & causal_any)
+        | (q_has_doc[Q] & ((causal_any & (prefix_any | same_any))
+                           | nbr_any)))
+
+    below = kmax_j[:, None, :] <= qmin_i[Q]
+    k_prefix_all = (k_all_nondoc & (kmax_j < sul))[K]
+    same_doc_homo = (q_homo_doc[Q] & k_homo_doc[K]
+                     & (q_min_d[Q] == k_min_d[K]))
+    nbr_full = (q_homo_doc[Q] & k_homo_doc[K] & (k_min_d < 32)[K]
+                & (((q_nbr_all[Q] >> k_min_d.clamp(0, 31)[K]) & 1) == 1))
+    full = q_all_valid[Q] & k_all_valid[K] & (
+        (q_all_nondoc[Q] & below)
+        | (q_homo_doc[Q] & k_prefix_all & below)
+        | (same_doc_homo & below)
+        | nbr_full)
+    causal_exact = q_all_nondoc[Q] & (k_min_d >= -1)[K]
+    kinds = torch.where(full, BLOCK_FULL,
+                        torch.where(causal_exact, BLOCK_CAUSAL,
+                                    BLOCK_PARTIAL))
+    return torch.where(any_vis, kinds, BLOCK_SKIP).to(torch.int32)
+
+
+def tile_masks_from_metadata(doc_id, nbr_bits, sys_user_len, valid_len,
+                             block_q: int, block_k: int,
+                             doc_id_q=None, nbr_bits_q=None, q_offset=None):
+    """The exact SDAG mask as int8 tiles [B, nQ, nK, block_q, block_k]
+    (the JAX package streams these on the TPU; K1 evaluates the rule
+    in-kernel instead, so this is a test and inspection helper)."""
+    B, Lk = doc_id.shape
+    dev = doc_id.device
+    doc_id_q = doc_id if doc_id_q is None else doc_id_q
+    nbr_bits_q = nbr_bits if nbr_bits_q is None else nbr_bits_q
+    Lq = doc_id_q.shape[1]
+    sul = _per_batch(sys_user_len, B, 0, dev)
+    vl = _per_batch(valid_len, B, Lk, dev)
+    qo = _per_batch(q_offset, B, 0, dev)
+    i = qo[:, None, None] + torch.arange(Lq, dtype=torch.int32,
+                                         device=dev)[None, :, None]
+    j = torch.arange(Lk, dtype=torch.int32, device=dev)[None, None, :]
+    m = _tile_mask(i, j, doc_id_q[:, :, None], doc_id[:, None, :],
+                   nbr_bits_q[:, :, None], sul[:, None, None],
+                   vl[:, None, None]).to(torch.int8)
+    nq, nk = Lq // block_q, Lk // block_k
+    return m.reshape(B, nq, block_q, nk, block_k).permute(0, 1, 3, 2, 4)
+
+
+def _pack_kv_lists(kinds: torch.Tensor):
+    """From block kinds [B, nQ, nK] build per-(b, q-block) worklists:
+    counts [B, nQ], kv indices [B, nQ, nK] (live tiles packed to the front
+    in ascending kv order) and their kinds."""
+    needed = kinds > BLOCK_SKIP
+    order = torch.argsort((~needed).to(torch.int32), dim=-1, stable=True)
+    kv_list = order.to(torch.int32)
+    kind_list = torch.gather(kinds, -1, order)
+    counts = needed.sum(-1).to(torch.int32)
+    return counts, kv_list, kind_list
+
+
+def _pad_cols(x: torch.Tensor, n: int, value: int) -> torch.Tensor:
+    if x.shape[1] == n:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, n - x.shape[1]), value=value)
+
+
+def prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len=None,
+                      doc_id_q=None, nbr_bits_q=None, q_offset=None):
+    """Layer-invariant prefill metadata for kernel K1, computed once per
+    prefill and passed to every layer's ``sdag_prefill_attention``.
+
+    Pads the metadata to K1's tile multiples (padded keys get doc_id -1 and
+    sit at j >= L >= valid_len, so no rule can see them), computes the
+    block kinds at K1's tile sizes and packs the live-tile worklists.
+    Returns None on the CPU, where the plain version builds its own mask.
+    """
+    if doc_id.device.type == "cpu":
+        return None
+    return k1_plan(doc_id, nbr_bits, sys_user_len, valid_len,
+                   doc_id_q=doc_id_q, nbr_bits_q=nbr_bits_q,
+                   q_offset=q_offset)
+
+
+def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
+            nbr_bits_q=None, q_offset=None):
+    """The metadata K1 reads, on doc_id's device (see prefill_mask_plan)."""
+    dev = doc_id.device
+    B, L = doc_id.shape
+    doc_id_q = doc_id if doc_id_q is None else doc_id_q
+    nbr_bits_q = nbr_bits if nbr_bits_q is None else nbr_bits_q
+    Lq = doc_id_q.shape[1]
+    nq = -(-Lq // K1_BLOCK_Q)
+    nk = -(-L // K1_BLOCK_K)
+    dk = _pad_cols(doc_id.to(torch.int32), nk * K1_BLOCK_K, -1)
+    dq = _pad_cols(doc_id_q.to(torch.int32), nq * K1_BLOCK_Q, -1)
+    nbq = _pad_cols(nbr_bits_q.to(torch.int32), nq * K1_BLOCK_Q, 0)
+    nbk = _pad_cols(nbr_bits.to(torch.int32), nk * K1_BLOCK_K, 0)
+    sul = _per_batch(sys_user_len, B, 0, dev).contiguous()
+    vl = _per_batch(valid_len, B, L, dev).contiguous()
+    qo = _per_batch(q_offset, B, 0, dev).contiguous()
+    kinds = compute_block_kinds(dk, nbk, sul, vl, K1_BLOCK_Q, K1_BLOCK_K,
+                                doc_id_q=dq, nbr_bits_q=nbq, q_offset=qo)
+    counts, kv_list, kind_list = _pack_kv_lists(kinds)
+    return {"Lq": Lq, "Lk": L, "nq": nq, "nk": nk, "doc_id": dk,
+            "doc_id_q": dq, "nbr_bits_q": nbq, "sys_user_len": sul,
+            "valid_len": vl, "q_offset": qo, "kinds": kinds,
+            "counts": counts.contiguous(), "kv_list": kv_list.contiguous(),
+            "kind_list": kind_list.contiguous()}
+
+
+_K1_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launch-count key per kernel body: bf16 runs the tensor-core kernel
+# (sdag_prefill_mma_kernel), f32 the CUDA-core one (sdag_prefill_kernel)
+K1_BODIES = {torch.float32: "sdag_prefill_f32",
+             torch.bfloat16: "sdag_prefill_bf16"}
+
+
+def _k1_lib():
+    lib = _build.load("sdag_prefill")
+    if lib.sdag_prefill.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.sdag_prefill.argtypes = [p] * 13 + [i] * 9 + [ctypes.c_float,
+                                                          i, p]
+        lib.sdag_prefill.restype = i
+    return lib
+
+
+def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
+    """Kernel K1 (``csrc/sdag_prefill.cu``): SDAG block-sparse prefill.
+
+    q: [B, Hq, Lq, Dh]; k/v: [B, Hkv, Lk, Dh]; all contiguous CUDA tensors
+    of one dtype (float32 or bfloat16), Dh in 32/64/128; ``plan`` from
+    ``prefill_mask_plan`` on the same metadata.  Output has q's dtype; a
+    row that sees no key outputs 0."""
+    B, Hq, Lq, Dh = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"sdag_prefill_cuda: {name} is not on CUDA")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"sdag_prefill_cuda: {name} must be contiguous "
+                             "and 16-byte aligned")
+        if t.dtype != q.dtype:
+            raise ValueError("sdag_prefill_cuda: q, k, v dtypes differ")
+    if q.dtype not in _K1_DTYPES:
+        raise ValueError(f"sdag_prefill_cuda: dtype {q.dtype} unsupported "
+                         "(float32 or bfloat16)")
+    if Dh not in K1_HEAD_DIMS or k.shape[3] != Dh or v.shape != k.shape:
+        raise ValueError(f"sdag_prefill_cuda: head dim {Dh} unsupported or "
+                         f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} "
+                         "mismatch")
+    if Hq % Hkv or k.shape[0] != B:
+        raise ValueError(f"sdag_prefill_cuda: {Hq} q heads not a multiple "
+                         f"of {Hkv} kv heads")
+    if plan is None or plan["Lq"] != Lq or plan["Lk"] != Lk:
+        raise ValueError("sdag_prefill_cuda: mask plan does not match "
+                         "the q/k lengths")
+    scale = scale if scale is not None else Dh ** -0.5
+    out = torch.empty_like(q)
+    lib = _k1_lib()
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    rc = lib.sdag_prefill(
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(plan["doc_id"]),
+        ptr(plan["doc_id_q"]), ptr(plan["nbr_bits_q"]),
+        ptr(plan["sys_user_len"]), ptr(plan["valid_len"]),
+        ptr(plan["q_offset"]), ptr(plan["counts"]), ptr(plan["kv_list"]),
+        ptr(plan["kind_list"]), B, Hq, Hkv, Lq, Lk, Dh, plan["nq"],
+        plan["nk"], plan["doc_id"].shape[1], float(scale),
+        _K1_DTYPES[q.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(lib, rc, "sdag_prefill")
+    _build.LAUNCHES[K1_BODIES[q.dtype]] += 1
+    return out
+
+
+def sdag_prefill_attention(q, k, v, doc_id, nbr_bits, sys_user_len,
+                           valid_len=None, scale: Optional[float] = None,
+                           q_offset=None, doc_id_q=None, nbr_bits_q=None,
+                           mask_plan=None):
+    """Dispatch by device: kernel K1 on CUDA, the plain dense-mask version
+    on the CPU; any other device raises.
+
+    mask_plan: a ``prefill_mask_plan`` result for this metadata (multi-
+    layer callers compute it once); built here when None on CUDA."""
+    if q.device.type == "cpu":
+        return sdag_attention_reference(
+            q, k, v, doc_id, nbr_bits, sys_user_len, valid_len=valid_len,
+            scale=scale, q_offset=0 if q_offset is None else q_offset,
+            doc_id_q=doc_id_q, nbr_bits_q=nbr_bits_q)
+    if q.device.type != "cuda":
+        raise ValueError(f"sdag_prefill_attention: no path for device "
+                         f"{q.device}")
+    if mask_plan is None:
+        mask_plan = prefill_mask_plan(doc_id, nbr_bits, sys_user_len,
+                                      valid_len, doc_id_q=doc_id_q,
+                                      nbr_bits_q=nbr_bits_q,
+                                      q_offset=q_offset)
+    return sdag_prefill_cuda(q, k, v, mask_plan, scale=scale)
+
+
+def masked_decode_attention(q, k_cache, v_cache, cache_mask):
+    """Single-step decode attention over a KV cache (plain PyTorch).
+
+    q: [B, H, Dh]; caches: [B, Hkv, S, Dh] with Hkv dividing H (GQA groups
+    contract directly, the repeated kv is never materialized);
+    cache_mask: [B, S] marks valid slots.  Scores in f32, probabilities
+    cast to the cache dtype before the value product (as the JAX op)."""
+    B, H, Dh = q.shape
+    hkv = k_cache.shape[1]
+    rep = H // hkv
+    qg = q.reshape(B, hkv, rep, Dh).float()
+    scores = (qg @ k_cache.float().transpose(-1, -2)) * Dh ** -0.5
+    scores = torch.where(cache_mask[:, None, None, :], scores,
+                         torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = probs.to(v_cache.dtype) @ v_cache
+    return out.reshape(B, H, Dh)

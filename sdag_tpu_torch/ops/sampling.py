@@ -1,0 +1,85 @@
+"""Token sampling: temperature + nucleus (top-p), on explicit generators.
+
+Counterpart of ``sdag_tpu/ops/sampling.py``: temperature 0 means greedy
+argmax (first maximum on ties, as jnp.argmax), otherwise softmax sampling
+after top-p truncation.  Draws come from a ``torch.Generator``; they follow
+the same distribution as the JAX sampler, not the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Mask logits outside the nucleus: keep the smallest set of tokens whose
+    cumulative probability reaches top_p.  logits: [..., V].  Exact
+    (full-sort) variant; ``sample_tokens`` uses the top-k-bounded one."""
+    if top_p >= 1.0:
+        return logits
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # token ranked r is kept iff cumulative prob *before* it is < top_p
+    keep_sorted = (cum - probs) < top_p
+    threshold = torch.where(keep_sorted, sorted_logits,
+                            torch.full_like(sorted_logits, float("inf"))
+                            ).amin(-1, keepdim=True)
+    return torch.where(logits >= threshold, logits,
+                       torch.full_like(logits, float("-inf")))
+
+
+def _ordered_topk(x: torch.Tensor, k: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k values descending, ties to the lower index (lax.top_k's
+    order; torch.topk does not promise one)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _nucleus_vals_idx(logits: torch.Tensor, top_p: float, nucleus_topk: int,
+                      presorted=None):
+    """Bounded-nucleus candidate set: (vals, idx) of the top-k logits with
+    outside-nucleus entries masked to -inf; the CDF uses the FULL-vocab
+    partition function."""
+    if presorted is not None:
+        vals, idx = presorted
+    else:
+        vals, idx = _ordered_topk(logits, min(nucleus_topk,
+                                              logits.shape[-1]))
+    logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+    probs = torch.exp(vals - logz)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = (cum - probs) < top_p                   # rank 0 always kept
+    return torch.where(keep, vals, torch.full_like(vals, float("-inf"))), idx
+
+
+def _categorical(generator: Optional[torch.Generator],
+                 logits: torch.Tensor) -> torch.Tensor:
+    """One draw per row of [..., V] unnormalized log-probabilities."""
+    flat = logits.reshape(-1, logits.shape[-1])
+    probs = torch.softmax(flat.float(), dim=-1)
+    draw = torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return draw.reshape(logits.shape[:-1])
+
+
+def sample_tokens(generator: Optional[torch.Generator],
+                  logits: torch.Tensor, temperature: float = 0.0,
+                  top_p: float = 1.0, nucleus_topk: int = 64
+                  ) -> torch.Tensor:
+    """Sample next tokens from [..., V] logits.  temperature <= 0 -> greedy.
+
+    top_p < 1 ranks only the ``nucleus_topk`` highest logits (identical to
+    the exact filter whenever the nucleus fits in them)."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    logits = logits / temperature
+    if top_p >= 1.0:
+        return _categorical(generator, logits).to(torch.int32)
+    kk = min(nucleus_topk, logits.shape[-1])
+    vals, idx = _nucleus_vals_idx(logits, top_p, kk,
+                                  presorted=_ordered_topk(logits, kk))
+    choice = _categorical(generator, vals)
+    return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
