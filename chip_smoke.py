@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py            # every phase, one CUDA device
 
-Phase 0  print the card (nvidia-smi name, power limit); build kernels K1
-         (csrc/sdag_prefill.cu) and K2 (csrc/bm25_scan_topk.cu) with nvcc.
+Phase 0  print the card (nvidia-smi name, power limit); build the kernels
+         with nvcc, one process per source, all at once: K1
+         (csrc/sdag_prefill.cu), K2 (csrc/bm25_scan_topk.cu), K3
+         (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu).
 Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          the card: the L=4096 20-doc 2-NN layout, the same tensors fully
          causal, L=16384 with 31 docs, a Dh=32 f32 case with holes, 40 docs
@@ -29,6 +31,37 @@ Phase 4  the main path at full width: run_experiment with LLM_ARCH=llama3-8b
          launch counts are zeroed before and read after, and both kernels
          must have launched (K1 at least 32 layers x ISO+NO-ISO batches).
          Phase 3 counts its own run the same way.
+Phase 5  K3 against its plain version (encoder_attention_qkv_reference):
+         e5-large-v2 heads (H=16, Dh=64) in bf16 at (B=64, L=256) and
+         (B=32, L=512) with ragged valid_len including L, 1 and 0; tiny
+         heads (H=4, Dh=32) in f32 at L=64; lengths off the tile grid
+         (L 72/100/200) and Dh=128; and the ranker path's own batch
+         (32 passages of the synthetic world through the byte tokenizer).
+         All rows are compared with K1's limits.  Two planted faults (one
+         key tile dropped; the mask off by one column) must fail the check.
+         Times K3, the plain version, and scaled_dot_product_attention
+         with its split + transposes.
+Phase 6  K4 and K5 against their plain versions (exact_topk,
+         exact_topk_int8): 1,048,576 x 1024 normalised rows in bf16 and
+         int8, Q=256 and Q=32, k=10 and k=64, valid_n = N and N - 1000;
+         f32 at N=131,072; duplicated rows that must come back in index
+         order; k > valid_n; shapes off the tile grid (D 48/80/128/1040,
+         Q 1/130, N 50, k 128); the plain-PyTorch "approx" searches on the
+         card against the CPU and the kernels; and the ranker path's shape.  K4: scores
+         within 1e-5 relative (+1e-6), indices equal wherever the plain
+         scores differ by more than that.  K5: bit-equal, indices included.
+         Times each against torch.matmul (torch._int_mm for int8) +
+         torch.topk.
+Phase 7  the ranker path at full width through run_experiment, counts
+         zeroed before each run and read after: (a) qa_ckpt_v4 with
+         DOC_NEIGHBORS_K=2, sparse retrieval, clean, RANKER_ARCH
+         e5-large-v2 (24 layers, d 1024, bf16, random weights): ACC iso
+         >= 0.8, K3 launched 24 x encode batches, K1 and K2 launched;
+         (b) the same world attacked at rank 1 with hybrid retrieval,
+         DENSE_SEARCH_MODE=exact, closest_to_centroid selection, once with
+         a bfloat16 and once with an int8 dense index: K3, K4 resp. K5, K2
+         and K1 launched, outputs written, the first batch's dense hits
+         equal to the plain version's on the same query embeddings.
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -49,7 +82,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "smoke_out")
 
 H100_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 BF16_TOL, F32_TOL = 2e-2, 1e-4
 # a row's max abs error over the row's RMS (catches a few leaked or dropped
 # keys in long rows, whose outputs sit far below the absolute limits)
@@ -601,6 +634,504 @@ def _profile_window(gen, dev, new_tokens=16):
                      "share": us / total} for k, us, n in rows[:10]]}
 
 
+# ---------------------------------------------------------------- phase 5
+def _k3_errors(out_k, out_p, n_heads):
+    """Over all (batch, row, head): the max abs error, and the max of a
+    head row's max abs error over that row's RMS in the plain output."""
+    B, L, d = out_p.shape
+    ref = out_p.float().reshape(B, L, n_heads, d // n_heads)
+    got = out_k.float().reshape(B, L, n_heads, d // n_heads)
+    row_max = (got - ref).abs().amax(-1)
+    rms = ref.pow(2).mean(-1).sqrt().clamp_min(1e-30)
+    return float(row_max.max()), float((row_max / rms).max())
+
+
+def _k3_case(name, qkv, vl, n_heads, timed=False, plant_fault=False):
+    import torch
+    from sdag_tpu_torch.ops import encoder_attention as E
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // n_heads
+    out_k = E.encoder_attention_fused_qkv(qkv, vl, n_heads)
+    torch.cuda.synchronize()
+    out_p = E.encoder_attention_qkv_reference(qkv, vl, n_heads)
+    err, row_err = _k3_errors(out_k, out_p, n_heads)
+    finite = bool(torch.isfinite(out_k.float()).all())
+    dtype = "bfloat16" if qkv.dtype == torch.bfloat16 else "float32"
+    tol, row_tol = (BF16_TOL, BF16_ROW_TOL) if dtype == "bfloat16" \
+        else (F32_TOL, F32_ROW_TOL)
+    rec = {"name": name, "B": B, "L": L, "H": n_heads, "Dh": dh,
+           "dtype": dtype, "valid_len_min": int(vl.min()),
+           "valid_len_max": int(vl.max()), "max_abs_err": err, "tol": tol,
+           "max_row_rel_err": row_err, "row_tol": row_tol}
+    if not finite or not err <= tol or not row_err <= row_tol:
+        raise AssertionError(f"K3 {name}: max abs err {err} (limit {tol}), "
+                             f"row-relative {row_err} (limit {row_tol}), "
+                             f"finite={finite}")
+    if plant_fault:
+        # the kernel run on a wrong valid_len against the plain version on
+        # the right one: a dropped key tile, then a mask off by one column
+        for fault, bad in (("dropped_tile", torch.where(vl > 64, vl - 64, vl)),
+                           ("mask_off_by_one",
+                            torch.where((vl > 0) & (vl < L), vl + 1, vl))):
+            if bool((bad == vl).all()):
+                raise AssertionError(f"K3 {name}: no row to plant {fault}")
+            out_f = E.encoder_attention_cuda(qkv, bad, n_heads)
+            f_err, f_row = _k3_errors(out_f, out_p, n_heads)
+            if f_err <= tol and f_row <= row_tol:
+                raise AssertionError(
+                    f"K3 checks missed the planted fault {fault}: abs "
+                    f"{f_err}, row-relative {f_row}")
+            rec[f"fault_{fault}"] = {"max_abs_err": f_err,
+                                     "max_row_rel_err": f_row}
+    if timed:
+        # every q row and output row once, the k/v rows the softmax can
+        # see (all L when valid_len == 0), valid_len once
+        live = torch.where(vl > 0, vl.clamp(max=L), L)
+        kv_rows = int(live.sum())
+        es = qkv.element_size()
+        nbytes = (2 * B * L + 2 * kv_rows) * d * es + 4 * B
+        flops = 4.0 * L * kv_rows * dh * n_heads
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / H100_BYTES_PER_S
+        key_ok = (torch.arange(L, device=qkv.device)[None, :]
+                  < live[:, None])[:, None, None, :]
+
+        def sdpa():
+            q, k, v = (t.reshape(B, L, n_heads, dh).transpose(1, 2)
+                       for t in qkv.split(d, dim=-1))
+            o = torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=key_ok)
+            return o.transpose(1, 2).reshape(B, L, d)
+        rec.update(
+            ms=cuda_ms(lambda: E.encoder_attention_cuda(qkv, vl, n_heads)),
+            plain_ms=cuda_ms(lambda: E.encoder_attention_qkv_reference(
+                qkv, vl, n_heads), iters=3, warmup=1),
+            library_ms=cuda_ms(sdpa, iters=5, warmup=1),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"[phase5] {json.dumps(rec)}")
+    return rec
+
+
+def _ranker_path_passages(n=32):
+    """The first encode batch of the ranker path: the synthetic world's
+    first n corpus docs under the E5 passage prefix, byte tokenizer."""
+    from sdag_tpu_torch.models.e5 import E5Encoder, EncoderConfig
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.pipeline.resources import load_corpus_jsonl
+    from sdag_tpu_torch.utils.synth_qa import load_world, write_corpus_jsonl
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt_v4",
+                                    "world.json"))
+    os.makedirs(OUT_DIR, exist_ok=True)
+    corpus = os.path.join(OUT_DIR, "chip_smoke_corpus_v4.jsonl")
+    write_corpus_jsonl(world, corpus)
+    texts, _ids = load_corpus_jsonl(corpus)
+    enc = E5Encoder({"layers": []}, EncoderConfig.e5_large_v2(),
+                    load_tokenizer(""), model_name="intfloat/e5-large-v2",
+                    device="cpu")
+    _ids_np, mask = enc._tokenize(enc._prefix(texts[:n], "passage"))
+    return mask.shape[1], mask.sum(1)
+
+
+def phase5(dev):
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    recs = []
+
+    def qkv_of(B, L, H, Dh, dtype):
+        return torch.randn(B, L, 3 * H * Dh, generator=g, device=dev,
+                           dtype=torch.float32).to(dtype)
+
+    def ragged(B, L):
+        vl = torch.randint(2, L, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        vl[0], vl[1], vl[2] = L, 1, 0
+        return vl
+
+    for name, B, L in (("a_e5_large_B64_L256", 64, 256),
+                       ("b_e5_large_B32_L512", 32, 512)):
+        recs.append(_k3_case(name, qkv_of(B, L, 16, 64, torch.bfloat16),
+                             ragged(B, L), 16, timed=True, plant_fault=True))
+    recs.append(_k3_case("c_tiny_f32_L64",
+                         qkv_of(8, 64, 4, 32, torch.float32),
+                         ragged(8, 64), 4, timed=True, plant_fault=False))
+    recs.append(_k3_case("d_e5_large_f32_L128",
+                         qkv_of(4, 128, 16, 64, torch.float32),
+                         ragged(4, 128), 16, plant_fault=True))
+    recs.append(_k3_case("e_tiny_bf16_Dh32_L100",
+                         qkv_of(4, 100, 4, 32, torch.bfloat16),
+                         ragged(4, 100), 4))
+    recs.append(_k3_case("e_Dh128_bf16_L72_B3",
+                         qkv_of(3, 72, 2, 128, torch.bfloat16),
+                         ragged(3, 72), 2))
+    recs.append(_k3_case("e_Dh128_f32_L200_B3",
+                         qkv_of(3, 200, 2, 128, torch.float32),
+                         ragged(3, 200), 2))
+    L, lens = _ranker_path_passages(32)
+    recs.append(_k3_case(
+        "f_ranker_path_batch", qkv_of(len(lens), L, 16, 64, torch.bfloat16),
+        torch.as_tensor(lens, dtype=torch.int32, device=dev), 16,
+        timed=True))
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------- phase 6
+K4_RTOL, K4_ATOL = 1e-5, 1e-6
+
+
+def _k4_case(name, queries, corpus, k, valid_n, scales=None, timed=True,
+             expect_first=None):
+    """K4 (scales None) or K5 against the plain version on the same
+    inputs.  queries float32 [Q, D]; corpus bf16/f32/int8 [N, D]."""
+    import torch
+    from sdag_tpu_torch.ops import topk as T
+    N, D = corpus.shape
+    Q = queries.shape[0]
+    int8 = scales is not None
+    if int8:
+        run_k = lambda: T.fused_topk_matmul_int8(  # noqa: E731
+            queries, corpus, scales, k, valid_n=valid_n)
+        run_p = lambda: T.exact_topk_int8(  # noqa: E731
+            queries, corpus, scales, k, valid_n=valid_n)
+        q_i8, q_scales = T.quantize_last_axis_int8(queries)
+        scores = T._int8_scores(q_i8, q_scales, corpus, scales)
+    else:
+        qc = queries.to(corpus.dtype)
+        run_k = lambda: T.fused_topk_matmul(  # noqa: E731
+            queries, corpus, k, valid_n=valid_n)
+        run_p = lambda: T.exact_topk(qc, corpus, k,  # noqa: E731
+                                     valid_n=valid_n)
+        scores = T._float_scores(qc, corpus)
+    scores = T._mask_rows(scores, valid_n)
+    vk, ik = run_k()
+    torch.cuda.synchronize()
+    vp, ip = T.ordered_topk(scores, k)
+    both_inf = torch.isneginf(vk) & torch.isneginf(vp)
+    mism = ik != ip
+    if int8:
+        if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
+            raise AssertionError(
+                f"K5 {name}: not bit-equal to the plain version "
+                f"({int(mism.sum())} index, {int((vk != vp).sum())} score "
+                "mismatches)")
+    else:
+        ok_v = torch.isclose(vk, vp, rtol=K4_RTOL, atol=K4_ATOL) | both_inf
+        if not bool(ok_v.all()):
+            raise AssertionError(f"K4 {name}: scores differ beyond "
+                                 f"{K4_RTOL} rel + {K4_ATOL}")
+        if bool(mism.any()):
+            # a differing index must hold a plain score tied with the rank's
+            got = torch.gather(scores, 1, ik.clamp(min=0).long())
+            tie = torch.isclose(got, vp, rtol=K4_RTOL, atol=K4_ATOL) \
+                & (ik >= 0)
+            if not bool((tie | ~mism).all()):
+                raise AssertionError(f"K4 {name}: indices differ at scores "
+                                     "further apart than the tolerance")
+    if expect_first is not None:
+        n = len(expect_first)
+        if ik[0, :n].tolist() != list(expect_first):
+            raise AssertionError(f"{name}: ties not in index order: "
+                                 f"{ik[0, :n].tolist()}")
+    if valid_n < k:
+        if not (bool((ik[:, valid_n:] == -1).all())
+                and bool(torch.isneginf(vk[:, valid_n:]).all())):
+            raise AssertionError(f"{name}: tail past valid_n is not "
+                                 "(-inf, -1)")
+    dtype = {torch.bfloat16: "bfloat16", torch.float32: "float32",
+             torch.int8: "int8"}[corpus.dtype]
+    err = float(torch.where(torch.isfinite(vp), (vk - vp).abs(),
+                            torch.zeros_like(vp)).max())
+    rec = {"name": name, "N": N, "D": D, "Q": Q, "k": k, "valid_n": valid_n,
+           "dtype": dtype, "max_abs_err": err,
+           "index_mismatches": int(mism.sum())}
+    del scores
+    if timed:
+        # the valid corpus rows (and their scales), the queries and the
+        # [Q, k] result once each; one multiply-add per (query, valid row,
+        # feature)
+        es = corpus.element_size()
+        nbytes = valid_n * D * es + Q * D * es + Q * k * 8 \
+            + (4 * (valid_n + Q) if int8 else 0)
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = 2.0 * Q * valid_n * D / PEAK_FLOPS[dtype]
+        if int8:
+            def lib():
+                acc = torch._int_mm(q_i8, corpus.t())
+                s = (acc.float() * q_scales[:, None]) * scales[None, :]
+                return torch.topk(s, k, dim=1)
+        else:
+            lib = lambda: torch.topk(torch.matmul(qc, corpus.t()),  # noqa
+                                     k, dim=1)
+        if int8 and Q <= 16:
+            library_ms = None            # torch._int_mm needs > 16 rows
+        else:
+            library_ms = cuda_ms(lib, iters=3, warmup=1)
+        rec.update(ms=cuda_ms(run_k, iters=5, warmup=1),
+                   plain_ms=cuda_ms(run_p, iters=2, warmup=1),
+                   library_ms=library_ms,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"[phase6] {json.dumps(rec)}")
+    return rec
+
+
+def _plain_search_modes(g, dev, n=20000, d=256, q=16, k=10):
+    import torch
+    from sdag_tpu_torch.retrieval.dense import DenseIndex
+    emb = _normalised_rows(g, n, d, dev).cpu().numpy()
+    qs = _normalised_rows(g, q, d, dev).cpu().numpy()
+    meta = [{"id": str(i)} for i in range(n)]
+    out = {"name": "h_plain_search_modes", "N": n, "D": d, "Q": q, "k": k,
+           "dtype": "mixed", "max_abs_err": 0.0, "index_mismatches": 0}
+    for dtype, rescore in ((torch.float32, True), (torch.bfloat16, True),
+                           (torch.int8, True), (torch.int8, False)):
+        kw = dict(dtype=dtype, int8_rescore=rescore)
+        on_card = DenseIndex(emb, meta, search_mode="approx", device=dev,
+                             **kw).search(qs, k)
+        on_cpu = DenseIndex(emb, meta, search_mode="approx", device="cpu",
+                            **kw).search(qs, k)
+        kernel = DenseIndex(emb, meta, search_mode="exact", device=dev,
+                            **kw).search(qs, k)
+        tag = f"{dtype}".split(".")[-1] + ("" if rescore else "_norescore")
+        # float scores agree within 1e-5 (indices may swap at near-ties
+        # and are only counted); the bare int8 search is integer-exact, so
+        # scores and indices are equal.  A rescored int8 search ranks by
+        # other scores than the exact int8 kernel: only the devices are
+        # compared.
+        exact = dtype == torch.int8 and not rescore
+        pairs = [("cpu", on_cpu)]
+        if not (dtype == torch.int8 and rescore):
+            pairs.append(("kernel", kernel))
+        for what, (idx, sc) in pairs:
+            bad = int((idx != on_card[0]).sum())
+            err = float(abs(sc - on_card[1]).max())
+            out[f"{tag}_vs_{what}"] = {"index_mismatches": bad,
+                                       "max_abs_err": err}
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            out["index_mismatches"] += bad
+            if err > (0.0 if exact else 1e-5) or (exact and bad):
+                raise AssertionError(
+                    f"plain search {tag} on the card differs from {what}: "
+                    f"{bad} indices, max score difference {err}")
+    log(f"[phase6] {json.dumps(out)}")
+    return out
+
+
+def _normalised_rows(g, n, d, dev, chunk=1 << 17):
+    import torch
+    out = torch.empty(n, d, dtype=torch.float32, device=dev)
+    for s in range(0, n, chunk):
+        x = torch.randn(min(chunk, n - s), d, generator=g, device=dev)
+        out[s:s + chunk] = x / x.norm(dim=1, keepdim=True)
+    return out
+
+
+def phase6(dev):
+    import torch
+    from sdag_tpu_torch.ops import topk as T
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    recs = []
+    N, D = 1 << 20, 1024
+    c32 = _normalised_rows(g, N, D, dev)
+    q256 = _normalised_rows(g, 256, D, dev)
+    q32 = q256[:32].contiguous()
+    cb = c32.to(torch.bfloat16)
+    ci, cs = T.quantize_last_axis_int8(c32)
+    del c32
+    torch.cuda.empty_cache()
+    grid = (("Q256_k10", q256, 10, N), ("Q256_k64_ragged", q256, 64,
+                                        N - 1000),
+            ("Q32_k10_ragged", q32, 10, N - 1000), ("Q32_k64", q32, 64, N))
+    for tag, q, k, vn in grid:
+        recs.append(_k4_case(f"a_bf16_N1M_{tag}", q, cb, k, vn))
+    for tag, q, k, vn in grid:
+        recs.append(_k4_case(f"b_int8_N1M_{tag}", q, ci, k, vn, scales=cs))
+    # f32 on CUDA cores, N = 131,072
+    nf = 1 << 17
+    cf = cb[:nf].float().contiguous()
+    recs.append(_k4_case("c_f32_N128K_Q256_k10", q256, cf, 10, nf))
+    recs.append(_k4_case("c_f32_N128K_Q32_k64_ragged", q32, cf, 64,
+                         nf - 1000, timed=False))
+    # planted exact ties: 20 copies of query 0's best row, far apart; they
+    # must come back first, in index order, from every body
+    dup = [7 + 6151 * i for i in range(20)]
+    qt = q32.clone()
+    for name, corpus, sc in (("bf16", cb[:nf].clone(), None),
+                             ("f32", cf, None),
+                             ("int8", ci[:nf].clone(), cs[:nf].clone())):
+        qt[0] = corpus[dup[0]].float() * (sc[dup[0]] if sc is not None
+                                          else 1.0)
+        corpus[dup] = corpus[dup[0]].clone()
+        if sc is not None:
+            sc[dup] = sc[dup[0]].clone()
+        recs.append(_k4_case(f"d_ties_{name}", qt, corpus, 32, nf, scales=sc,
+                             timed=False, expect_first=dup))
+        # k past the valid rows: the tail is (-inf, -1)
+        recs.append(_k4_case(f"e_k_gt_valid_{name}", q32, corpus, 10, 5,
+                             scales=sc, timed=False))
+    del cf
+    # shapes off the tile grid (untimed): feature widths that leave a
+    # partial 128-byte chunk (or, f32, a partial 32-float step), one query,
+    # a query count past one 128-row tile, a corpus shorter than a tile
+    go = torch.Generator(device=dev)
+    go.manual_seed(66)
+    for tag, Q, N, D, k, vn in (("D128_tiny_width", 24, 1024, 128, 6, 384),
+                                ("D80_Q1", 1, 5000, 80, 7, 4990),
+                                ("D48_Q130_N50", 130, 50, 48, 9, 50),
+                                ("D1040_Q130", 130, 3000, 1040, 128, 2999)):
+        co = _normalised_rows(go, N, D, dev)
+        qo = _normalised_rows(go, Q, D, dev)
+        recs.append(_k4_case(f"g_{tag}_bf16", qo, co.to(torch.bfloat16), k,
+                             vn, timed=False))
+        recs.append(_k4_case(f"g_{tag}_f32", qo, co, k, vn, timed=False))
+        oi, os_ = T.quantize_last_axis_int8(co)
+        recs.append(_k4_case(f"g_{tag}_int8", qo, oi, k, vn, scales=os_,
+                             timed=False))
+    # the searches that are plain PyTorch ops (the default
+    # DENSE_SEARCH_MODE="approx", with and without the int8 rescore) run on
+    # the card through DenseIndex and must return what they return on the
+    # CPU, and what the kernels return where both are exact
+    recs.append(_plain_search_modes(go, dev))
+    # the ranker path's shape: the synthetic world's index (384 docs padded
+    # to 1024 rows), one batch of 24 queries, k = TOP_K = 5
+    qm = q256[:24].contiguous()
+    recs.append(_k4_case("f_ranker_path_bf16", qm, cb[:1024].contiguous(), 5,
+                         384))
+    recs.append(_k4_case("f_ranker_path_int8", qm, ci[:1024].contiguous(), 5,
+                         384, scales=cs[:1024].contiguous()))
+    del cb, ci, cs
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------- phase 7
+def _dense_hits_agree(res, cfg, queries):
+    """The dense index' kernel search against the plain version on the
+    same query embeddings (first batch)."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch.ops import topk as T
+    index = res.dense_index
+    q = torch.from_numpy(np.ascontiguousarray(res.ranker.encode(
+        list(queries), kind="query",
+        batch_size=cfg.BATCH_SIZE_EMBED_Q))).to(index.device)
+    k = max(cfg.TOP_K)
+    vk, ik = index.search_device(q, k)
+    if index.quantized:
+        vp, ip = T.exact_topk_int8(q, index.embeddings, index.scales, k,
+                                   valid_n=index.valid_n)
+        ok = torch.equal(ik, ip) and torch.equal(vk, vp)
+    else:
+        qc = q.to(index.embeddings.dtype)
+        scores = T._mask_rows(T._float_scores(qc, index.embeddings),
+                              index.valid_n)
+        vp, ip = T.ordered_topk(scores, k)
+        got = torch.gather(scores, 1, ik.clamp(min=0).long())
+        ok = bool((torch.isclose(got, vp, rtol=K4_RTOL, atol=K4_ATOL)
+                   & torch.isclose(vk, vp, rtol=K4_RTOL, atol=K4_ATOL)).all())
+    return ok, int((ik != ip).sum())
+
+
+def phase7(dev):
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt_v4")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    base = os.path.join(OUT_DIR, "chip_smoke_phase7")
+    recs = {}
+    runs = (
+        ("a_knn2_sparse_clean", 0, dict(DOC_NEIGHBORS_K=2)),
+        ("b_hybrid_bf16_attack", 1, dict(
+            RETRIEVER_BACKEND="sparse_and_dense", DENSE_SEARCH_MODE="exact",
+            DENSE_INDEX_DTYPE="bfloat16",
+            MALICIOUS_DOC_SELECTION_STRATEGY="closest_to_centroid")),
+        ("b_hybrid_int8_attack", 1, dict(
+            RETRIEVER_BACKEND="sparse_and_dense", DENSE_SEARCH_MODE="exact",
+            DENSE_INDEX_DTYPE="int8",
+            MALICIOUS_DOC_SELECTION_STRATEGY="closest_to_centroid")))
+    for name, pos, over in runs:
+        cfg, facts = _synth_cfg(
+            os.path.join(base, name), world, world.eval_entities[:4], 1,
+            world.seed + 1, pos, LLM_CHECKPOINT=ckpt,
+            RANKER_ARCH="e5-large-v2", DENSE_INDEX_PATH="", **over)
+        torch.cuda.empty_cache()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = init_resources(cfg, device=dev)
+        torch.cuda.synchronize(dev)
+        t_init = time.perf_counter() - t0
+        enc = res.ranker
+        build = dict(enc.stats)
+        metrics = run_experiment(cfg, resources=res, device=dev)
+        torch.cuda.synchronize(dev)
+        launches = dict(LAUNCHES)
+        m = metrics[(5, pos)]["answer_match_stats"]
+        out = cfg.OUTPUT_CSV_BASE + f"_top_k=5_attacker_pos={pos}"
+        rec = {"queries": len(facts), "launches": launches,
+               "encoder": {"layers": enc.cfg.n_layers, "d_model":
+                           enc.cfg.d_model, "dtype": str(enc.cfg.dtype),
+                           "fused": enc.fused, "gelu": enc.gelu,
+                           "batches": enc.stats["batches"],
+                           "tokens": enc.stats["tokens"]},
+               "init_s": t_init, "run_s": time.perf_counter() - t0 - t_init,
+               "acc_iso": m["iso"]["ground_truth_match_rate"],
+               "acc_noiso": m["no_iso"]["ground_truth_match_rate"],
+               "asr_iso": m["iso"]["false_answer_match_rate"],
+               "outputs_written": all(os.path.isfile(out + ext)
+                                      for ext in (".csv", ".json"))}
+        need_k3 = enc.cfg.n_layers * enc.stats["batches"]
+        if launches.get("encoder_attention_bf16", 0) != need_k3 or not need_k3:
+            raise AssertionError(
+                f"phase 7 {name}: K3 launched "
+                f"{launches.get('encoder_attention_bf16', 0)} times, the "
+                f"encoder ran {enc.stats['batches']} batches x "
+                f"{enc.cfg.n_layers} layers")
+        for key in ("sdag_prefill_f32", "bm25_scan_topk"):
+            if not launches.get(key, 0):
+                raise AssertionError(f"phase 7 {name}: {key} never launched")
+        if not rec["outputs_written"]:
+            raise AssertionError(f"phase 7 {name}: CSV/JSON outputs missing")
+        if res.dense_index is not None:
+            body = "topk_matmul_int8" if res.dense_index.quantized \
+                else "topk_matmul_bf16"
+            if not launches.get(body, 0):
+                raise AssertionError(f"phase 7 {name}: {body} never launched")
+            # index build: passages through the encoder, device synced
+            rec["index_build"] = {
+                "docs": res.dense_index.valid_n, "tokens": build["tokens"],
+                "padded_tokens": build["padded_tokens"],
+                "seconds": build["seconds"],
+                "tokens_per_s": build["tokens"] / build["seconds"]}
+            log(f"[phase7] {name}: index build {build['tokens']} tokens in "
+                f"{build['seconds']:.3f} s = "
+                f"{build['tokens'] / build['seconds']:.1f} encoder tokens/s")
+            ok, mism = _dense_hits_agree(res, cfg,
+                                         _first_batch_questions(cfg))
+            rec["dense_hits_agree"], rec["dense_index_mismatches"] = ok, mism
+            if not ok:
+                raise AssertionError(f"phase 7 {name}: dense hits differ "
+                                     "from the plain version's")
+        log(f"[phase7] {name} {json.dumps(rec)}")
+        if name.startswith("a_") and not rec["acc_iso"] >= 0.8:
+            raise AssertionError(f"phase 7 {name}: clean ACC iso "
+                                 f"{rec['acc_iso']} < 0.8")
+        recs[name] = rec
+        del res
+    return recs
+
+
+def _first_batch_questions(cfg):
+    from sdag_tpu_torch.utils.parsing import load_from_csv
+    return load_from_csv(cfg.CSV_INPUT_PATH).questions[
+        :cfg.BATCH_SIZE_EMBED_Q]
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "sdag_tpu_torch")):
         print("chip_smoke: the sdag_tpu_torch package is not beside this "
@@ -634,12 +1165,15 @@ def main() -> int:
     details["phase2"] = k2 = phase2(dev)
     details["phase3"] = p3 = phase3(dev)
     details["phase4"] = p4 = phase4(dev)
+    details["phase5"] = k3 = phase5(dev)
+    details["phase6"] = k4 = phase6(dev)
+    details["phase7"] = p7 = phase7(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    by_name = {r["name"]: r for r in k1 + k2}
+    by_name = {r["name"]: r for r in k1 + k2 + k3 + k4}
     k2_main = by_name["b_main_path_synth_index"]
     # K1 has two bodies: bf16 (tensor cores) on the llama3-8b path of
     # phase 4, f32 (CUDA cores) on the qa_ckpt path of phase 3; each is
@@ -662,6 +1196,34 @@ def main() -> int:
              launches=p4["launches"].get("bm25_scan_topk", 0),
              max_abs_err=max(r["max_abs_err"] for r in k2),
              **{key: k2_main[key] for key in keys}),
+    ]
+    # K3-K5: timed at the ranker path's shapes (phase 5 case f, phase 6
+    # cases f), counted over the phase-7 run that drives each
+    kernels += [
+        dict(name="encoder_attention_bf16", route="cuda",
+             source="sdag_tpu_torch/csrc/encoder_attention.cu",
+             replaces="sdag_tpu/ops/encoder_attention.py:108",
+             launches=p7["a_knn2_sparse_clean"]["launches"].get(
+                 "encoder_attention_bf16", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k3
+                             if r["dtype"] == "bfloat16"),
+             **{key: by_name["f_ranker_path_batch"][key] for key in keys}),
+        dict(name="topk_matmul_bf16", route="cuda",
+             source="sdag_tpu_torch/csrc/topk_matmul.cu",
+             replaces="sdag_tpu/ops/topk.py:189",
+             launches=p7["b_hybrid_bf16_attack"]["launches"].get(
+                 "topk_matmul_bf16", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k4
+                             if r["dtype"] != "int8"),
+             **{key: by_name["f_ranker_path_bf16"][key] for key in keys}),
+        dict(name="topk_matmul_int8", route="cuda",
+             source="sdag_tpu_torch/csrc/topk_matmul.cu",
+             replaces="sdag_tpu/ops/topk.py:324",
+             launches=p7["b_hybrid_int8_attack"]["launches"].get(
+                 "topk_matmul_int8", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k4
+                             if r["dtype"] == "int8"),
+             **{key: by_name["f_ranker_path_int8"][key] for key in keys}),
     ]
     log(f"[summary] phase 4 prefill {p4['prefill_tok_s']:.1f} tok/s, "
         f"decode {p4['decode_tok_s']:.1f} tok/s, peak "

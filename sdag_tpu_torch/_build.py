@@ -6,11 +6,13 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas=-v -o build/lib<name>.so csrc/<name>.cu
 
-``build_all`` starts one nvcc per stale source, all at once, and waits for
-them; ptxas' register/shared-memory report lands in ``build/<name>.log``.
-A failed build raises.  ``LAUNCHES`` counts kernel launches per kernel
-(per kernel body where one library holds two, as K1's f32 and bf16
-bodies): each wrapper adds one where it launches its kernel, nowhere else.
+Headers shared between sources are ``csrc/*.cuh``.  ``build_all`` starts
+one nvcc per stale source, all at once, and waits for them; ptxas'
+register/shared-memory report lands in ``build/<name>.log``.  A failed
+build raises.  ``LAUNCHES`` counts kernel launches per kernel (per kernel
+body where one library holds several, as K1's f32 and bf16 bodies or K4/K5
+in ``topk_matmul.cu``): each wrapper adds one where it launches its
+kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Dict, Iterable
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
-KERNELS = ("sdag_prefill", "bm25_scan_topk")
+KERNELS = ("sdag_prefill", "bm25_scan_topk", "encoder_attention",
+           "topk_matmul")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
@@ -49,8 +52,13 @@ def _so_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
-    so, cu = _so_path(name), os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(cu)
+    """A library is stale when its source or any shared header is newer."""
+    so = _so_path(name)
+    if not os.path.exists(so):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(so) < max(os.path.getmtime(d) for d in deps)
 
 
 def build_all(names: Iterable[str] = KERNELS) -> Dict[str, float]:

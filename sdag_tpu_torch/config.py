@@ -55,24 +55,20 @@ class Config:
     # Directory holding the packed device index (embeddings + meta manifest).
     DENSE_INDEX_PATH: str = "dense.index"
     META_JSONL_PATH: str = "docs_meta.jsonl"
-    # HBM storage dtype for the embedding matrix: float32 | bfloat16 | int8.
-    # bf16 halves bandwidth at exact recall parity (bench.py gates this);
-    # int8 (per-row scales) quarters the *scan* traffic.  With
+    # Device storage dtype of the embedding matrix: float32 | bfloat16 |
+    # int8 (per-row scales; a quarter of the float32 scan traffic).  With
     # DENSE_INT8_RESCORE (default) an int8 residual is kept alongside and
-    # approx-mode candidates are rescored at ~15-bit precision: recall@10
-    # ~1.0 at int8-scan speed, total HBM = bf16.  Rescore off: pure int8,
-    # 1/4 HBM, recall@10 measured 0.977 — BELOW the 0.99 target the
-    # default config promises; validate() warns loudly on that combination.
+    # approx-mode candidates are rescored at ~15-bit precision at the int8
+    # scan's cost, total memory = bf16.  Rescore off: pure int8, a quarter
+    # of the memory at the int8 quantisation's recall; validate() warns on
+    # that combination.
     DENSE_INDEX_DTYPE: str = "float32"
     DENSE_INT8_RESCORE: bool = True
-    # Search algorithm: "approx" = matmul + lax.approx_max_k two-stage
-    # (TPU PartialReduce, ~2.2x the fused kernel's QPS at >=0.99 recall@10;
-    # exact fallback off-TPU); "exact" = fused Pallas kernel with exact
-    # (score desc, index asc) tie-break, bit-identical to a stable scan.
-    # NB: off-TPU (incl. the CPU test suite) approx_max_k lowers to exact
-    # top-k, so CI cannot catch a TPU-only recall regression in this
-    # default path — bench.py measures recall@10 on the real chip and
-    # fails loudly below 0.99 (see bench.py dense section).
+    # Search algorithm: "approx" = matmul + candidate list + exact merge
+    # (plain PyTorch ops; exact on this port, where the JAX package's
+    # candidate stage is approximate on its accelerator); "exact" = the
+    # fused matmul+top-k kernels K4/K5 on CUDA with exact (score desc,
+    # index asc) tie-break.
     DENSE_SEARCH_MODE: str = "approx"
 
     # --- models ------------------------------------------------------------
@@ -196,10 +192,10 @@ class Config:
             import warnings
             warnings.warn(
                 "DENSE_INDEX_DTYPE='int8' with DENSE_INT8_RESCORE=False: "
-                "bare int8 scan recall@10 measured 0.977, below the 0.99 "
-                "target the default config promises.  Enable "
-                "DENSE_INT8_RESCORE (recall ~1.0 at the same scan cost) "
-                "unless the recall loss is deliberate.",
+                "a bare int8 scan ranks at the int8 quantisation's recall, "
+                "below what the rescored default gives.  Enable "
+                "DENSE_INT8_RESCORE (same scan cost) unless the recall "
+                "loss is deliberate.",
                 stacklevel=2)
         if self.SPECULATIVE_DRAFT_LEN:
             if not 0 < self.SPECULATIVE_DRAFT_LEN <= 15:

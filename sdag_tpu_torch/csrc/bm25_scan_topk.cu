@@ -23,13 +23,16 @@
 //   summed in slot order with non-contracted multiply/add, the same float
 //   operations as the plain PyTorch version.  Each lane keeps a sorted
 //   top-k of its query in registers and writes it out per warp.
-//   pass 2: one block per query selects the k best of all warps' lists by
-//   repeated block-wide arg-max over (score desc, idx asc), each round
-//   taking the best entry ordered strictly after the previous pick.
+//   pass 2 (topk_merge.cuh, shared with topk_matmul.cu): one block per
+//   query selects the k best of all warps' lists by repeated block-wide
+//   arg-max over (score desc, idx asc), each round taking the best entry
+//   ordered strictly after the previous pick.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "topk_merge.cuh"
 
 namespace {
 
@@ -38,11 +41,6 @@ constexpr int NT = WARPS * 32;
 constexpr int HASH_BITS = 16;
 constexpr unsigned HASH_MASK = (1u << HASH_BITS) - 1u;
 constexpr int INT_MAX_ = 0x7fffffff;
-
-// (va, ia) ranks before (vb, ib): higher score, then lower doc index
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
 
 template <int TMAX, int KMAX>
 __global__ void __launch_bounds__(NT)
@@ -174,63 +172,6 @@ bm25_scan_pass1(const int* __restrict__ term_ids,
   }
 }
 
-__global__ void __launch_bounds__(NT)
-bm25_scan_pass2(const float* __restrict__ cand_vals,
-                const int* __restrict__ cand_idx, float* out_vals,
-                int* out_idx, int n_warps, int Q, int k) {
-  __shared__ float red_v[WARPS];
-  __shared__ int red_i[WARPS];
-  const int qi = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n = n_warps * k;
-  float pv = INFINITY;  // previous pick; (+inf, -1) ranks before all
-  int pi = -1;
-  for (int r = 0; r < k; ++r) {
-    float bv = -INFINITY;
-    int bi = INT_MAX_;
-    for (int e = threadIdx.x; e < n; e += NT) {
-      const int w = e / k, j = e % k;
-      const size_t off = ((size_t)w * Q + qi) * k + j;
-      const float v = cand_vals[off];
-      const int ix = cand_idx[off];
-      if (better(pv, pi, v, ix) && better(v, ix, bv, bi)) {
-        bv = v;
-        bi = ix;
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    bv = red_v[0];
-    bi = red_i[0];
-#pragma unroll
-    for (int w = 1; w < WARPS; ++w)
-      if (better(red_v[w], red_i[w], bv, bi)) {
-        bv = red_v[w];
-        bi = red_i[w];
-      }
-    __syncthreads();  // red_* reused next round
-    if (threadIdx.x == 0) {
-      out_vals[(size_t)qi * k + r] = bv;
-      out_idx[(size_t)qi * k + r] = bi == INT_MAX_ ? -1 : bi;
-    }
-    pv = bv;
-    pi = bi;
-  }
-}
-
 template <int TMAX, int KMAX>
 void launch_pass1(dim3 grid, cudaStream_t s, const int* term_ids,
                   const float* impacts, const int* q_terms,
@@ -278,8 +219,8 @@ int bm25_scan_topk(const int* term_ids, const float* impacts,
                          docs_per_warp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bm25_scan_pass2<<<Q, NT, 0, s>>>(cand_vals, cand_idx, out_vals, out_idx,
-                                   n_blocks * WARPS, Q, k);
+  topk_merge_pass<<<Q, MERGE_NT, 0, s>>>(cand_vals, cand_idx, out_vals,
+                                         out_idx, n_blocks * WARPS, Q, k);
   return (int)cudaGetLastError();
 }
 

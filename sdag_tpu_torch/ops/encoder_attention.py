@@ -1,0 +1,143 @@
+"""Fused bidirectional (encoder) attention for the E5 ranker (PyTorch).
+
+Counterpart of ``sdag_tpu/ops/encoder_attention.py``.  The packed entry
+takes the QKV projection output ``[B, L, 3d]`` as it is (column order
+``[q heads | k heads | v heads]``, the ``models.e5.fuse_qkv_params``
+layout) and returns ``[B, L, d]`` ready for the output projection: no
+split copies, no ``[B,L,H,Dh] -> [B,H,L,Dh]`` transposes, and the
+``[B, H, L, L]`` scores never reach device memory.
+
+* ``encoder_attention_fused_qkv``: kernel K3 (``csrc/encoder_attention.cu``)
+  on a CUDA tensor; on a CPU tensor its plain version
+  ``encoder_attention_qkv_reference``, which repeats the kernel's
+  arithmetic (scale folded into q in q's dtype, masked columns at -1e30,
+  P rounded to v's dtype for P.V, division after P.V);
+* ``encoder_attention_reference``: the textbook form over head-major
+  tensors with the ``[B, H, L, L]`` probabilities materialised.
+
+Masking contract: attention-mask rows are contiguous prefixes (the
+tokenizer right-pads), so the mask is one valid length per batch row.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from sdag_tpu_torch import _build
+
+_NEG = -1e30
+K3_HEAD_DIMS = (32, 64, 128)
+_K3_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# launch-count key per kernel body (tensor-core bf16, CUDA-core f32)
+K3_BODIES = {torch.float32: "encoder_attention_f32",
+             torch.bfloat16: "encoder_attention_bf16"}
+
+
+def encoder_attention_qkv_reference(qkv: torch.Tensor,
+                                    valid_len: torch.Tensor,
+                                    n_heads: int) -> torch.Tensor:
+    """Plain version of kernel K3 on the packed layout: qkv [B, L, 3d],
+    valid_len [B] -> [B, L, d] in qkv's dtype.  A row with valid_len 0
+    attends all L columns uniformly; query rows past valid_len attend the
+    valid prefix (mean pooling drops them later)."""
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // n_heads
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(B, L, n_heads, dh)
+               for i in range(3))
+    q = q * torch.tensor(dh ** -0.5, dtype=q.dtype, device=q.device)
+    s = torch.einsum("bihd,bjhd->bhij", q.float(), k.float())
+    col = torch.arange(L, device=qkv.device)
+    s = torch.where(col[None, None, None, :]
+                    < valid_len.to(qkv.device)[:, None, None, None], s, _NEG)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    denom = p.sum(-1, keepdim=True)                       # [B, H, L, 1]
+    o = torch.einsum("bhij,bjhd->bhid", p.to(v.dtype).float(), v.float())
+    o = (o / denom).to(qkv.dtype)
+    return o.permute(0, 2, 1, 3).reshape(B, L, d)
+
+
+def _k3_lib():
+    lib = _build.load("encoder_attention")
+    if lib.encoder_attention.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.encoder_attention.argtypes = [p, p, p, i, i, i, i,
+                                          ctypes.c_float, i, p]
+        lib.encoder_attention.restype = i
+    return lib
+
+
+def encoder_attention_cuda(qkv: torch.Tensor, valid_len: torch.Tensor,
+                           n_heads: int) -> torch.Tensor:
+    """Kernel K3: qkv [B, L, 3d] contiguous on CUDA (float32 or bfloat16),
+    head dim 32/64/128; valid_len [B] on the same device."""
+    if qkv.device.type != "cuda" or valid_len.device != qkv.device:
+        raise ValueError("encoder_attention_cuda: qkv and valid_len must "
+                         "be on one CUDA device")
+    if qkv.dim() != 3 or qkv.shape[2] % (3 * n_heads):
+        raise ValueError(f"encoder_attention_cuda: qkv shape "
+                         f"{tuple(qkv.shape)} is not [B, L, 3*{n_heads}*Dh]")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("encoder_attention_cuda: qkv must be contiguous "
+                         "and 16-byte aligned")
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // n_heads
+    if qkv.dtype not in _K3_DTYPES or dh not in K3_HEAD_DIMS:
+        raise ValueError(f"encoder_attention_cuda: dtype {qkv.dtype} / head "
+                         f"dim {dh} unsupported (float32 or bfloat16, "
+                         f"{K3_HEAD_DIMS})")
+    if valid_len.shape != (B,):
+        raise ValueError("encoder_attention_cuda: valid_len must be [B]")
+    vl = valid_len.to(torch.int32).contiguous()
+    out = torch.empty(B, L, d, dtype=qkv.dtype, device=qkv.device)
+    lib = _k3_lib()
+    rc = lib.encoder_attention(
+        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(vl.data_ptr()),
+        ctypes.c_void_p(out.data_ptr()), B, n_heads, L, dh, dh ** -0.5,
+        _K3_DTYPES[qkv.dtype],
+        ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream))
+    _build.check(lib, rc, "encoder_attention")
+    _build.LAUNCHES[K3_BODIES[qkv.dtype]] += 1
+    return out
+
+
+def encoder_attention_fused_qkv(qkv: torch.Tensor, valid_len: torch.Tensor,
+                                n_heads: int) -> torch.Tensor:
+    """Packed-projection entry: qkv [B, L, 3d], the fused QKV matmul
+    output untouched; valid_len [B] prefix lengths.  Returns [B, L, d] in
+    qkv's dtype.  Kernel K3 on CUDA, the plain version on the CPU; any
+    other device raises."""
+    if qkv.device.type == "cpu":
+        return encoder_attention_qkv_reference(qkv, valid_len, n_heads)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"encoder_attention_fused_qkv: no path for device "
+                         f"{qkv.device}")
+    return encoder_attention_cuda(qkv, valid_len, n_heads)
+
+
+def encoder_attention_fused(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, valid_len: torch.Tensor
+                            ) -> torch.Tensor:
+    """Separate-tensor entry (test/compat surface): q/k/v [B, L, H, Dh].
+    Packs to the [B, L, 3d] projection layout (one concat) and runs the
+    packed entry.  Returns [B, L, H*Dh]."""
+    B, L, H, Dh = q.shape
+    packed = torch.cat([t.reshape(B, L, H * Dh) for t in (q, k, v)], dim=-1)
+    return encoder_attention_fused_qkv(packed, valid_len, n_heads=H)
+
+
+def encoder_attention_reference(q, k, v, valid_len):
+    """Textbook reference with the [B, H, L, L] probabilities materialised.
+    q/k/v: [B, H, L, Dh] (head-major).  Returns [B, H, L, Dh] in q's
+    dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhid,bhjd->bhij", q.float(), k.float()) * scale
+    col = torch.arange(s.shape[-1], device=q.device)
+    s = torch.where(col[None, None, None, :]
+                    < valid_len.to(q.device)[:, None, None, None], s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhij,bhjd->bhid", p.to(v.dtype).float(),
+                        v.float()).to(q.dtype)

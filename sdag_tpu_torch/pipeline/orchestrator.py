@@ -5,7 +5,7 @@ Counterpart of ``sdag_tpu/pipeline/orchestrator.py`` (itself mirroring the
 reference's ``src/pipeline/main.py:109-858``): ISO generation is
 batched and every phase is timed (utils/profiling.py).  Settings outside
 this port's slice (pipeline/resources.py ``check_supported``) raise
-NotImplementedError, so the doc-neighbor (knn) path is not here.
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from sdag_tpu_torch.pipeline.resources import (build_defense,
                                                build_retriever,
                                                check_supported,
                                                init_resources)
+from sdag_tpu_torch.sdag.knn import compute_doc_knn_for_docs_batch
 from sdag_tpu_torch.sdag.spans import (build_plain_chat_ids,
                                        build_rag_prompt_plan)
 from sdag_tpu_torch.utils import prompts
@@ -130,8 +131,12 @@ def generate_iso_batch(cfg: Config, res: Resources, queries: List[str],
             plan = build_rag_prompt_plan(res.tokenizer, q, list(docs_ranked),
                                          block_align=block_align)
         plans.append(plan)
-    # DOC_NEIGHBORS_K > 0 (knn neighbor windows) is refused upstream
-    neighbors = [None] * len(plans)
+    if cfg.DOC_NEIGHBORS_K and cfg.DOC_NEIGHBORS_K > 0:
+        # one encode per batch, not one per query
+        neighbors = compute_doc_knn_for_docs_batch(
+            res.ranker, [p.ranked_docs for p in plans], cfg.DOC_NEIGHBORS_K)
+    else:
+        neighbors = [None] * len(plans)
 
     answers: List[str] = []
     bs = max(1, cfg.LLM_BATCH_SIZE)

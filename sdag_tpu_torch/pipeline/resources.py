@@ -1,28 +1,50 @@
-"""Heavy-resource initialization: generator and BM25 index.
+"""Heavy-resource initialization: generator, encoder, dense and BM25
+indexes.
 
 Counterpart of ``sdag_tpu/pipeline/resources.py`` for the settings this
-port serves: BM25 retrieval (``RETRIEVER_BACKEND="sparse"``), no defense,
-a native checkpoint or random weights at a named architecture, one device.
-Every other setting raises NotImplementedError naming the ROADMAP item
-that will serve it; no E5 encoder is built (BM25 and random selection do
-not use one).
+port serves: sparse, dense and hybrid retrieval, knn neighbor windows, the
+centroid selection strategies, no defense, a native checkpoint or random
+weights at a named architecture, one device.  Every other setting raises
+NotImplementedError naming the ROADMAP item that will serve it.
+
+The E5 encoder is built only when a setting calls it (dense or hybrid
+retrieval, ``DOC_NEIGHBORS_K > 0``, a centroid selection strategy); the
+JAX package always builds one.  A sparse-only run with random selection
+never encodes, so it does not pay for the weights.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from sdag_tpu_torch.config import Config
 from sdag_tpu_torch.datamodels import Resources
+from sdag_tpu_torch.models.e5 import (E5Encoder, EncoderConfig,
+                                      init_encoder_params)
 from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
 from sdag_tpu_torch.models.tokenizer import load_tokenizer
+from sdag_tpu_torch.retrieval.dense import (INDEX_DTYPES, DenseIndex,
+                                            DenseRetriever)
+from sdag_tpu_torch.retrieval.hybrid import HybridRetriever
 from sdag_tpu_torch.retrieval.sparse import BM25Index, SparseRetriever
 from sdag_tpu_torch.sdag.generate import Generator
 from sdag_tpu_torch.utils.device import resolve_device
+
+
+def _encoder_config(arch: str) -> EncoderConfig:
+    if arch == "e5-large-v2":
+        return EncoderConfig.e5_large_v2()
+    if arch == "tiny":
+        return EncoderConfig.tiny()
+    # a typo must not silently run the experiment on a random toy model
+    # and write plausible-looking garbage metrics
+    raise ValueError(f"Unknown RANKER_ARCH {arch!r}: expected "
+                     "'e5-large-v2' or 'tiny'")
 
 
 def _decoder_config(arch: str) -> DecoderConfig:
@@ -39,17 +61,11 @@ def check_supported(cfg: Config) -> None:
     naming the ROADMAP (Queue A) item that will serve each."""
     from sdag_tpu_torch.models.native_ckpt import is_native_checkpoint
     unsupported = [
-        (cfg.RETRIEVER_BACKEND != "sparse",
-         f"RETRIEVER_BACKEND={cfg.RETRIEVER_BACKEND!r}",
-         "dense and hybrid retrieval"),
         (cfg.DEFENSE_BACKEND != "none",
          f"DEFENSE_BACKEND={cfg.DEFENSE_BACKEND!r}", "defenses"),
-        (cfg.DOC_NEIGHBORS_K > 0, f"DOC_NEIGHBORS_K={cfg.DOC_NEIGHBORS_K}",
-         "the E5 encoder and knn neighbors"),
-        (cfg.MALICIOUS_DOC_SELECTION_STRATEGY != "random",
-         f"MALICIOUS_DOC_SELECTION_STRATEGY="
-         f"{cfg.MALICIOUS_DOC_SELECTION_STRATEGY!r}",
-         "the E5 encoder and knn neighbors"),
+        (bool(cfg.RANKER_CHECKPOINT),
+         f"an HF RANKER_CHECKPOINT ({cfg.RANKER_CHECKPOINT!r})",
+         "hf_convert"),
         (cfg.KV_CACHE_DTYPE != "native",
          f"KV_CACHE_DTYPE={cfg.KV_CACHE_DTYPE!r}",
          "int8 weights and int8 KV cache"),
@@ -105,35 +121,113 @@ def build_generator(cfg: Config, device="cuda") -> Generator:
                      batch_bucket=cfg.LLM_BATCH_SIZE, device=dev)
 
 
-def init_resources(cfg: Config, device="cuda") -> Resources:
+def needs_encoder(cfg: Config) -> bool:
+    """Whether any setting of this run calls the E5 encoder."""
+    return (cfg.RETRIEVER_BACKEND in {"dense", "sparse_and_dense"}
+            or cfg.DOC_NEIGHBORS_K > 0
+            or cfg.MALICIOUS_DOC_SELECTION_STRATEGY != "random")
+
+
+def build_encoder(cfg: Config, device="cuda") -> E5Encoder:
+    """Random weights at ``RANKER_ARCH`` from ``cfg.SEED`` (an HF ranker
+    checkpoint waits for hf_convert and raises)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    enc_cfg = _encoder_config(cfg.RANKER_ARCH)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.SEED)
+    params = init_encoder_params(gen, enc_cfg, device=dev)
+    return E5Encoder(params, enc_cfg, load_tokenizer(""),
+                     model_name=cfg.RANKER_MODEL_NAME, device=dev)
+
+
+def init_resources(cfg: Config, device="cuda",
+                   encoder: Optional[E5Encoder] = None) -> Resources:
+    """``encoder``: a ready E5Encoder to use instead of building one."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    if encoder is None and needs_encoder(cfg):
+        encoder = build_encoder(cfg, device=dev)
     generator = build_generator(cfg, device=dev)
-    sp = cfg.SPARSE_INDEX_NAME_OR_PATH
-    if sp and os.path.isdir(sp):
-        print(f"[resources] loading sparse index: {sp}")
-        sparse_index = BM25Index.load(sp, engine=cfg.BM25_ENGINE, device=dev)
-    elif cfg.CORPUS_JSONL_PATH:
-        print("[resources] building BM25 index from corpus "
-              f"{cfg.CORPUS_JSONL_PATH}")
-        texts, ids = load_corpus_jsonl(cfg.CORPUS_JSONL_PATH)
-        sparse_index = BM25Index.from_texts(texts, ids, k1=cfg.BM25_K1,
-                                            b=cfg.BM25_B,
-                                            engine=cfg.BM25_ENGINE,
-                                            device=dev)
-        if sp:
-            sparse_index.save(sp)
-    else:
-        raise FileNotFoundError(
-            "No sparse index and no CORPUS_JSONL_PATH to build one")
-    return Resources(ranker=None, tokenizer=generator.tokenizer,
-                     generator=generator, sparse_index=sparse_index)
+
+    dense_index = None
+    sparse_index = None
+    need_dense = cfg.RETRIEVER_BACKEND in {"dense", "sparse_and_dense"}
+    need_sparse = cfg.RETRIEVER_BACKEND in {"sparse", "sparse_and_dense"}
+
+    @functools.lru_cache(maxsize=None)
+    def corpus():
+        """One corpus read shared by both build paths."""
+        return load_corpus_jsonl(cfg.CORPUS_JSONL_PATH)
+
+    if need_dense:
+        if cfg.DENSE_INDEX_DTYPE not in INDEX_DTYPES:
+            # membership-checked like every other config enum: 'bf16'
+            # silently loading a float32 index would ignore the user's
+            # quantization choice at 2x the memory
+            raise ValueError(f"Unknown DENSE_INDEX_DTYPE "
+                             f"{cfg.DENSE_INDEX_DTYPE!r}: expected one of "
+                             f"{sorted(INDEX_DTYPES)}")
+        idx_kw = dict(dtype=INDEX_DTYPES[cfg.DENSE_INDEX_DTYPE],
+                      search_mode=cfg.DENSE_SEARCH_MODE,
+                      int8_rescore=cfg.DENSE_INT8_RESCORE, device=dev)
+        if os.path.isdir(cfg.DENSE_INDEX_PATH):
+            print(f"[resources] loading dense index: {cfg.DENSE_INDEX_PATH}")
+            meta_path = cfg.META_JSONL_PATH \
+                if os.path.exists(cfg.META_JSONL_PATH) else None
+            dense_index = DenseIndex.load(cfg.DENSE_INDEX_PATH,
+                                          meta_path=meta_path, **idx_kw)
+        elif cfg.CORPUS_JSONL_PATH:
+            print("[resources] building dense index from corpus "
+                  f"{cfg.CORPUS_JSONL_PATH}")
+            texts, ids = corpus()
+            dense_index = DenseIndex.from_texts(
+                texts, ids, encoder, batch_size=cfg.BATCH_SIZE_EMBED_Q,
+                **idx_kw)
+            if cfg.DENSE_INDEX_PATH:
+                dense_index.save(cfg.DENSE_INDEX_PATH)
+        else:
+            raise FileNotFoundError(
+                f"No dense index at {cfg.DENSE_INDEX_PATH} and no "
+                "CORPUS_JSONL_PATH to build one")
+
+    if need_sparse:
+        sp = cfg.SPARSE_INDEX_NAME_OR_PATH
+        if sp and os.path.isdir(sp):
+            print(f"[resources] loading sparse index: {sp}")
+            sparse_index = BM25Index.load(sp, engine=cfg.BM25_ENGINE,
+                                          device=dev)
+        elif cfg.CORPUS_JSONL_PATH:
+            print("[resources] building BM25 index from corpus "
+                  f"{cfg.CORPUS_JSONL_PATH}")
+            texts, ids = corpus()
+            sparse_index = BM25Index.from_texts(texts, ids, k1=cfg.BM25_K1,
+                                                b=cfg.BM25_B,
+                                                engine=cfg.BM25_ENGINE,
+                                                device=dev)
+            if sp:
+                sparse_index.save(sp)
+        else:
+            raise FileNotFoundError(
+                "No sparse index and no CORPUS_JSONL_PATH to build one")
+
+    return Resources(ranker=encoder, tokenizer=generator.tokenizer,
+                     generator=generator, dense_index=dense_index,
+                     sparse_index=sparse_index)
 
 
 def build_retriever(cfg: Config, res: Resources):
-    """Factory keyed on RETRIEVER_BACKEND (sparse only in this port)."""
+    """Factory keyed on RETRIEVER_BACKEND (reference ``main.py:246-267``)."""
     check_supported(cfg)
-    return SparseRetriever(res.sparse_index)
+    if cfg.RETRIEVER_BACKEND == "dense":
+        return DenseRetriever(res.ranker, res.dense_index)
+    if cfg.RETRIEVER_BACKEND == "sparse":
+        return SparseRetriever(res.sparse_index)
+    if cfg.RETRIEVER_BACKEND == "sparse_and_dense":
+        return HybridRetriever(DenseRetriever(res.ranker, res.dense_index),
+                               SparseRetriever(res.sparse_index),
+                               seed=cfg.SEED)
+    raise ValueError(f"Unknown RETRIEVER_BACKEND: {cfg.RETRIEVER_BACKEND}")
 
 
 def build_defense(cfg: Config, res: Resources):

@@ -50,6 +50,14 @@ print("imported", len(sys.argv) - 1)
 """
 
 
+def test_the_ranker_path_modules_are_covered():
+    """The module walk below reaches the second slice's modules."""
+    mods = set(_port_modules())
+    for mod in ("models.e5", "ops.encoder_attention", "ops.topk", "ops.rrf",
+                "retrieval.dense", "retrieval.hybrid", "sdag.knn"):
+        assert f"sdag_tpu_torch.{mod}" in mods
+
+
 def test_every_port_module_imports_with_jax_and_sdag_tpu_blocked():
     mods = _port_modules() + ["chip_smoke"]
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -126,6 +134,35 @@ def _entry_bm25_index(tmp_path):
     BM25Index.from_texts(["a b c", "b c d"], ["d0", "d1"])
 
 
+def _entry_build_encoder(tmp_path):
+    from sdag_tpu_torch.pipeline.resources import build_encoder
+    build_encoder(_csv_cfg(tmp_path))
+
+
+def _entry_e5_encoder(tmp_path):
+    from sdag_tpu_torch.models.e5 import E5Encoder, EncoderConfig
+    from sdag_tpu_torch.models.tokenizer import ByteTokenizer
+    E5Encoder({"layers": []}, EncoderConfig.tiny(), ByteTokenizer())
+
+
+def _entry_init_encoder_params(tmp_path):
+    from sdag_tpu_torch.models.e5 import EncoderConfig, init_encoder_params
+    init_encoder_params(torch.Generator(), EncoderConfig.tiny())
+
+
+def _entry_dense_index(tmp_path):
+    import numpy as np
+    from sdag_tpu_torch.retrieval.dense import DenseIndex
+    DenseIndex(np.zeros((2, 8), np.float32), [{"id": "a"}, {"id": "b"}])
+
+
+def _entry_run_experiment_dense(tmp_path):
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    cfg = _csv_cfg(tmp_path)
+    cfg.RETRIEVER_BACKEND = "dense"
+    run_experiment(cfg)
+
+
 def _entry_cli(tmp_path):
     import json
     from sdag_tpu_torch.config import Config
@@ -141,7 +178,9 @@ def _entry_cli(tmp_path):
 
 @pytest.mark.parametrize("entry", [
     _entry_run_experiment, _entry_init_resources, _entry_build_generator,
-    _entry_generator, _entry_bm25_index, _entry_cli],
+    _entry_generator, _entry_bm25_index, _entry_cli, _entry_build_encoder,
+    _entry_e5_encoder, _entry_init_encoder_params, _entry_dense_index,
+    _entry_run_experiment_dense],
     ids=lambda f: f.__name__[len("_entry_"):])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():

@@ -1,7 +1,8 @@
 """The port's main path end to end on the CPU against the JAX package, with
 the committed trained checkpoint (the configs of test_trained_qa_model):
 identical per-query answers CSV, clean ACC >= 0.5, ASR > 0 under attack;
-settings outside the slice raise NotImplementedError."""
+settings outside the port's slices raise NotImplementedError, the ranker
+path's settings no longer do."""
 
 import csv
 import os
@@ -98,10 +99,23 @@ def test_attack_run_bites(tmp_path, world):
 @pytest.mark.parametrize("key,value", [
     ("RETRIEVER_BACKEND", "dense"),
     ("RETRIEVER_BACKEND", "sparse_and_dense"),
-    ("DEFENSE_BACKEND", "ragdefender"),
-    ("DEFENSE_BACKEND", "discern_and_answer"),
     ("DOC_NEIGHBORS_K", 2),
     ("MALICIOUS_DOC_SELECTION_STRATEGY", "closest_to_centroid"),
+    ("MALICIOUS_DOC_SELECTION_STRATEGY", "furthest_from_centroid"),
+    ("DENSE_INDEX_DTYPE", "int8"),
+    ("DENSE_SEARCH_MODE", "exact"),
+])
+def test_settings_of_the_ranker_path_are_served(key, value):
+    cfg = Config()
+    setattr(cfg, key, value)
+    check_supported(cfg)
+    check_supported(Config())         # the default config (dense) too
+
+
+@pytest.mark.parametrize("key,value", [
+    ("DEFENSE_BACKEND", "ragdefender"),
+    ("DEFENSE_BACKEND", "discern_and_answer"),
+    ("RANKER_CHECKPOINT", REPO),      # an HF ranker waits for hf_convert
     ("KV_CACHE_DTYPE", "int8"),
     ("LLM_WEIGHTS_DTYPE", "int8"),
     ("SPECULATIVE_DRAFT_LEN", 4),
