@@ -6,24 +6,32 @@
 Phase 0  print the card (nvidia-smi name, power limit); build the kernels
          with nvcc, one process per source, all at once: K1
          (csrc/sdag_prefill.cu), K2 (csrc/bm25_scan_topk.cu), K3
-         (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu).
+         (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu); print
+         ptxas' registers and spill bytes per kernel body.
 Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          the card: the L=4096 20-doc 2-NN layout, the same tensors fully
          causal, L=16384 with 31 docs, a Dh=32 f32 case with holes, 40 docs
-         and a q_offset slice, and the main paths' ISO/NO-ISO shapes over
+         and a q_offset slice, the same layout in bf16 off the tile grid
+         (Lk 1990, Lq 995, a batch row with valid_len 0), GQA groups of 1
+         and 8 (the bf16 body shares K/V tiles between two q heads of a
+         group), and the main paths' ISO/NO-ISO shapes over
          real synthetic-world prompts: llama3-8b heads in bf16 (the
          tensor-core body) and qa_ckpt's heads in f32 (the CUDA-core
          body).  Valid rows that see a key are compared: max abs error
          <= 2e-2 for bf16, <= 1e-4 for f32, and each row's max abs error
          over its RMS <= 5e-2 / 1e-3; at each ISO main-path shape a
-         planted one-tile fault must fail these checks.  Times K1, the
+         planted one-tile fault must fail these checks (also at the group
+         of 8).  Times K1, the
          plain version, and F.scaled_dot_product_attention with the dense
          boolean mask.
 Phase 2  K2 against its plain version: 1,048,576 docs x 64 Zipf term slots
          (2^18 vocab), 32 queries x 16 terms, k=10 (and k=20; and 32 terms,
          k=64: every pass-1 instantiation); and the main path's
          index/query shapes.  Indices must agree wherever scores differ by
-         more than 1e-5 relative; scores agree within 1e-5 relative.
+         more than 1e-5 relative; scores agree within 1e-5 relative.  No
+         single PyTorch call computes the scan, so library_ms is null;
+         torch.topk over precomputed scores (selection alone) is reported
+         as topk_only_ms.
 Phase 3  run_experiment on experiments/data/qa_ckpt (trained decoder):
          clean ACC iso/noiso >= 0.5, attacked ASR iso+noiso > 0.
 Phase 4  the main path at full width: run_experiment with LLM_ARCH=llama3-8b
@@ -45,13 +53,16 @@ Phase 6  K4 and K5 against their plain versions (exact_topk,
          exact_topk_int8): 1,048,576 x 1024 normalised rows in bf16 and
          int8, Q=256 and Q=32, k=10 and k=64, valid_n = N and N - 1000;
          f32 at N=131,072; duplicated rows that must come back in index
-         order; k > valid_n; shapes off the tile grid (D 48/80/128/1040,
-         Q 1/130, N 50, k 128); the plain-PyTorch "approx" searches on the
+         order (also 150 copies against k=128 at Q=129, and k=1 at Q=1);
+         k > valid_n; shapes off the tile grid (D 48/80/128/1040,
+         Q 1/130, N 50 and 100, k 128); K5's query quantiser kernel
+         against its plain rule, bit for bit; the plain-PyTorch "approx" searches on the
          card against the CPU and the kernels; and the ranker path's shape.  K4: scores
          within 1e-5 relative (+1e-6), indices equal wherever the plain
          scores differ by more than that.  K5: bit-equal, indices included.
          Times each against torch.matmul (torch._int_mm for int8) +
-         torch.topk.
+         torch.topk; K5's time and its library time both include the
+         query quantiser.
 Phase 7  the ranker path at full width through run_experiment, counts
          zeroed before each run and read after: (a) qa_ckpt_v4 with
          DOC_NEIGHBORS_K=2, sparse retrieval, clean, RANKER_ARCH
@@ -98,6 +109,55 @@ def nvidia_smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     return out.splitlines()[0]
+
+
+def _mangled_function_name(mangled: str) -> str:
+    """The function's own name out of an Itanium-mangled symbol: the last of
+    the length-prefixed names that open it (_ZN 47_GLOBAL__N_... 15topk_...)."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while pos < len(mangled) and mangled[pos].isdigit():
+        end = pos
+        while mangled[end].isdigit():
+            end += 1
+        n = int(mangled[pos:end])
+        name = mangled[end:end + n]
+        pos = end + n
+    return name
+
+
+def ptxas_report(build) -> list:
+    """Registers and spill bytes per kernel body from nvcc's -Xptxas=-v
+    output in build/<name>.log: the largest over a body's template
+    instantiations."""
+    import re
+    bodies = {}
+    for name in build.KERNELS:
+        path = os.path.join(build.BUILD, f"{name}.log")
+        if not os.path.isfile(path):
+            continue
+        with open(path) as fh:
+            text = fh.read()
+        for entry in re.split(r"Compiling entry function '", text)[1:]:
+            mangled = entry.split("'", 1)[0]
+            body = _mangled_function_name(mangled)
+            regs = re.search(r"Used (\d+) registers", entry)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", entry)
+            rec = bodies.setdefault((name, body), {
+                "source": f"{name}.cu", "body": body, "instantiations": 0,
+                "max_registers": 0, "max_spill_store_bytes": 0,
+                "max_spill_load_bytes": 0})
+            rec["instantiations"] += 1
+            if regs:
+                rec["max_registers"] = max(rec["max_registers"],
+                                           int(regs.group(1)))
+            if spill:
+                rec["max_spill_store_bytes"] = max(
+                    rec["max_spill_store_bytes"], int(spill.group(1)))
+                rec["max_spill_load_bytes"] = max(
+                    rec["max_spill_load_bytes"], int(spill.group(2)))
+    return list(bodies.values())
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -196,7 +256,11 @@ def _k1_case(name, q, k, v, doc_id, nbr, sul, vl, q_offset=None,
            "Lk": Lk, "Dh": Dh, "dtype": dtype, "max_abs_err": err,
            "tol": tol, "max_row_rel_err": row_err, "row_tol": row_tol,
            "live_tiles": int((plan["kinds"] > 0).sum()),
-           "all_tiles": int(plan["kinds"].numel()), "visible_pairs": pairs}
+           "all_tiles": int(plan["kinds"].numel()),
+           "tiles_full_partial_causal": [
+               int((plan["kinds"] == kind).sum())
+               for kind in (A.BLOCK_FULL, A.BLOCK_PARTIAL, A.BLOCK_CAUSAL)],
+           "visible_pairs": pairs}
     if not finite or not err <= tol or not row_err <= row_tol:
         raise AssertionError(f"K1 {name}: max abs err {err} (limit {tol}), "
                              f"row-relative {row_err} (limit {row_tol}), "
@@ -312,6 +376,30 @@ def phase1(dev):
                          q_offset=t32([L - Lq] * B),
                          doc_id_q=t32(did[:, L - Lq:]),
                          nbr_q=t32(nbr[:, L - Lq:])))
+    # (i): the same layout in bf16 (the wgmma body) off the tile grid: Lk
+    # and Lq no multiples of 64, q rows = the second half, one batch row
+    # with valid_len 0 (every row of it sees no key and outputs 0)
+    Lk, Lq = 1990, 995
+    kq = rnd(B, 4, Lk, 128, dtype=torch.bfloat16)
+    k = rnd(B, 2, Lk, 128, dtype=torch.bfloat16)
+    v = rnd(B, 2, Lk, 128, dtype=torch.bfloat16)
+    q = kq[:, :, Lk - Lq:].contiguous()
+    recs.append(_k1_case("i_bf16_holes_qoffset_ragged_vl0", q, k, v,
+                         t32(did[:, :Lk]), t32(nbr[:, :Lk]), t32([96, 96]),
+                         t32([Lk - 37, 0]), q_offset=t32([Lk - Lq] * B),
+                         doc_id_q=t32(did[:, Lk - Lq:Lk]),
+                         nbr_q=t32(nbr[:, Lk - Lq:Lk])))
+    # (j), (k): GQA groups of 1 (one warpgroup a block) and 8 (four pairs
+    # per kv head) at Dh 64 and 32, lengths off the tile grid
+    for name, hq, hkv, dh, L in (("j_bf16_group1_Dh64_L333", 4, 4, 64, 333),
+                                 ("k_bf16_group8_Dh32_L520", 8, 1, 32, 520)):
+        q = rnd(B, hq, L, dh, dtype=torch.bfloat16)
+        k = rnd(B, hkv, L, dh, dtype=torch.bfloat16)
+        v = rnd(B, hkv, L, dh, dtype=torch.bfloat16)
+        recs.append(_k1_case(name, q, k, v, t32(did[:, :L]), t32(nbr[:, :L]),
+                             t32([96, 96]), t32([L - 7, L - 100]),
+                             plant_fault=hq // hkv == 8))
+    del kq, q, k, v
     # (e)-(h): the main paths' shapes over real prompt layouts (batch 8,
     # ISO plans padded to 128 / the NO-ISO causal prompts): llama3-8b heads
     # in bf16 (phase 4, the tensor-core body) and qa_ckpt's heads in f32
@@ -410,7 +498,8 @@ def _k2_case(name, term_ids, impacts, q_terms, q_weights, k, valid_n,
             plain_ms=cuda_ms(lambda: M.bm25_topk_reference(
                 term_ids, impacts, q_terms, q_weights, k, valid_n=valid_n),
                 iters=3, warmup=1),
-            library_ms=cuda_ms(lambda: torch.topk(scores, k, dim=1)),
+            library_ms=None,   # no single PyTorch call computes the scan
+            topk_only_ms=cuda_ms(lambda: torch.topk(scores, k, dim=1)),
             slot_matches=matches, bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     log(f"[phase2] {json.dumps(rec)}")
@@ -857,9 +946,12 @@ def _k4_case(name, queries, corpus, k, valid_n, scales=None, timed=True,
         t_bytes = nbytes / H100_BYTES_PER_S
         t_ops = 2.0 * Q * valid_n * D / PEAK_FLOPS[dtype]
         if int8:
+            # like for like: run_k quantises the queries (K5's prologue
+            # kernel), so the library pair does too (plain PyTorch ops)
             def lib():
-                acc = torch._int_mm(q_i8, corpus.t())
-                s = (acc.float() * q_scales[:, None]) * scales[None, :]
+                qi, qs = T.quantize_last_axis_int8(queries)
+                acc = torch._int_mm(qi, corpus.t())
+                s = (acc.float() * qs[:, None]) * scales[None, :]
                 return torch.topk(s, k, dim=1)
         else:
             lib = lambda: torch.topk(torch.matmul(qc, corpus.t()),  # noqa
@@ -973,6 +1065,42 @@ def phase6(dev):
         recs.append(_k4_case(f"e_k_gt_valid_{name}", q32, corpus, 10, 5,
                              scales=sc, timed=False))
     del cf
+    # the candidate buffers at their limits: 150 copies of query 0's best
+    # row against k = 128 (the list fills with ties, in index order) at
+    # Q = 129 (one row past a 128-row query tile); k = 1 at Q = 1; a
+    # corpus shorter than one 128-row tile
+    gd = torch.Generator(device=dev)
+    gd.manual_seed(67)
+    nd, dd = 5000, 256
+    base = _normalised_rows(gd, nd, dd, dev)
+    qd = _normalised_rows(gd, 129, dd, dev)
+    dup = [3 + 33 * i for i in range(150)]
+    for name, corpus, sc in (("bf16", base.to(torch.bfloat16), None),
+                             ("f32", base.clone(), None),
+                             ("int8",) + T.quantize_last_axis_int8(base)):
+        qd[0] = corpus[dup[0]].float() * (sc[dup[0]] if sc is not None
+                                          else 1.0)
+        corpus[dup] = corpus[dup[0]].clone()
+        if sc is not None:
+            sc[dup] = sc[dup[0]].clone()
+        recs.append(_k4_case(f"i_dups_k128_Q129_{name}", qd, corpus, 128, nd,
+                             scales=sc, timed=False, expect_first=dup[:128]))
+        recs.append(_k4_case(f"i_k1_Q1_{name}", qd[:1].contiguous(), corpus,
+                             1, nd, scales=sc, timed=False,
+                             expect_first=dup[:1]))
+        recs.append(_k4_case(f"i_N100_lt_tile_Q129_{name}", qd,
+                             corpus[:100].contiguous(), 10, 100,
+                             scales=None if sc is None
+                             else sc[:100].contiguous(), timed=False))
+    # K5's prologue kernel against the plain quantisation rule, bit for bit
+    for rows, width in ((24, 1024), (1, 48), (130, 1040)):
+        x = torch.randn(rows, width, generator=gd, device=dev)
+        x[0, 0] = 0.0
+        got, want = T.quantize_rows_int8_cuda(x), T.quantize_last_axis_int8(x)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"K5 query quantiser differs from the plain "
+                                 f"rule at [{rows}, {width}]")
+    log("[phase6] query quantiser kernel bit-equal to the plain rule")
     # shapes off the tile grid (untimed): feature widths that leave a
     # partial 128-byte chunk (or, f32, a partial 32-float step), one query,
     # a query count past one 128-row tile, a corpus shorter than a tile
@@ -1152,15 +1280,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[phase0] kernels built in {time.perf_counter() - t0:.1f}s")
-    for name in _build.KERNELS:
-        path = os.path.join(_build.BUILD, f"{name}.log")
-        if os.path.isfile(path):
-            with open(path) as fh:
-                for line in fh:
-                    if "registers" in line or "spill" in line:
-                        log(f"[phase0] {name}: {line.strip()}")
+    ptxas = ptxas_report(_build)
+    log(f"[phase0] ptxas {json.dumps(ptxas)}")
 
-    details = {"card": card}
+    details = {"card": card, "ptxas": ptxas}
     details["phase1"] = k1 = phase1(dev)
     details["phase2"] = k2 = phase2(dev)
     details["phase3"] = p3 = phase3(dev)
@@ -1228,6 +1351,7 @@ def main() -> int:
     log(f"[summary] phase 4 prefill {p4['prefill_tok_s']:.1f} tok/s, "
         f"decode {p4['decode_tok_s']:.1f} tok/s, peak "
         f"{p4['peak_mem_gib']:.2f} GiB on {card}")
+    log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time the redesigned kernels of ``sdag_tpu_torch`` against an earlier
+checkout of the same package, on one GPU, within one run.
+
+    git archive <earlier commit> | tar -x -C <dir>     # the earlier tree
+    python3 kernel_times.py --old <dir>
+
+Both trees are timed at the same seeded shapes through the same public
+wrappers, in turns (old, new, new, old), each turn in a process of its own
+that builds that tree's kernels with nvcc:
+
+* K4 ``fused_topk_matmul`` (bfloat16) and K5 ``fused_topk_matmul_int8``
+  (float32 queries in, so the query quantiser is inside the time of both
+  versions): N = 1,048,576 rows of D = 1024, Q in (256, 32), k in (10, 64),
+  and the ranker path's shape (N = 1024 with 384 valid rows, Q = 24, k = 5);
+* K1 ``sdag_prefill_cuda`` in bfloat16: the llama3-8b main path's ISO and
+  NO-ISO shapes (B = 8, Hq = 32, Hkv = 8, L = 640, Dh = 128, real prompt
+  layouts), L = 4096 with 20 documents and 2-NN windows, the same fully
+  causal, and L = 16384 with 31 documents.
+
+Prints the card (nvidia-smi name and power limit), one JSON line per turn,
+and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
+[..]}}}``.  Times are CUDA-event times over a run of launches after a
+warm-up.  Without CUDA it exits 2.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def worker(tree: str) -> int:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    import chip_smoke as c                      # the tree's own helpers
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.ops import attention as A
+    from sdag_tpu_torch.ops import topk as T
+
+    _build.build_all(["sdag_prefill", "topk_matmul"])
+    dev = torch.device("cuda", 0)
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    n, d = 1 << 20, 1024
+    c32 = c._normalised_rows(g, n, d, dev)
+    q256 = c._normalised_rows(g, 256, d, dev)
+    cb = c32.to(torch.bfloat16)
+    ci, cs = T.quantize_last_axis_int8(c32)
+    del c32
+    torch.cuda.empty_cache()
+    for qn in (256, 32):
+        q = q256[:qn].contiguous()
+        for k in (10, 64):
+            out[f"K4_bf16_N1M_Q{qn}_k{k}"] = c.cuda_ms(
+                lambda: T.fused_topk_matmul(q, cb, k), iters=5, warmup=1)
+            out[f"K5_int8_N1M_Q{qn}_k{k}"] = c.cuda_ms(
+                lambda: T.fused_topk_matmul_int8(q, ci, cs, k), iters=5,
+                warmup=1)
+    qm = q256[:24].contiguous()
+    cbp, cip, csp = (t[:1024].contiguous() for t in (cb, ci, cs))
+    out["K4_bf16_path_N1024_Q24_k5"] = c.cuda_ms(
+        lambda: T.fused_topk_matmul(qm, cbp, 5, valid_n=384), iters=20)
+    out["K5_int8_path_N1024_Q24_k5"] = c.cuda_ms(
+        lambda: T.fused_topk_matmul_int8(qm, cip, csp, 5, valid_n=384),
+        iters=20)
+    del cb, ci, cs
+    torch.cuda.empty_cache()
+
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev,
+                           dtype=torch.float32).to(torch.bfloat16)
+
+    def k1(name, q, k, v, doc_id, nbr, sul, vl):
+        plan = A.prefill_mask_plan(doc_id, nbr, sul, vl)
+        out[name] = c.cuda_ms(lambda: A.sdag_prefill_cuda(q, k, v, plan),
+                              iters=20)
+
+    plans, plain = c._main_path_prompts(8)
+    lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
+    metas = [p.metadata(pad_to=lp) for p in plans]
+    lpn = -(-max(len(x) for x in plain) // 128) * 128
+    q, k, v = (rnd(8, h, lp, 128) for h in (32, 8, 8))
+    k1("K1_bf16_path_iso", q, k, v, t32(np.stack([m[0] for m in metas])),
+       t32(np.stack([m[1] for m in metas])), t32([m[2] for m in metas]),
+       t32([len(p.input_ids) for p in plans]))
+    q, k, v = (rnd(8, h, lpn, 128) for h in (32, 8, 8))
+    k1("K1_bf16_path_noiso", q, k, v, t32(np.full((8, lpn), -1)),
+       t32(np.zeros((8, lpn))), t32([0] * 8), t32([len(x) for x in plain]))
+    for name, L, docs, doc_len, nn in (("K1_bf16_L4096_20docs_2nn", 4096, 20,
+                                        176, True),
+                                       ("K1_bf16_L4096_causal", 4096, 0, 0,
+                                        False),
+                                       ("K1_bf16_L16384_31docs", 16384, 31,
+                                        512, False)):
+        q, k, v = (rnd(1, h, L, 128) for h in (16, 8, 8))
+        did, nb = c._layout_docs(L, 256 if docs else 0, docs, doc_len, nn)
+        k1(name, q, k, v, t32(did[None]), t32(nb[None]),
+           t32([256 if docs else 0]), t32([L]))
+    print(json.dumps({"tree": tree, "ms": out}), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", help="checkout of the earlier commit")
+    ap.add_argument("--worker", action="store_true")
+    ap.add_argument("--tree", default=HERE)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_times: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    if args.worker:
+        return worker(os.path.abspath(args.tree))
+    if not args.old:
+        ap.error("--old is required")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card.splitlines()[0], flush=True)
+    times = {}
+    for which, tree in (("old", args.old), ("new", HERE), ("new", HERE),
+                        ("old", args.old)):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--worker", "--tree",
+             os.path.abspath(tree)], capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
+            return 1
+        line = [x for x in res.stdout.splitlines()
+                if x.startswith('{"tree"')][-1]
+        print(f"{which}: {line}", flush=True)
+        for name, ms in json.loads(line)["ms"].items():
+            times.setdefault(name, {"old_ms": [], "new_ms": []})[
+                f"{which}_ms"].append(ms)
+    print(json.dumps({"kernel_times": times}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -35,6 +35,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SM_COUNT: Dict[object, int] = {}
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (persistent kernels
+    launch one block per SM); asked of CUDA once per device."""
+    n = _SM_COUNT.get(device)
+    if n is None:
+        import torch
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _SM_COUNT[device] = n
+    return n
 
 
 def _nvcc() -> str:

@@ -127,4 +127,74 @@ topk_merge_pass(const float* __restrict__ cand_vals,
   }
 }
 
+// The same merge for lists that are each sorted in rank order (empty slots
+// last): thread t keeps the heads of lists t and t + MERGE_NT in registers,
+// each round is one block-wide arg-max over the heads, and only the winner
+// reloads.  k rounds of a few shuffles instead of k scans of every entry.
+constexpr int MERGE_SORTED_MAX_LISTS = 2 * MERGE_NT;
+
+__global__ void __launch_bounds__(MERGE_NT)
+topk_merge_sorted_pass(const float* __restrict__ cand_vals,
+                       const int* __restrict__ cand_idx, float* out_vals,
+                       int* out_idx, int n_lists, int Q, int k) {
+  __shared__ float red_v[MERGE_WARPS];
+  __shared__ int red_i[MERGE_WARPS];
+  const int qi = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float hv[2];
+  int hi[2], pos[2] = {0, 0};
+  size_t off[2];
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    const int w = threadIdx.x + l * MERGE_NT;
+    off[l] = ((size_t)w * Q + qi) * k;
+    hv[l] = w < n_lists ? cand_vals[off[l]] : -INFINITY;
+    hi[l] = w < n_lists ? cand_idx[off[l]] : TOPK_INT_MAX;
+  }
+  for (int r = 0; r < k; ++r) {
+    const bool second = better(hv[1], hi[1], hv[0], hi[0]);
+    float bv = second ? hv[1] : hv[0];
+    int bi = second ? hi[1] : hi[0];
+    const int my_i = bi;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (better(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      red_v[warp] = bv;
+      red_i[warp] = bi;
+    }
+    __syncthreads();
+    bv = red_v[0];
+    bi = red_i[0];
+#pragma unroll
+    for (int w = 1; w < MERGE_WARPS; ++w)
+      if (better(red_v[w], red_i[w], bv, bi)) {
+        bv = red_v[w];
+        bi = red_i[w];
+      }
+    __syncthreads();  // red_* reused next round
+    if (threadIdx.x == 0) {
+      out_vals[(size_t)qi * k + r] = bv;
+      out_idx[(size_t)qi * k + r] = bi == TOPK_INT_MAX ? -1 : bi;
+    }
+    // indices are unique across lists: the owner of the pick moves on
+    if (bi != TOPK_INT_MAX && my_i == bi) {
+#pragma unroll
+      for (int l = 0; l < 2; ++l)
+        if (hi[l] == bi) {
+          ++pos[l];
+          hv[l] = pos[l] < k ? cand_vals[off[l] + pos[l]] : -INFINITY;
+          hi[l] = pos[l] < k ? cand_idx[off[l] + pos[l]] : TOPK_INT_MAX;
+        }
+    }
+  }
+}
+
 }  // namespace

@@ -10,11 +10,14 @@ on a CUDA tensor and the plain dense-mask version
 K1 walks, per (batch, q-tile), the packed list of live key tiles
 (``compute_block_kinds`` + ``_pack_kv_lists`` at K1's own 64x64 tiles) and
 specializes the mask by tile kind: FULL tiles take no mask, CAUSAL tiles
-the 3-op causal rule, PARTIAL tiles the full SDAG rule evaluated in-kernel
-from O(L) metadata.  The TPU path's int8 mask tiles (``use_mask_tiles``)
-traded VMEM DMA against VPU work; K1 computes the rule in-kernel instead.
-bf16 inputs run on the tensor cores (mma.sync, f32 accumulation); f32
-inputs stay f32 on CUDA-core FMA.
+the 3-op causal rule, PARTIAL tiles the full SDAG rule: the f32 body
+evaluates it in-kernel from O(L) metadata, the bf16 body tests bit tiles
+that the plan evaluates once per prefill for all layers and heads
+(``partial_tile_masks``; the TPU path's int8 mask tiles, ``use_mask_tiles``,
+are the same trade).
+bf16 inputs run on the tensor cores (wgmma fed by TMA, f32 accumulation,
+two q heads of a GQA group sharing each K/V tile); f32 inputs stay f32 on
+CUDA-core FMA.
 
 Decode keeps reference semantics: generated tokens attend the whole cache
 with plain causal attention; it is plain PyTorch (XLA in the JAX package).
@@ -257,6 +260,71 @@ def _pack_kv_lists(kinds: torch.Tensor):
     return counts, kv_list, kind_list
 
 
+def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
+                       sys_user_len, valid_len, q_offset):
+    """The SDAG token rule on the PARTIAL tiles only, as bits: K1's bf16
+    body tests these instead of evaluating the rule per layer and head (a
+    tile's mask depends on neither).
+
+    kinds [B, nQ, nK] and the tile-padded metadata of ``k1_plan``.  Returns
+    (mask_bits int32 [max(P, 1), K1_BLOCK_Q, K1_BLOCK_K // 32]: bit c % 32
+    of word c // 32 of row r is the rule for q row r and key c of the P-th
+    PARTIAL tile in (batch, q-tile, kv-tile) order; mask_slot int32
+    [B, nQ, nK]: parallel to ``kv_list``, the tile's index into mask_bits,
+    -1 where the tile is not PARTIAL)."""
+    dev = kinds.device
+    B, nq, nk = kinds.shape
+    part = kinds == BLOCK_PARTIAL
+    b, qi, ki = part.nonzero(as_tuple=True)
+    n_part = int(b.numel())
+    slot = torch.full((B, nq, nk), -1, dtype=torch.int32, device=dev)
+    slot[part] = torch.arange(n_part, dtype=torch.int32, device=dev)
+    mask_slot = torch.gather(slot, -1, kv_list.long()).contiguous()
+    words = K1_BLOCK_K // 32
+    bits = torch.zeros(max(n_part, 1), K1_BLOCK_Q, words, dtype=torch.int32,
+                       device=dev)
+    if n_part:
+        r = torch.arange(K1_BLOCK_Q, dtype=torch.int32, device=dev)
+        c = torch.arange(K1_BLOCK_K, dtype=torch.int32, device=dev)
+        i = (q_offset[b] + qi.to(torch.int32) * K1_BLOCK_Q)[:, None, None] \
+            + r[None, :, None]
+        j = (ki.to(torch.int32) * K1_BLOCK_K)[:, None, None] + c[None, None, :]
+        dq = doc_id_q.reshape(B, nq, K1_BLOCK_Q)[b, qi]
+        nbq = nbr_bits_q.reshape(B, nq, K1_BLOCK_Q)[b, qi]
+        dkk = doc_id.reshape(B, nk, K1_BLOCK_K)[b, ki]
+        m = _tile_mask(i, j, dq[:, :, None], dkk[:, None, :], nbq[:, :, None],
+                       sys_user_len[b][:, None, None],
+                       valid_len[b][:, None, None])
+        weight = 1 << torch.arange(32, dtype=torch.int64, device=dev)
+        packed = (m.reshape(n_part, K1_BLOCK_Q, words, 32).to(torch.int64)
+                  * weight).sum(-1)
+        # the low 32 bits as a signed word
+        bits = torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                           packed).to(torch.int32).contiguous()
+    return bits, mask_slot
+
+
+def heavy_first_order(counts: torch.Tensor) -> torch.Tensor:
+    """The (batch, q-tile) pairs b * nQ + qt sorted by live key tiles, most
+    first (ties in index order): K1's bf16 body hands out work in this
+    order, so the last blocks to finish hold the lightest q-tiles."""
+    return torch.argsort(counts.reshape(-1), descending=True,
+                         stable=True).to(torch.int32).contiguous()
+
+
+def k1_group_items(n_q_heads: int, n_kv_heads: int):
+    """How K1's bf16 body cuts a GQA layout into work items per (batch,
+    q-tile): (q heads per block, items).  Two q heads of a kv head share
+    one block (and each K/V tile) when the group size is even, else every
+    q head is an item of its own.  Each item is (kv head, its q heads), in
+    the order the kernel numbers them."""
+    group = n_q_heads // n_kv_heads
+    nwg = 2 if group % 2 == 0 else 1
+    items = [(kvh, tuple(kvh * group + c * nwg + w for w in range(nwg)))
+             for kvh in range(n_kv_heads) for c in range(group // nwg)]
+    return nwg, items
+
+
 def _pad_cols(x: torch.Tensor, n: int, value: int) -> torch.Tensor:
     if x.shape[1] == n:
         return x.contiguous()
@@ -300,7 +368,11 @@ def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
     kinds = compute_block_kinds(dk, nbk, sul, vl, K1_BLOCK_Q, K1_BLOCK_K,
                                 doc_id_q=dq, nbr_bits_q=nbq, q_offset=qo)
     counts, kv_list, kind_list = _pack_kv_lists(kinds)
+    mask_bits, mask_slot = partial_tile_masks(kinds, kv_list, dk, dq, nbq,
+                                              sul, vl, qo)
     return {"Lq": Lq, "Lk": L, "nq": nq, "nk": nk, "doc_id": dk,
+            "order": heavy_first_order(counts),
+            "mask_bits": mask_bits, "mask_slot": mask_slot,
             "doc_id_q": dq, "nbr_bits_q": nbq, "sys_user_len": sul,
             "valid_len": vl, "q_offset": qo, "kinds": kinds,
             "counts": counts.contiguous(), "kv_list": kv_list.contiguous(),
@@ -309,7 +381,7 @@ def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
 
 _K1_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launch-count key per kernel body: bf16 runs the tensor-core kernel
-# (sdag_prefill_mma_kernel), f32 the CUDA-core one (sdag_prefill_kernel)
+# (sdag_prefill_wgmma_kernel), f32 the CUDA-core one (sdag_prefill_kernel)
 K1_BODIES = {torch.float32: "sdag_prefill_f32",
              torch.bfloat16: "sdag_prefill_bf16"}
 
@@ -318,8 +390,8 @@ def _k1_lib():
     lib = _build.load("sdag_prefill")
     if lib.sdag_prefill.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sdag_prefill.argtypes = [p] * 13 + [i] * 9 + [ctypes.c_float,
-                                                          i, p]
+        lib.sdag_prefill.argtypes = [p] * 16 + [i] * 9 + [ctypes.c_float,
+                                                          i, i, i, p]
         lib.sdag_prefill.restype = i
     return lib
 
@@ -363,9 +435,11 @@ def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
         ptr(plan["doc_id_q"]), ptr(plan["nbr_bits_q"]),
         ptr(plan["sys_user_len"]), ptr(plan["valid_len"]),
         ptr(plan["q_offset"]), ptr(plan["counts"]), ptr(plan["kv_list"]),
-        ptr(plan["kind_list"]), B, Hq, Hkv, Lq, Lk, Dh, plan["nq"],
-        plan["nk"], plan["doc_id"].shape[1], float(scale),
-        _K1_DTYPES[q.dtype],
+        ptr(plan["kind_list"]), ptr(plan["order"]), ptr(plan["mask_bits"]),
+        ptr(plan["mask_slot"]), B, Hq, Hkv, Lq, Lk, Dh,
+        plan["nq"], plan["nk"], plan["doc_id"].shape[1], float(scale),
+        _K1_DTYPES[q.dtype], k1_group_items(Hq, Hkv)[0],
+        _build.sm_count(q.device),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(lib, rc, "sdag_prefill")
     _build.LAUNCHES[K1_BODIES[q.dtype]] += 1

@@ -158,13 +158,90 @@ def exact_topk_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
     return _int8_topk(queries, corpus_i8, scales, k, valid_n)
 
 
+# geometry of the tensor-core bodies (csrc/topk_matmul.cu topk_matmul_mma)
+K4_TILE_N = 128            # corpus rows per tile
+K4_TILE_N_F32 = 64
+K4_CHUNK_BYTES = 128       # bytes of a row per ring stage
+K4_SMEM_LIMIT = 232448     # dynamic shared memory a block may use
+K4_MAX_STAGES = 4
+# up to this many corpus tiles one block walks them all and writes the
+# result itself (no second pass)
+K4_ONE_SPLIT_TILES = 4
+
+
+def _mma_smem_bytes(q_rows: int, cap: int, stages: int) -> int:
+    """csrc/topk_matmul.cu mma_layout().total."""
+    stage = (K4_TILE_N + q_rows) * K4_CHUNK_BYTES  # corpus + query chunk
+    return (stages * stage
+            + stages * K4_TILE_N * 4        # row scales per stage
+            + 2 * q_rows * cap * 4          # candidate buffers
+            + 2 * stages * 8)               # barriers
+
+
+def topk_mma_geometry(qn: int, valid_n: int, d: int, k: int,
+                      dtype: torch.dtype, sms: int) -> dict:
+    """Launch geometry of the bf16 / int8 bodies of K4/K5, a pure function
+    of the shapes and the SM count.
+
+    * ``cap``: entries of a row's candidate buffer, 64 / 128 / 256 for
+      k <= 16 / 64 / 128 (at least k + 32: 32 columns are appended between
+      two checks).
+    * ``q_rows``: 128 query rows a block (two warpgroups) once Q > 64 and
+      the buffers of 128 rows fit (k <= 64), else 64.
+    * ``stages``: as many ring stages (a 128-byte chunk of the corpus
+      tile's and of the query tile's rows) as fit, at most K4_MAX_STAGES.
+    * one block per SM: ``n_splits`` corpus splits of ``tiles_per_split``
+      128-row tiles per query tile; a corpus of at most
+      K4_ONE_SPLIT_TILES tiles is one split, written without the merge
+      pass (``direct``).
+    """
+    es = {torch.bfloat16: 2, torch.int8: 1}[dtype]
+    n_chunks = -(-d * es // K4_CHUNK_BYTES)
+    cap = 64 if k <= 16 else 128 if k <= 64 else 256
+    q_rows = 128 if qn > 64 and cap <= 128 else 64
+
+    stages = max(st for st in range(2, K4_MAX_STAGES + 1)
+                 if _mma_smem_bytes(q_rows, cap, st) <= K4_SMEM_LIMIT)
+    q_tiles = -(-qn // q_rows)
+    tiles = max(1, -(-valid_n // K4_TILE_N))
+    if tiles <= K4_ONE_SPLIT_TILES:
+        n_splits = 1
+    else:
+        n_splits = max(1, min(tiles, sms // q_tiles))
+    tiles_per_split = -(-tiles // n_splits)
+    n_splits = -(-tiles // tiles_per_split)
+    return {"q_rows": q_rows, "cap": cap, "stages": stages,
+            "n_chunks": n_chunks,
+            "q_tiles": q_tiles, "tiles": tiles, "n_splits": n_splits,
+            "tiles_per_split": tiles_per_split, "direct": n_splits == 1,
+            "smem_bytes": _mma_smem_bytes(q_rows, cap, stages)}
+
+
+def topk_f32_geometry(qn: int, valid_n: int, sms: int) -> dict:
+    """Launch geometry of K4's float32 body: 64 x 64 tiles, corpus splits
+    sized to ~2 blocks per SM, always merged by the second pass."""
+    q_tiles = -(-qn // 64)
+    tiles = max(1, -(-valid_n // K4_TILE_N_F32))
+    n_splits = max(1, min(tiles, (2 * sms) // q_tiles))
+    tiles_per_split = -(-tiles // n_splits)
+    return {"q_rows": 64, "cap": 0, "stages": 0, "tiles": tiles,
+            "n_splits": -(-tiles // tiles_per_split),
+            "tiles_per_split": tiles_per_split, "direct": False}
+
+
 def _k4_lib():
     lib = _build.load("topk_matmul")
     if lib.topk_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.topk_matmul.argtypes = [p] * 8 + [i] * 9 + [p]
+        lib.topk_matmul.argtypes = [p] * 8 + [i] * 11 + [p]
         lib.topk_matmul.restype = i
+        lib.quantize_rows_int8.argtypes = [p, p, p, i, i, p]
+        lib.quantize_rows_int8.restype = i
     return lib
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
 
 
 def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
@@ -203,39 +280,60 @@ def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         for name, s, rows in (("q_scales", q_scales, qn),
                               ("c_scales", c_scales, n)):
             if s is None or s.device != corpus.device or s.shape != (rows,) \
-                    or s.dtype != torch.float32 or not s.is_contiguous():
+                    or s.dtype != torch.float32 or not s.is_contiguous() \
+                    or s.data_ptr() % 16:
                 raise ValueError(f"topk_matmul_cuda: {name} must be a "
-                                 f"contiguous float32 [{rows}] on the "
-                                 "corpus' device")
+                                 f"contiguous, 16-byte aligned float32 "
+                                 f"[{rows}] on the corpus' device")
         qs_p = ctypes.c_void_p(q_scales.data_ptr())
         cs_p = ctypes.c_void_p(c_scales.data_ptr())
     valid_n = n if valid_n is None else max(0, min(int(valid_n), n))
     dev = corpus.device
-    # 128 query rows per block once the batch fills them (tensor-core
-    # bodies only); corpus splits sized to ~2 blocks per SM: more splits
-    # hide more latency but every split warms up its own k-lists (on an
-    # H100, 4 per SM read slower at k=64 and no faster at k=10)
-    q_rows = 128 if dt != torch.float32 and qn > 64 else 64
-    q_tiles = -(-qn // q_rows)
-    tiles = max(1, -(-valid_n // 64))
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_splits = max(1, min(tiles, (2 * sms) // q_tiles))
-    tiles_per_split = -(-tiles // n_splits)
-    n_splits = -(-tiles // tiles_per_split)
-    cand_v = torch.empty(n_splits, qn, k, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(n_splits, qn, k, dtype=torch.int32, device=dev)
+    if dt == torch.float32:
+        geo = topk_f32_geometry(qn, valid_n, _build.sm_count(dev))
+    else:
+        geo = topk_mma_geometry(qn, valid_n, d, k, dt, _build.sm_count(dev))
     out_v = torch.empty(qn, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(qn, k, dtype=torch.int32, device=dev)
+    cand_v_p = cand_i_p = null
+    if not geo["direct"]:
+        # the splits' lists: values, then indices, in one scratch tensor
+        cand = torch.empty(2, geo["n_splits"], qn, k, dtype=torch.float32,
+                           device=dev)
+        cand_v_p = ctypes.c_void_p(cand.data_ptr())
+        cand_i_p = ctypes.c_void_p(cand[1].data_ptr())
     lib = _k4_lib()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     rc = lib.topk_matmul(
-        ptr(queries), ptr(corpus), qs_p, cs_p, ptr(cand_v), ptr(cand_i),
-        ptr(out_v), ptr(out_i), qn, n, d, k, valid_n, n_splits,
-        tiles_per_split, q_rows, _K4_DTYPES[dt],
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        ptr(queries), ptr(corpus), qs_p, cs_p, cand_v_p, cand_i_p,
+        ptr(out_v), ptr(out_i), qn, n, d, k, valid_n, geo["n_splits"],
+        geo["tiles_per_split"], geo["q_rows"], geo["cap"], geo["stages"],
+        _K4_DTYPES[dt], _stream(dev))
     _build.check(lib, rc, "topk_matmul")
     _build.LAUNCHES[K4_BODIES[dt]] += 1
     return out_v, out_i
+
+
+def quantize_rows_int8_cuda(x: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The query quantiser of K5 as a kernel (``csrc/topk_matmul.cu``
+    quantize_rows_int8_kernel): x [Q, D] float32 contiguous on CUDA ->
+    (int8 [Q, D], float32 scales [Q]), bit-equal to
+    ``quantize_last_axis_int8``.  It is K5's prologue and is counted with
+    K5's launch, not on its own."""
+    if x.device.type != "cuda" or x.dim() != 2 or x.dtype != torch.float32 \
+            or not x.is_contiguous():
+        raise ValueError("quantize_rows_int8_cuda: needs a contiguous "
+                         "float32 matrix on CUDA")
+    qn, d = x.shape
+    q = torch.empty(qn, d, dtype=torch.int8, device=x.device)
+    scales = torch.empty(qn, dtype=torch.float32, device=x.device)
+    lib = _k4_lib()
+    rc = lib.quantize_rows_int8(
+        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
+        ctypes.c_void_p(scales.data_ptr()), qn, d, _stream(x.device))
+    _build.check(lib, rc, "quantize_rows_int8")
+    return q, scales
 
 
 def _check_device(t: torch.Tensor, fn: str) -> None:
@@ -297,15 +395,15 @@ def fused_topk_matmul_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
                            valid_n: Optional[int] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused top-k over an int8-quantized corpus (per-row scales); the
-    queries are quantised per row here, outside the kernel.  Kernel K5 on
-    CUDA, the plain version on the CPU."""
+    queries are quantised per row by K5's prologue kernel.  Kernel K5 on
+    CUDA (two launches, counted once), the plain version on the CPU."""
     _check_device(corpus_i8, "fused_topk_matmul_int8")
     if corpus_i8.device.type == "cpu":
         return exact_topk_int8(queries, corpus_i8, scales, k,
                                valid_n=valid_n)
-    q_i8, q_scales = quantize_last_axis_int8(queries)
-    return topk_matmul_cuda(q_i8.contiguous(), corpus_i8, k, valid_n=valid_n,
-                            q_scales=q_scales.contiguous(),
+    q_i8, q_scales = quantize_rows_int8_cuda(queries.float().contiguous())
+    return topk_matmul_cuda(q_i8, corpus_i8, k, valid_n=valid_n,
+                            q_scales=q_scales,
                             c_scales=scales.float().contiguous())
 
 
