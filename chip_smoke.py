@@ -52,12 +52,14 @@ Phase 5  K3 against its plain version (encoder_attention_qkv_reference):
 Phase 6  K4 and K5 against their plain versions (exact_topk,
          exact_topk_int8): 1,048,576 x 1024 normalised rows in bf16 and
          int8, Q=256 and Q=32, k=10 and k=64, valid_n = N and N - 1000;
-         f32 at N=131,072; duplicated rows that must come back in index
+         f32 at N=131,072 (Q=256 k=10, Q=32 k=64); duplicated rows that
+         must come back in index
          order (also 150 copies against k=128 at Q=129, and k=1 at Q=1);
          k > valid_n; shapes off the tile grid (D 48/80/128/1040,
          Q 1/130, N 50 and 100, k 128); K5's query quantiser kernel
          against its plain rule, bit for bit; the plain-PyTorch "approx" searches on the
-         card against the CPU and the kernels; and the ranker path's shape.  K4: scores
+         card against the CPU and the kernels; and the ranker path's shape
+         in all three dtypes.  K4: scores
          within 1e-5 relative (+1e-6), indices equal wherever the plain
          scores differ by more than that.  K5: bit-equal, indices included.
          Times each against torch.matmul (torch._int_mm for int8) +
@@ -70,9 +72,10 @@ Phase 7  the ranker path at full width through run_experiment, counts
          >= 0.8, K3 launched 24 x encode batches, K1 and K2 launched;
          (b) the same world attacked at rank 1 with hybrid retrieval,
          DENSE_SEARCH_MODE=exact, closest_to_centroid selection, once with
-         a bfloat16 and once with an int8 dense index: K3, K4 resp. K5, K2
-         and K1 launched, outputs written, the first batch's dense hits
-         equal to the plain version's on the same query embeddings.
+         a bfloat16, once with an int8 and once with a float32 (the
+         default) dense index: K3, the K4 body of the index' dtype resp.
+         K5, K2 and K1 launched, outputs written, the first batch's dense
+         hits equal to the plain version's on the same query embeddings.
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -260,6 +263,7 @@ def _k1_case(name, q, k, v, doc_id, nbr, sul, vl, q_offset=None,
            "tiles_full_partial_causal": [
                int((plan["kinds"] == kind).sum())
                for kind in (A.BLOCK_FULL, A.BLOCK_PARTIAL, A.BLOCK_CAUSAL)],
+           "live_tiles_per_q_tile": A.live_tile_stats(plan["counts"]),
            "visible_pairs": pairs}
     if not finite or not err <= tol or not row_err <= row_tol:
         raise AssertionError(f"K1 {name}: max abs err {err} (limit {tol}), "
@@ -1046,7 +1050,7 @@ def phase6(dev):
     cf = cb[:nf].float().contiguous()
     recs.append(_k4_case("c_f32_N128K_Q256_k10", q256, cf, 10, nf))
     recs.append(_k4_case("c_f32_N128K_Q32_k64_ragged", q32, cf, 64,
-                         nf - 1000, timed=False))
+                         nf - 1000))
     # planted exact ties: 20 copies of query 0's best row, far apart; they
     # must come back first, in index order, from every body
     dup = [7 + 6151 * i for i in range(20)]
@@ -1130,6 +1134,7 @@ def phase6(dev):
                          384))
     recs.append(_k4_case("f_ranker_path_int8", qm, ci[:1024].contiguous(), 5,
                          384, scales=cs[:1024].contiguous()))
+    recs.append(_k4_case("f_ranker_path_f32", qm, cb[:1024].float(), 5, 384))
     del cb, ci, cs
     torch.cuda.empty_cache()
     return recs
@@ -1166,6 +1171,7 @@ def _dense_hits_agree(res, cfg, queries):
 def phase7(dev):
     import torch
     from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.ops import topk as T
     from sdag_tpu_torch.pipeline.orchestrator import run_experiment
     from sdag_tpu_torch.pipeline.resources import init_resources
     from sdag_tpu_torch.utils.synth_qa import load_world
@@ -1182,6 +1188,10 @@ def phase7(dev):
         ("b_hybrid_int8_attack", 1, dict(
             RETRIEVER_BACKEND="sparse_and_dense", DENSE_SEARCH_MODE="exact",
             DENSE_INDEX_DTYPE="int8",
+            MALICIOUS_DOC_SELECTION_STRATEGY="closest_to_centroid")),
+        ("b_hybrid_f32_attack", 1, dict(
+            RETRIEVER_BACKEND="sparse_and_dense", DENSE_SEARCH_MODE="exact",
+            DENSE_INDEX_DTYPE="float32",
             MALICIOUS_DOC_SELECTION_STRATEGY="closest_to_centroid")))
     for name, pos, over in runs:
         cfg, facts = _synth_cfg(
@@ -1226,8 +1236,8 @@ def phase7(dev):
         if not rec["outputs_written"]:
             raise AssertionError(f"phase 7 {name}: CSV/JSON outputs missing")
         if res.dense_index is not None:
-            body = "topk_matmul_int8" if res.dense_index.quantized \
-                else "topk_matmul_bf16"
+            body = "topk_matmul_int8" if res.dense_index.quantized else \
+                T.K4_BODIES[res.dense_index.embeddings.dtype]
             if not launches.get(body, 0):
                 raise AssertionError(f"phase 7 {name}: {body} never launched")
             # index build: passages through the encoder, device synced
@@ -1337,8 +1347,16 @@ def main() -> int:
              launches=p7["b_hybrid_bf16_attack"]["launches"].get(
                  "topk_matmul_bf16", 0),
              max_abs_err=max(r["max_abs_err"] for r in k4
-                             if r["dtype"] != "int8"),
+                             if r["dtype"] == "bfloat16"),
              **{key: by_name["f_ranker_path_bf16"][key] for key in keys}),
+        dict(name="topk_matmul_f32", route="cuda",
+             source="sdag_tpu_torch/csrc/topk_matmul.cu",
+             replaces="sdag_tpu/ops/topk.py:189",
+             launches=p7["b_hybrid_f32_attack"]["launches"].get(
+                 "topk_matmul_f32", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k4
+                             if r["dtype"] == "float32"),
+             **{key: by_name["f_ranker_path_f32"][key] for key in keys}),
         dict(name="topk_matmul_int8", route="cuda",
              source="sdag_tpu_torch/csrc/topk_matmul.cu",
              replaces="sdag_tpu/ops/topk.py:324",

@@ -13,15 +13,26 @@ that builds that tree's kernels with nvcc:
   (float32 queries in, so the query quantiser is inside the time of both
   versions): N = 1,048,576 rows of D = 1024, Q in (256, 32), k in (10, 64),
   and the ranker path's shape (N = 1024 with 384 valid rows, Q = 24, k = 5);
+* K4 ``fused_topk_matmul`` (float32): N = 131,072 rows of D = 1024 at
+  Q = 256, k = 10 and Q = 32, k = 64 (valid_n = N - 1000), and the ranker
+  path's shape; ``torch.matmul`` + ``torch.topk`` (full float32) at the
+  first, as the library yardstick of the same turn;
 * K1 ``sdag_prefill_cuda`` in bfloat16: the llama3-8b main path's ISO and
   NO-ISO shapes (B = 8, Hq = 32, Hkv = 8, L = 640, Dh = 128, real prompt
   layouts), L = 4096 with 20 documents and 2-NN windows, the same fully
-  causal, and L = 16384 with 31 documents.
+  causal, and L = 16384 with 31 documents;
+* K1 in float32: the qa_ckpt main path's ISO and NO-ISO shapes (B = 8,
+  H = Hkv = 6, L = 640, Dh = 32), the ISO shape with the (batch, q-tile)
+  pairs handed out in index order instead of heaviest first, and the
+  L = 4096 2-NN layout at Hq = 16, Hkv = 8, Dh = 128.
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
 [..]}}}``.  Times are CUDA-event times over a run of launches after a
-warm-up.  Without CUDA it exits 2.
+warm-up.  At the paths' own shapes a call's host time is of the order of
+its kernels', so those shapes are also timed as a CUDA graph of 20 calls
+replayed (``*_graph``: device time per call, the wrapper's host work
+left out).  Without CUDA it exits 2.
 """
 
 from __future__ import annotations
@@ -35,6 +46,32 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed after a warm-up."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def worker(tree: str) -> int:
     sys.path.insert(0, tree)
     import numpy as np
@@ -46,6 +83,7 @@ def worker(tree: str) -> int:
 
     _build.build_all(["sdag_prefill", "topk_matmul"])
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
     g = torch.Generator(device=dev)
     g.manual_seed(6)
@@ -66,36 +104,74 @@ def worker(tree: str) -> int:
                 warmup=1)
     qm = q256[:24].contiguous()
     cbp, cip, csp = (t[:1024].contiguous() for t in (cb, ci, cs))
-    out["K4_bf16_path_N1024_Q24_k5"] = c.cuda_ms(
-        lambda: T.fused_topk_matmul(qm, cbp, 5, valid_n=384), iters=20)
-    out["K5_int8_path_N1024_Q24_k5"] = c.cuda_ms(
-        lambda: T.fused_topk_matmul_int8(qm, cip, csp, 5, valid_n=384),
-        iters=20)
-    del cb, ci, cs
+    for name, fn in (
+            ("K4_bf16_path_N1024_Q24_k5",
+             lambda: T.fused_topk_matmul(qm, cbp, 5, valid_n=384)),
+            ("K5_int8_path_N1024_Q24_k5",
+             lambda: T.fused_topk_matmul_int8(qm, cip, csp, 5, valid_n=384))):
+        out[name] = c.cuda_ms(fn, iters=20)
+        out[name + "_graph"] = graph_ms(fn)
+    nf = 1 << 17
+    cf = cb[:nf].float().contiguous()
+    out["K4_f32_N128K_Q256_k10"] = c.cuda_ms(
+        lambda: T.fused_topk_matmul(q256, cf, 10), iters=5, warmup=1)
+    out["lib_f32_matmul_topk_N128K_Q256_k10"] = c.cuda_ms(
+        lambda: torch.topk(torch.matmul(q256, cf.t()), 10, dim=1), iters=5,
+        warmup=1)
+    q32 = q256[:32].contiguous()
+    out["K4_f32_N128K_Q32_k64_ragged"] = c.cuda_ms(
+        lambda: T.fused_topk_matmul(q32, cf, 64, valid_n=nf - 1000), iters=5,
+        warmup=1)
+    cfp = cbp.float()
+    path_f32 = lambda: T.fused_topk_matmul(qm, cfp, 5, valid_n=384)  # noqa
+    out["K4_f32_path_N1024_Q24_k5"] = c.cuda_ms(path_f32, iters=20)
+    out["K4_f32_path_N1024_Q24_k5_graph"] = graph_ms(path_f32)
+    del cb, ci, cs, cf
     torch.cuda.empty_cache()
 
     t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa
 
-    def rnd(*shape):
+    def rnd(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=g, device=dev,
-                           dtype=torch.float32).to(torch.bfloat16)
+                           dtype=torch.float32).to(dtype)
 
-    def k1(name, q, k, v, doc_id, nbr, sul, vl):
+    def k1(name, q, k, v, doc_id, nbr, sul, vl, natural_order=False,
+           graph=False):
         plan = A.prefill_mask_plan(doc_id, nbr, sul, vl)
         out[name] = c.cuda_ms(lambda: A.sdag_prefill_cuda(q, k, v, plan),
                               iters=20)
+        if graph:
+            out[name + "_graph"] = graph_ms(
+                lambda: A.sdag_prefill_cuda(q, k, v, plan))
+        if natural_order:
+            n = plan["order"].numel()
+            nat = dict(plan, order=torch.arange(n, dtype=torch.int32,
+                                                device=dev))
+            out[name + "_index_order"] = c.cuda_ms(
+                lambda: A.sdag_prefill_cuda(q, k, v, nat), iters=20)
 
     plans, plain = c._main_path_prompts(8)
     lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
     metas = [p.metadata(pad_to=lp) for p in plans]
     lpn = -(-max(len(x) for x in plain) // 128) * 128
+    iso = (t32(np.stack([m[0] for m in metas])),
+           t32(np.stack([m[1] for m in metas])), t32([m[2] for m in metas]),
+           t32([len(p.input_ids) for p in plans]))
+    noiso = (t32(np.full((8, lpn), -1)), t32(np.zeros((8, lpn))),
+             t32([0] * 8), t32([len(x) for x in plain]))
+    q, k, v = (rnd(8, h, lp, 32, dtype=torch.float32) for h in (6, 6, 6))
+    k1("K1_f32_path_iso", q, k, v, *iso, natural_order=True, graph=True)
+    q, k, v = (rnd(8, h, lpn, 32, dtype=torch.float32) for h in (6, 6, 6))
+    k1("K1_f32_path_noiso", q, k, v, *noiso, graph=True)
+    q, k, v = (rnd(1, h, 4096, 128, dtype=torch.float32)
+               for h in (16, 8, 8))
+    did, nb = c._layout_docs(4096, 256, 20, 176, True)
+    k1("K1_f32_L4096_20docs_2nn_Dh128", q, k, v, t32(did[None]),
+       t32(nb[None]), t32([256]), t32([4096]))
     q, k, v = (rnd(8, h, lp, 128) for h in (32, 8, 8))
-    k1("K1_bf16_path_iso", q, k, v, t32(np.stack([m[0] for m in metas])),
-       t32(np.stack([m[1] for m in metas])), t32([m[2] for m in metas]),
-       t32([len(p.input_ids) for p in plans]))
+    k1("K1_bf16_path_iso", q, k, v, *iso, graph=True)
     q, k, v = (rnd(8, h, lpn, 128) for h in (32, 8, 8))
-    k1("K1_bf16_path_noiso", q, k, v, t32(np.full((8, lpn), -1)),
-       t32(np.zeros((8, lpn))), t32([0] * 8), t32([len(x) for x in plain]))
+    k1("K1_bf16_path_noiso", q, k, v, *noiso, graph=True)
     for name, L, docs, doc_len, nn in (("K1_bf16_L4096_20docs_2nn", 4096, 20,
                                         176, True),
                                        ("K1_bf16_L4096_causal", 4096, 0, 0,

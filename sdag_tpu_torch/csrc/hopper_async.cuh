@@ -79,6 +79,26 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- cp.async --------------------------------------------------------------
+// 16 bytes from global to shared memory without passing through registers
+// (the CUDA-core float32 bodies); src_bytes 0 fills the 16 bytes with zeros
+// and reads nothing.  A thread's copies are complete once it has waited on
+// their group.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// returns once at most N of this thread's newest groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 // One box of the tensor behind `map` into shared memory; out-of-range
 // elements arrive as zeros and the full box size counts on the barrier.

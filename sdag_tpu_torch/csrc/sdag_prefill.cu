@@ -15,44 +15,52 @@
 // head over the live tiles).  chip_smoke.py reports the times beside the
 // bound.
 //
+// Both bodies read the same plan (ops/attention.py k1_plan): per (batch,
+// q-tile) the live key tiles with their kinds, the (batch, q-tile) pairs
+// heaviest first, and a PARTIAL tile's mask as 64 x 64 bits.  A PARTIAL
+// tile's mask depends on neither the layer nor the head, so the plan
+// evaluates the token rule once per prefill and the kernels only test bits
+// (evaluating the rule in the kernel took 3x the whole softmax of a tile,
+// and 63% of the main path's live tiles are PARTIAL).  Tile kinds: FULL ->
+// no mask; CAUSAL -> j<=i & j<vl & i<vl; PARTIAL -> the bits.  Softmax runs
+// in f32 in the exp2 domain (scale * log2 e folded into one multiply).  A
+// row that sees no key outputs 0 (l == 0 -> divide by 1).
+//
 // bf16 inputs (the serving path), sdag_prefill_wgmma_kernel: persistent
 // blocks, one per SM, each walking work items (batch, q-tile, kv head, pair
-// of q heads) in an order that puts the q-tiles with the most live key
-// tiles first.  One producer thread loads by TMA (hopper_async.cuh): the
-// item's Q tiles and metadata into a double buffer, and each live K and V
-// tile once for the two q heads, with a PARTIAL tile's 64 x 64 mask bits
-// beside them, into a 4-stage ring guarded by mbarriers.  Two consumer
-// warpgroups, one per q head, compute S = Q.K^T with wgmma from shared
-// memory (m64n64k16), apply the mask, run the online softmax in f32 in the
-// exp2 domain (scale * log2 e folded into one multiply), and feed P,
-// rounded to bf16, from registers into the wgmma for P.V (V read MN-major
-// from its row-major tile).  The loop is software-pipelined: the next
-// tile's scores are issued before this tile's P.V, so its mask and softmax
-// run while the tensor cores work on P.V; the warpgroups are not tied to
-// each other, so one's softmax also overlaps the other's products.  A GQA
-// group of odd size runs one warpgroup per block.  An item's output tile is
-// staged in its Q tile (free by then) and leaves as whole rows in 16-byte
-// stores.  A PARTIAL tile's mask
-// does not depend on the layer or the head, so the token rule is evaluated
-// once per prefill into bit tiles (ops/attention.py k1_plan) and the bf16
-// body only tests bits: evaluating the rule in the kernel took 3x the
-// whole softmax of a tile, and 63% of the main path's live tiles are
-// PARTIAL.  (The f32 body below evaluates the rule itself.)  Tile kinds:
-// FULL -> no mask; CAUSAL -> j<=i & j<vl & i<vl; PARTIAL -> the full
-// _tile_mask rule from doc_id, doc_id_q, nbr_bits_q, sys_user_len,
-// valid_len and q_offset.  A row that sees no key outputs 0 (l == 0 ->
-// divide by 1).
+// of q heads) in the plan's heavy-first order.  One producer thread loads by
+// TMA (hopper_async.cuh): the item's Q tiles and metadata into a double
+// buffer, and each live K and V tile once for the two q heads, with a
+// PARTIAL tile's mask bits beside them, into a 4-stage ring guarded by
+// mbarriers.  Two consumer warpgroups, one per q head, compute S = Q.K^T
+// with wgmma from shared memory (m64n64k16), apply the mask, run the online
+// softmax, and feed P, rounded to bf16, from registers into the wgmma for
+// P.V (V read MN-major from its row-major tile).  The loop is
+// software-pipelined: the next tile's scores are issued before this tile's
+// P.V, so its mask and softmax run while the tensor cores work on P.V; the
+// warpgroups are not tied to each other, so one's softmax also overlaps the
+// other's products.  A GQA group of odd size runs one warpgroup per block.
+// An item's output tile is staged in its Q tile (free by then) and leaves
+// as whole rows in 16-byte stores.
 //
-// f32 inputs stay f32 end to end on CUDA-core FMA (sdag_prefill_kernel),
-// which is what keeps them within 1e-4 of the f32 reference:
-//   grid (q-tile, batch*q-head); BQ = BK = 64.  The block keeps its Q
-//   tile on chip, loops over its live key tiles (kv head h / (Hq/Hkv) for
-//   GQA), and runs online softmax in f32 with the same tile kinds.
-//   256 threads; thread (ty, tx) = (tid/16, tid%16) owns rows
-//   ty+16i (i<4) and, in the score tile, columns tx+16j (j<4); in the
-//   output, dims tx+16jj.  A row is shared by 16 consecutive lanes, so
-//   row max/sum are 16-lane shuffles.  Shared rows are padded by one word
-//   so column walks hit distinct banks.
+// f32 inputs stay f32 end to end on CUDA-core FMA (sdag_prefill_f32_kernel),
+// which is what keeps them within 1e-4 of the f32 reference.  What bounds
+// it: the two products' FMAs over the live tiles.
+//   One block per work item (batch, q-tile, kv head, one or two q heads of
+//   its group: 256 threads a q head), the items numbered in the plan's
+//   heavy-first order: blocks go out in index order, so the heaviest
+//   q-tiles start first and the light ones fill in behind them (in index
+//   order the same shape reads 1.35x slower).  All threads copy the live K/V
+//   tiles (and a PARTIAL tile's mask bits) with 16-byte cp.async into a
+//   ring of 3 (Dh 32) or 2 stages, a tile or two ahead of the products: one
+//   barrier a tile.  Thread (ty, tx) = (tid / 16, tid % 16) of a q head
+//   holds rows ty + 16 i (i < 4) and keys 4 tx + j of the score tile, and
+//   dims 2 tx (Dh 32) or 4 tx + 64 g of the output.  Q.K^T reads Q and K
+//   rows as 128-bit words (16 FMAs a read); K and V rows are stored with
+//   their 16-byte chunks swizzled, so the four key rows of a thread and the
+//   rows of its neighbours fall on distinct banks.  S stays in registers; P
+//   goes to shared memory as one float4 per row and is read back by the
+//   same half-warp (no block barrier) as float4s of four keys for P.V.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -69,214 +77,295 @@ constexpr int NT = 256;
 constexpr int KIND_FULL = 1;
 constexpr int KIND_PARTIAL = 2;
 constexpr int KIND_CAUSAL = 3;
-constexpr int HOLE = -2;
 
-// _tile_mask (sdag_tpu/ops/attention.py): the token-level SDAG rule.
-__device__ __forceinline__ bool sdag_visible(int i, int j, int dq, int dk,
-                                             unsigned nbr_q, int sul,
-                                             int vl) {
-  const bool causal = j <= i;
-  const bool is_doc_q = dq >= 0;
-  const bool same_doc = (dq == dk) && is_doc_q;
-  const bool prefix = (dk == -1) && (j < sul);
-  // logical shift of an unsigned by 0..31 only: a shift >= 32 is undefined
-  const bool nbr = (dk >= 0) && (dk < 32) && ((nbr_q >> dk) & 1u);
-  const bool doc_row = (causal && (same_doc || prefix)) || nbr;
-  const bool nondoc_row = causal && (dk != HOLE);
-  const bool m = is_doc_q ? doc_row : nondoc_row;
-  return m && (j < vl) && (i < vl);
-}
+// ---------------------------------------------------------------------------
+// f32 inputs: sdag_prefill_f32_kernel, exact float32 on CUDA-core FMA (what
+// keeps them within 1e-4 of the f32 reference; TF32 would not).
+constexpr unsigned ALL_LANES = 0xffffffffu;
 
-// f32 path: Q, K (rows padded by one word), V and the P tile
-template <int DH>
-constexpr size_t smem_bytes() {
-  return (size_t)(BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1)) *
-         sizeof(float);
-}
+// Shared-memory layout in 4-byte words: the item's Q tiles (one per q head
+// of the block), a ring of K/V tile pairs, the P tiles, a PARTIAL tile's
+// mask bits per ring stage.  K and V rows hold their 16-byte chunks at
+// chunk c ^ ((row / 4) % 8), so the 128-bit reads of four consecutive key
+// rows (Q.K^T) or of one row (P.V) fall on distinct banks.
+template <int DH, int NH>
+struct F32Layout {
+  static constexpr int STAGES = DH == 32 ? 3 : 2;
+  static constexpr int TILE = BK * DH;
+  static constexpr int PS = BK + 4;  // P row stride
+  static constexpr int q = 0;                            // [NH][BQ][DH]
+  static constexpr int kv = q + NH * BQ * DH;            // [STAGES][K, V]
+  static constexpr int p = kv + STAGES * 2 * TILE;       // [NH][BQ][PS]
+  static constexpr int mask = p + NH * BQ * PS;          // [STAGES][BQ][2]
+  static constexpr int words = mask + STAGES * BQ * (BK / 32);
+};
 
-template <int DH>
-__global__ void __launch_bounds__(NT)
-sdag_prefill_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ out,
-                    const int* __restrict__ doc_k,
-                    const int* __restrict__ doc_q,
-                    const int* __restrict__ nbr_q,
-                    const int* __restrict__ sul_b,
-                    const int* __restrict__ vl_b,
-                    const int* __restrict__ qoff_b,
-                    const int* __restrict__ counts,
-                    const int* __restrict__ kv_list,
-                    const int* __restrict__ kind_list, int Hq, int Hkv,
-                    int Lq, int Lk, int nq_tiles, int nk_tiles, int ldk,
-                    float scale) {
-  constexpr int QP = DH + 1;   // padded Q/K row
-  constexpr int DJ = DH / 16;  // output dims per thread
-  constexpr int SP = BK + 1;   // padded P row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BQ][QP]
-  float* sK = sQ + BQ * QP;                        // [BK][QP]
-  float* sV = sK + BK * QP;                        // [BK][DH]
-  float* sP = sV + BK * DH;                        // [BQ][SP]
+// two blocks an SM where their shared memory fits (Dh 32, 64), one else
+// two blocks an SM where their shared memory fits (Dh 32, 64), else one (a
+// third block at Dh 32 forces 80 registers and read slower)
+template <int DH, int NH>
+__global__ void __launch_bounds__(NT * NH, NH == 1 && DH <= 64 ? 2 : 1)
+sdag_prefill_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ out,
+                        const int* __restrict__ mask_bits,
+                        const int* __restrict__ mask_slot,
+                        const int* __restrict__ vl_b,
+                        const int* __restrict__ qoff_b,
+                        const int* __restrict__ counts,
+                        const int* __restrict__ kv_list,
+                        const int* __restrict__ kind_list,
+                        const int* __restrict__ order, int Hq, int Hkv, int Lq,
+                        int Lk, int nq_tiles, int nk_tiles, float scale_log2) {
+  typedef F32Layout<DH, NH> L;
+  constexpr int S = L::STAGES;
+  constexpr int C4 = DH / 4;    // 16-byte chunks of a row
+  constexpr int DJ = DH / 16;   // output dims per thread and row
+  extern __shared__ __align__(16) float smem_f[];
 
-  const int qt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int b = bh / Hq;
-  const int h = bh % Hq;
-  const int kvh = h / (Hq / Hkv);
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int ldq = nq_tiles * BQ;
-
-  const float* qp = q + (size_t)bh * Lq * DH;
-  const float* kp = k + (size_t)(b * Hkv + kvh) * Lk * DH;
-  const float* vp = v + (size_t)(b * Hkv + kvh) * Lk * DH;
-  float* op = out + (size_t)bh * Lq * DH;
-  const int sul = sul_b[b];
+  const int hs = tid >> 8;      // the block's q head this thread serves
+  const int lt = tid & 255;
+  const int ty = lt >> 4;       // rows ty + 16 i
+  const int tx = lt & 15;       // keys 4 tx + j of a tile; dims of 4 tx
+  const int group = Hq / Hkv;
+  const int chunks = group / NH;
+  const int per_pair = Hkv * chunks;
+  const int pair = order[blockIdx.x / per_pair];
+  const int rem = blockIdx.x % per_pair;
+  const int b = pair / nq_tiles, qt = pair % nq_tiles;
+  const int kvh = rem / chunks;
+  const int h0 = kvh * group + (rem % chunks) * NH;
+  const int q0 = qt * BQ;
+  const int cnt = counts[pair];
   const int vl = vl_b[b];
   const int qoff = qoff_b[b];
-  const int q0 = qt * BQ;
+  const size_t list_off = (size_t)pair * nk_tiles;
+  const float* kp = k + (size_t)(b * Hkv + kvh) * Lk * DH;
+  const float* vp = v + (size_t)(b * Hkv + kvh) * Lk * DH;
 
-  for (int e = tid; e < BQ * DH; e += NT) {
-    const int r = e / DH, d = e % DH, gr = q0 + r;
-    sQ[r * QP + d] = gr < Lq ? qp[(size_t)gr * DH + d] : 0.f;
+  // the block's Q tiles (rows past Lq as zeros), with the first K/V tile
+  for (int e = tid; e < NH * BQ * C4; e += NT * NH) {
+    const int w = e / (BQ * C4), r = (e / C4) % BQ, c = e % C4;
+    const bool in = q0 + r < Lq;
+    const float* src =
+        q + ((size_t)(b * Hq + h0 + w) * Lq + (in ? q0 + r : 0)) * DH + 4 * c;
+    cp_async16(smem_u32(smem_f + L::q + (w * BQ + r) * DH + 4 * c), src,
+               in ? 16 : 0);
+  }
+  // live tile t into ring stage st: K, V (rows past Lk as zeros) and, for a
+  // PARTIAL tile, its 64 x 64 mask bits
+  auto load_tile = [&](int t, int st) {
+    const int k0 = kv_list[list_off + t] * BK;
+    float* dst = smem_f + L::kv + st * 2 * L::TILE;
+    for (int e = tid; e < 2 * BK * C4; e += NT * NH) {
+      const int w = e / (BK * C4), r = (e / C4) % BK, c = e % C4;
+      const bool in = k0 + r < Lk;
+      const float* src = (w ? vp : kp) + (size_t)(in ? k0 + r : 0) * DH + 4 * c;
+      cp_async16(smem_u32(dst + w * L::TILE + r * DH + 4 * (c ^ ((r >> 2) & 7))),
+                 src, in ? 16 : 0);
+    }
+    if (kind_list[list_off + t] == KIND_PARTIAL && tid < BQ * (BK / 32) / 4) {
+      const int slot = mask_slot[list_off + t];
+      cp_async16(smem_u32(smem_f + L::mask + st * BQ * (BK / 32) + 4 * tid),
+                 mask_bits + (size_t)slot * BQ * (BK / 32) + 4 * tid, 16);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < cnt) load_tile(st, st);
+    cp_async_commit();
   }
 
-  int row_i[4], dq[4];
-  unsigned nbq[4];
-  float m_i[4], l_i[4], acc[4][DJ];
+  int row_i[4];
+  float m_i[4], l_i[4], o[4][DJ];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;  // < ldq: metadata is tile-padded
-    row_i[i] = qoff + gr;
-    dq[i] = doc_q[(size_t)b * ldq + gr];
-    nbq[i] = (unsigned)nbr_q[(size_t)b * ldq + gr];
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
+    row_i[i] = qoff + q0 + ty + 16 * i;
+    m_i[i] = -INFINITY;  // in the exp2 domain
+    l_i[i] = 0.f;        // this thread's part of the row sum
 #pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
+    for (int jj = 0; jj < DJ; ++jj) o[i][jj] = 0.f;
   }
+  const float* sQ = smem_f + L::q + hs * BQ * DH;
+  float* sP = smem_f + L::p + hs * BQ * L::PS;
+  const int ksw = tx & 7;  // the swizzle of key rows 4 tx .. 4 tx + 3
 
-  const size_t list_off = ((size_t)b * nq_tiles + qt) * nk_tiles;
-  const int cnt = counts[(size_t)b * nq_tiles + qt];
   for (int t = 0; t < cnt; ++t) {
-    const int kt = kv_list[list_off + t];
+    cp_async_wait<S - 2>();  // tile t (and the Q tiles) have landed
+    __syncthreads();         // for every thread; tile t - 1's stage is free
+    if (t + S - 1 < cnt) load_tile(t + S - 1, (t + S - 1) % S);
+    cp_async_commit();
+    const int st = t % S;
     const int kind = kind_list[list_off + t];
-    const int k0 = kt * BK;
-    __syncthreads();  // previous tile's readers of sK/sV/sP are done
-    for (int e = tid; e < BK * DH; e += NT) {
-      const int r = e / DH, d = e % DH, gr = k0 + r;
-      const bool in = gr < Lk;
-      sK[r * QP + d] = in ? kp[(size_t)gr * DH + d] : 0.f;
-      sV[r * DH + d] = in ? vp[(size_t)gr * DH + d] : 0.f;
-    }
-    __syncthreads();
+    const int k0 = kv_list[list_off + t] * BK;
+    const float* sK = smem_f + L::kv + st * 2 * L::TILE;
+    const float* sV = sK + L::TILE;
 
+    // S = Q . K^T: rows ty + 16 i, keys 4 tx + j; one fmaf chain per score
+    // in ascending d
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // (unrolled by 4, not fully: a full unroll spills at 128 registers)
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      float qv[4], kv[4];
+    for (int c = 0; c < C4; ++c) {
+      float4 qv[4], kv4[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * QP + d];
+      for (int i = 0; i < 4; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(sQ + (ty + 16 * i) * DH +
+                                                 4 * c);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QP + d];
+      for (int j = 0; j < 4; ++j)
+        kv4[j] = *reinterpret_cast<const float4*>(sK + (4 * tx + j) * DH +
+                                                  4 * (c ^ ksw));
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i].x, kv4[j].x, s[i][j]);
+          s[i][j] = fmaf(qv[i].y, kv4[j].y, s[i][j]);
+          s[i][j] = fmaf(qv[i].z, kv4[j].z, s[i][j]);
+          s[i][j] = fmaf(qv[i].w, kv4[j].w, s[i][j]);
+        }
     }
 
-    int dk[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[j] = doc_k[(size_t)b * ldk + k0 + tx + 16 * j];
-
+    // mask, online softmax in the exp2 domain (scale * log2 e folded into
+    // one multiply); P goes to shared memory as one float4 per row
+    __syncwarp();  // this warp's reads of the previous P are done
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      unsigned bits = 0xfu;
+      if (kind == KIND_CAUSAL) {
+        bits = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = k0 + 4 * tx + j;
+          bits |= (unsigned)(col <= row_i[i] && col < vl && row_i[i] < vl) << j;
+        }
+      } else if (kind == KIND_PARTIAL) {
+        // bit c of row r's two words is key k0 + c
+        const unsigned w = reinterpret_cast<const unsigned*>(
+            smem_f + L::mask)[st * BQ * (BK / 32) + (ty + 16 * i) * 2 +
+                              (tx >> 3)];
+        bits = (w >> (4 * (tx & 7))) & 0xfu;
+      }
       float mt = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        bool vis = true;
-        if (kind == KIND_CAUSAL) {
-          vis = (col <= row_i[i]) && (col < vl) && (row_i[i] < vl);
-        } else if (kind != KIND_FULL) {
-          vis = sdag_visible(row_i[i], col, dq[i], dk[j], nbq[i], sul, vl);
-        }
-        s[i][j] = vis ? s[i][j] * scale : -INFINITY;
+        s[i][j] = (bits >> j) & 1u ? s[i][j] * scale_log2 : -INFINITY;
         mt = fmaxf(mt, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+        mt = fmaxf(mt, __shfl_xor_sync(ALL_LANES, mt, off));
       const float m_new = fmaxf(m_i[i], mt);
       // rows with no visible key so far keep m = -inf: guard the shift
       const float safe = (m_new == -INFINITY) ? 0.f : m_new;
-      const float alpha = (m_i[i] == -INFINITY) ? 0.f : expf(m_i[i] - safe);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - safe);  // masked: exp(-inf) == 0
-        sP[(ty + 16 * i) * SP + tx + 16 * j] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_i[i] = l_i[i] * alpha + ps;
+      const float alpha = (m_i[i] == -INFINITY) ? 0.f : exp2f(m_i[i] - safe);
       m_i[i] = m_new;
+      float4 p4;
+      p4.x = exp2f(s[i][0] - safe);  // masked: exp2(-inf) == 0
+      p4.y = exp2f(s[i][1] - safe);
+      p4.z = exp2f(s[i][2] - safe);
+      p4.w = exp2f(s[i][3] - safe);
+      l_i[i] = l_i[i] * alpha + ((p4.x + p4.y) + (p4.z + p4.w));
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
+      for (int jj = 0; jj < DJ; ++jj) o[i][jj] *= alpha;
+      *reinterpret_cast<float4*>(sP + (ty + 16 * i) * L::PS + 4 * tx) = p4;
     }
-    __syncthreads();
+    __syncwarp();  // a row's P is written and read by its own half-warp
 
+    // O += P . V: dims 2 tx (Dh 32) or 4 tx + 64 g; V row c's chunks are
+    // swizzled by (c / 4) % 8
 #pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
+    for (int c = 0; c < BK; c += 4) {
+      float4 pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * SP + c];
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(sP + (ty + 16 * i) * L::PS +
+                                                 c);
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float vv = sV[c * DH + tx + 16 * jj];
+      for (int e = 0; e < 4; ++e) {
+        const float* vr = sV + (c + e) * DH;
+        const int vsw = ((c + e) >> 2) & 7;
+        float vv[DJ];
+        if constexpr (DH == 32) {
+          const float2 t2 = *reinterpret_cast<const float2*>(
+              vr + 4 * ((tx >> 1) ^ vsw) + 2 * (tx & 1));
+          vv[0] = t2.x;
+          vv[1] = t2.y;
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+          for (int g = 0; g < DH / 64; ++g) {
+            const float4 t4 = *reinterpret_cast<const float4*>(
+                vr + 4 * ((tx + 16 * g) ^ vsw));
+            vv[4 * g] = t4.x;
+            vv[4 * g + 1] = t4.y;
+            vv[4 * g + 2] = t4.z;
+            vv[4 * g + 3] = t4.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float pe = e == 0 ? pv[i].x : e == 1 ? pv[i].y
+                         : e == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+          for (int jj = 0; jj < DJ; ++jj) o[i][jj] = fmaf(pe, vv[jj], o[i][jj]);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
+  // a row that sees no key outputs 0
+  float* op = out + (size_t)(b * Hq + h0 + hs) * Lq * DH;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;
-    if (gr < Lq) {
-      const float denom = (l_i[i] == 0.f) ? 1.f : l_i[i];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-        op[(size_t)gr * DH + tx + 16 * jj] = acc[i][jj] / denom;
+    for (int off = 8; off > 0; off >>= 1)
+      l_i[i] += __shfl_xor_sync(ALL_LANES, l_i[i], off);
+    const int r = q0 + ty + 16 * i;
+    if (r >= Lq) continue;
+    const float inv = (l_i[i] == 0.f) ? 1.f : 1.f / l_i[i];
+    float* orow = op + (size_t)r * DH;
+    if constexpr (DH == 32) {
+      *reinterpret_cast<float2*>(orow + 2 * tx) =
+          make_float2(o[i][0] * inv, o[i][1] * inv);
+    } else {
+#pragma unroll
+      for (int g = 0; g < DH / 64; ++g)
+        *reinterpret_cast<float4*>(orow + 64 * g + 4 * tx) =
+            make_float4(o[i][4 * g] * inv, o[i][4 * g + 1] * inv,
+                        o[i][4 * g + 2] * inv, o[i][4 * g + 3] * inv);
     }
   }
 }
 
-template <int DH>
+template <int DH, int NH>
 int launch_f32(const void* q, const void* k, const void* v, void* out,
-               const int* doc_k, const int* doc_q, const int* nbr_q,
-               const int* sul, const int* vl, const int* qoff,
-               const int* counts, const int* kv_list, const int* kind_list,
-               int B, int Hq, int Hkv, int Lq, int Lk, int nq_tiles,
-               int nk_tiles, int ldk, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      sdag_prefill_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(nq_tiles, B * Hq);
-  sdag_prefill_kernel<DH><<<grid, NT, smem, stream>>>(
+               const int* mask_bits, const int* mask_slot, const int* vl,
+               const int* qoff, const int* counts, const int* kv_list,
+               const int* kind_list, const int* order, int B, int Hq, int Hkv,
+               int Lq, int Lk, int nq_tiles, int nk_tiles, float scale,
+               cudaStream_t stream) {
+  constexpr int smem = 4 * F32Layout<DH, NH>::words;
+  static bool attr_set = false;  // per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sdag_prefill_f32_kernel<DH, NH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int n_items = B * nq_tiles * Hkv * ((Hq / Hkv) / NH);
+  sdag_prefill_f32_kernel<DH, NH><<<n_items, NT * NH, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), doc_k, doc_q,
-      nbr_q, sul, vl, qoff, counts, kv_list, kind_list, Hq, Hkv, Lq, Lk,
-      nq_tiles, nk_tiles, ldk, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), mask_bits,
+      mask_slot, vl, qoff, counts, kv_list, kind_list, order, Hq, Hkv, Lq, Lk,
+      nq_tiles, nk_tiles, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -727,40 +816,41 @@ const char* kernel_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  bfloat16 only: order, the (batch,
-// q-tile) pairs b * nq_tiles + qt sorted by live tiles, most first;
-// mask_bits [P][64][2], the PARTIAL tiles' masks (bit c of row r's two
-// words: key c of the tile); mask_slot, parallel to kv_list, a tile's index
-// into mask_bits or -1; heads_per_block, 2 (two q heads of a GQA group
-// share a block and its K/V tiles; the group size must be even) or 1; sms,
-// the device's SM count.  float32 only: doc_k, doc_q, nbr_q, sul.  Returns
-// 0, a CUDA error code, or a negative code of kernel_error_string.
+// dtype: 0 = float32, 1 = bfloat16.  order, the (batch, q-tile) pairs
+// b * nq_tiles + qt sorted by live tiles, most first; mask_bits [P][64][2],
+// the PARTIAL tiles' masks (bit c of row r's two words: key c of the tile);
+// mask_slot, parallel to kv_list, a tile's index into mask_bits or -1;
+// heads_per_block, 2 (two q heads of a GQA group share a block and its K/V
+// tiles; the group size must be even) or 1; sms, the device's SM count.
+// Returns 0, a CUDA error code, or a negative code of kernel_error_string.
 int sdag_prefill(const void* q, const void* k, const void* v, void* out,
-                 const int* doc_k, const int* doc_q, const int* nbr_q,
-                 const int* sul, const int* vl, const int* qoff,
-                 const int* counts, const int* kv_list, const int* kind_list,
-                 const int* order, const int* mask_bits, const int* mask_slot,
-                 int B, int Hq, int Hkv, int Lq, int Lk, int Dh, int nq_tiles,
-                 int nk_tiles, int ldk, float scale, int dtype,
-                 int heads_per_block, int sms, void* stream) {
+                 const int* vl, const int* qoff, const int* counts,
+                 const int* kv_list, const int* kind_list, const int* order,
+                 const int* mask_bits, const int* mask_slot, int B, int Hq,
+                 int Hkv, int Lq, int Lk, int Dh, int nq_tiles, int nk_tiles,
+                 float scale, int dtype, int heads_per_block, int sms,
+                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDAG_LAUNCH(FN, D)                                                   \
-  return FN<D>(q, k, v, out, doc_k, doc_q, nbr_q, sul, vl, qoff, counts,     \
-               kv_list, kind_list, B, Hq, Hkv, Lq, Lk, nq_tiles, nk_tiles,   \
-               ldk, scale, s)
+  if ((heads_per_block != 1 && heads_per_block != 2) || Hq % Hkv ||
+      (Hq / Hkv) % heads_per_block)
+    return -1;
+  const bool pair = heads_per_block == 2;
+#define SDAG_F32(D, W)                                                       \
+  return launch_f32<D, W>(q, k, v, out, mask_bits, mask_slot, vl, qoff,      \
+                          counts, kv_list, kind_list, order, B, Hq, Hkv, Lq, \
+                          Lk, nq_tiles, nk_tiles, scale, s)
 #define SDAG_WGMMA(D, W)                                                     \
   return launch_wgmma<D, W>(q, k, v, out, mask_bits, mask_slot, vl, qoff,    \
                             counts, kv_list, kind_list, order, B, Hq, Hkv,   \
                             Lq, Lk, nq_tiles, nk_tiles, scale, sms, s)
   if (dtype == 0) {
-    if (Dh == 32) SDAG_LAUNCH(launch_f32, 32);
-    if (Dh == 64) SDAG_LAUNCH(launch_f32, 64);
-    if (Dh == 128) SDAG_LAUNCH(launch_f32, 128);
+    if (Dh == 32 && pair) SDAG_F32(32, 2);
+    if (Dh == 32) SDAG_F32(32, 1);
+    if (Dh == 64 && pair) SDAG_F32(64, 2);
+    if (Dh == 64) SDAG_F32(64, 1);
+    if (Dh == 128 && pair) SDAG_F32(128, 2);
+    if (Dh == 128) SDAG_F32(128, 1);
   } else if (dtype == 1) {
-    const bool pair = heads_per_block == 2;
-    if ((heads_per_block != 1 && heads_per_block != 2) || Hq % Hkv ||
-        (Hq / Hkv) % heads_per_block)
-      return -1;
     if (Dh == 32 && pair) SDAG_WGMMA(32, 2);
     if (Dh == 32) SDAG_WGMMA(32, 1);
     if (Dh == 64 && pair) SDAG_WGMMA(64, 2);
@@ -768,7 +858,7 @@ int sdag_prefill(const void* q, const void* k, const void* v, void* out,
     if (Dh == 128 && pair) SDAG_WGMMA(128, 2);
     if (Dh == 128) SDAG_WGMMA(128, 1);
   }
-#undef SDAG_LAUNCH
+#undef SDAG_F32
 #undef SDAG_WGMMA
   return -1;
 }

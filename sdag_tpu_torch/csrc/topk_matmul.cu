@@ -50,9 +50,10 @@
 //   query merges the splits' lists exactly.
 // The int8 query quantiser (row abs-max / 127, round half to even, clamp)
 // is quantize_rows_int8_kernel below, bit-equal to the plain rule.
-// f32 corpora stay f32 on CUDA-core FMA with register-staged 64-row tiles
-// and warp-cooperative sorted lists (TF32 would reorder near-equal
-// scores).
+// f32 corpora stay f32 on CUDA-core FMA (topk_matmul_f32 below): 128-row
+// corpus tiles against up to 128 query rows, 8 x 8 register tiles fed by
+// 128-bit shared reads from double-buffered chunks, and the same epilogue
+// as the tensor-core bodies (TF32 would reorder near-equal scores).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -140,14 +141,21 @@ __device__ __forceinline__ void warp_sort_desc(float (&v)[R], int (&ix)[R],
   }
 }
 
-// The warp sorts one row's buffer of n entries and keeps its best k (sorted,
-// at the front).  Returns the row's new threshold to every lane: the k-th
-// score once k entries exist, -inf before.  The row then holds min(n, k).
-// Not inlined: five inlined copies of the network (one per 32-column part
-// and one at the end) read 2x slower at k = 64 than one shared copy.
+struct RankedEntry {
+  float v;
+  int i;
+};
+
+// The warp sorts one row's buffer of n entries, keeps its best k (sorted,
+// at the front) and returns the k-th entry once k exist, else (-inf,
+// INT_MAX): the row's new threshold, on every lane.  The row then holds
+// min(n, k).  Not inlined: five inlined copies of the network (one per
+// 32-column part and one at the end) read 2x slower at k = 64 than one
+// shared copy.
 template <int R>
-__device__ __noinline__ float compact_row(float* bv, int* bi, int row,
-                                                 int n, int k, int lane) {
+__device__ __noinline__ RankedEntry compact_row_ranked(float* bv, int* bi,
+                                                       int row, int n, int k,
+                                                       int lane) {
   constexpr int CAP = 32 * R;
   float v[R];
   int ix[R];
@@ -158,7 +166,7 @@ __device__ __noinline__ float compact_row(float* bv, int* bi, int row,
     ix[c] = j < n ? bi[row * CAP + j] : TOPK_INT_MAX;
   }
   warp_sort_desc<R>(v, ix, lane);
-  float kth = -INFINITY;
+  RankedEntry kth = {-INFINITY, TOPK_INT_MAX};
 #pragma unroll
   for (int c = 0; c < R; ++c) {
     const int j = lane + 32 * c;
@@ -166,11 +174,21 @@ __device__ __noinline__ float compact_row(float* bv, int* bi, int row,
       bv[row * CAP + j] = v[c];
       bi[row * CAP + j] = ix[c];
     }
-    const float t = __shfl_sync(FULL, v[c], (k - 1) & 31);
-    if (c == ((k - 1) >> 5)) kth = t;
+    const float tv = __shfl_sync(FULL, v[c], (k - 1) & 31);
+    const int ti = __shfl_sync(FULL, ix[c], (k - 1) & 31);
+    if (c == ((k - 1) >> 5) && n >= k) kth = {tv, ti};
   }
   __syncwarp();
-  return n >= k ? kth : -INFINITY;
+  return kth;
+}
+
+// The same, returning the threshold's score only (the tensor-core bodies
+// see their tiles in ascending order, so a strict compare on the score
+// keeps ties in index order).
+template <int R>
+__device__ __forceinline__ float compact_row(float* bv, int* bi, int row,
+                                             int n, int k, int lane) {
+  return compact_row_ranked<R>(bv, bi, row, n, k, lane).v;
 }
 
 template <bool INT8, int NWG, int R>
@@ -432,122 +450,314 @@ quantize_rows_int8_kernel(const float* __restrict__ x, int8_t* __restrict__ q,
   if (threadIdx.x == 0) scales[blockIdx.x] = scale;
 }
 
-// f32 corpus: CUDA-core FMA, 256 threads; thread (ty, tx) = (tid/16,
-// tid%16) owns query rows ty+16i and corpus columns tx+16j (i, j < 4).  A
-// query row is shared by the 16 lanes of one half-warp, so its list is
-// still touched by one warp only.
+// ---------------------------------------------------------------------------
+// f32 corpus: topk_matmul_f32, exact float32 on CUDA-core FMA (TF32 would
+// reorder near-equal scores).  What bounds it: the FMAs (2 Q N D flops at
+// 67 TFLOP/s) once Q passes ~16 queries; the design keeps the FMA pipes fed.
+//   grid (query tile, corpus split), 256 threads, two blocks per SM.  A
+//   block's tile is BQ (128, 64 or 32: the least that covers Q) query rows
+//   x 128 corpus rows; thread (ty, tx) = (tid / 16, tid % 16) holds BQ / 16
+//   query rows x 8 corpus rows of scores in registers: rows ty * 4 + i
+//   (+ 64) (ty * 2 + i at BQ = 32) and columns tx * 4 + j, 64 + tx * 4 + j.
+//   The feature axis goes in chunks of 16 floats, stored d-major in shared
+//   memory ([16][rows + 4]), so a thread's operands for one feature are
+//   128-bit reads: 4 of them feed 64 FMAs at BQ = 128.  Chunks are double
+//   buffered: the next chunk's 16-byte global loads (the next tile's first
+//   chunk across a tile boundary) are issued before this chunk's FMAs and
+//   stored transposed into the other buffer after them; one barrier a
+//   chunk.  Features past D, rows past Q or valid_n read as zeros.  Each
+//   score is one fmaf chain in ascending feature order.
+//   Epilogue (as the tensor-core bodies', per 16 columns): a row belongs to
+//   the 16 lanes of one half-warp; each row keeps its k-th best (score,
+//   index) as a threshold, and a column passes when it ranks strictly
+//   before it (so ties keep index order whatever order columns are seen
+//   in).  Passing scores are appended to the row's buffer in shared memory
+//   at slots from a ballot over the half-warp; a row over CAP - 16 entries
+//   is sorted by the whole warp (warp_sort_desc), cut to k, and its
+//   threshold refreshed.  Thresholds and counts live in shared memory
+//   between tiles (each written by the row's own lanes only) so the
+//   product loop keeps its registers.  At the end each row is sorted once
+//   more and written as a sorted list for the merge pass, or straight to
+//   the result when there is one split.
 constexpr int F32_NT = 256;
-constexpr int F32_BN = 64;  // corpus rows per tile
-constexpr int F32_DK = 32;
-constexpr int F32_RP = F32_DK + 1;
+constexpr int F32_BN = 128;    // corpus rows per tile
+constexpr int F32_DK = 16;     // features per staged chunk
+constexpr int F32_PART = 16;   // columns of a row appended between checks
+constexpr int F32_CS = F32_BN + 4;
 
-__global__ void __launch_bounds__(F32_NT)
+// shared memory of topk_matmul_f32 in 4-byte words (ops/topk.py
+// _f32_smem_bytes computes the same): the two chunk buffers, the next query
+// chunk as copied, the per-row threshold value / index and count, the rows'
+// candidate buffers
+__host__ __device__ constexpr int f32_stage_words(int bq) {
+  return F32_DK * (bq + 4 + F32_CS);
+}
+__host__ __device__ constexpr int f32_smem_words(int bq, int cap) {
+  return 2 * f32_stage_words(bq) + bq * F32_DK + 3 * bq + 2 * bq * cap;
+}
+
+template <int BQ, int R>
+__global__ void __launch_bounds__(F32_NT, 2)
 topk_matmul_f32(const float* __restrict__ queries,
-                const float* __restrict__ corpus, float* cand_vals,
-                int* cand_idx, int Q, int N, int D, int k, int valid_n,
-                int tiles_per_split) {
-  constexpr int BQ = 64;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BQ][F32_RP]
-  float* sC = sQ + BQ * F32_RP;                    // [F32_BN][F32_RP]
-  float* lv = sC + F32_BN * F32_RP;                // [BQ][k]
-  int* li = reinterpret_cast<int*>(lv + BQ * k);   // [BQ][k]
+                const float* __restrict__ corpus, float* vals_out,
+                int* idx_out, int Q, int D, int k, int valid_n,
+                int tiles_per_split, int direct) {
+  constexpr int RM = BQ / 16;          // query rows a thread holds
+  constexpr int RG = RM < 4 ? RM : 4;  // rows in one contiguous group
+  constexpr int QS = BQ + 4;
+  constexpr int CAP = 32 * R;
+  constexpr int STAGE = f32_stage_words(BQ);
+  constexpr int F4 = F32_DK / 4;       // 16-byte pieces of a row's chunk
+  constexpr int QLOADS = (BQ * F4 + F32_NT - 1) / F32_NT;
+  constexpr int CLOADS = F32_BN * F32_DK / 4 / F32_NT;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* raw_q = smem_f32 + 2 * STAGE;                        // [BQ][DK]
+  float* thr_v = raw_q + BQ * F32_DK;                         // [BQ]
+  int* thr_i = reinterpret_cast<int*>(thr_v + BQ);            // [BQ]
+  int* cnt = thr_i + BQ;                                      // [BQ]
+  float* bv = reinterpret_cast<float*>(cnt + BQ);             // [BQ][CAP]
+  int* bi = reinterpret_cast<int*>(bv + BQ * CAP);            // [BQ][CAP]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
   const int lane = tid & 31;
   const int q0 = blockIdx.x * BQ;
-  const int split = blockIdx.y;
+  const int tile_begin = blockIdx.y * tiles_per_split;
+  const int tile_end = min(tile_begin + tiles_per_split,
+                           (valid_n + F32_BN - 1) / F32_BN);
+  const int n_chunks = (D + F32_DK - 1) / F32_DK;
+  const int total = tile_end > tile_begin ? (tile_end - tile_begin) * n_chunks
+                                          : 0;
+  // a row past Q never takes a candidate: (+inf, -1) ranks before all
+  if (tid < BQ) {
+    const bool ok = q0 + tid < Q;
+    thr_v[tid] = ok ? -INFINITY : INFINITY;
+    thr_i[tid] = ok ? TOPK_INT_MAX : -1;
+    cnt[tid] = 0;
+  }
+  auto row_of = [&](int i) { return (i / 4) * 64 + ty * RG + (i % 4); };
+  auto col_of = [&](int j) { return (j / 4) * 64 + tx * 4 + (j % 4); };
 
-  for (int e = tid; e < BQ * k; e += F32_NT) {
-    lv[e] = -INFINITY;
-    li[e] = TOPK_INT_MAX;
+  // element e = tid + 256 u of a chunk is row e / F4, features
+  // 4 (e % F4) .. + 3.  The query chunk goes to raw_q by cp.async (holding
+  // it in registers across the products spilled it at 128 registers), the
+  // corpus chunk to registers.
+  float4 cr[CLOADS];
+  auto fetch_q = [&](int c) {
+    const int d = c * F32_DK;
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u) {
+      const int e = tid + F32_NT * u;
+      const int r = e / F4, f = d + 4 * (e % F4);
+      if (e < BQ * F4) {
+        const bool in = q0 + r < Q && f < D;
+        cp_async16(smem_u32(raw_q + 4 * e),
+                   in ? queries + (size_t)(q0 + r) * D + f : queries,
+                   in ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  auto fetch_c = [&](int tile, int c) {
+    const int d = c * F32_DK;
+#pragma unroll
+    for (int u = 0; u < CLOADS; ++u) {
+      const int e = tid + F32_NT * u;
+      const int r = e / F4, f = d + 4 * (e % F4), n = tile * F32_BN + r;
+      cr[u] = (n < valid_n && f < D)
+          ? __ldg(reinterpret_cast<const float4*>(corpus + (size_t)n * D + f))
+          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // registers -> buffer, transposed to [feature][row]
+  auto stage_q = [&](int buf) {
+    float* sq = smem_f32 + buf * STAGE;
+    cp_async_wait<0>();  // this thread's copies; it reads only those
+#pragma unroll
+    for (int u = 0; u < QLOADS; ++u) {
+      const int e = tid + F32_NT * u;
+      if (e < BQ * F4) {
+        const int r = e / F4, f = 4 * (e % F4);
+        const float4 t = *reinterpret_cast<const float4*>(raw_q + 4 * e);
+        sq[(f + 0) * QS + r] = t.x;
+        sq[(f + 1) * QS + r] = t.y;
+        sq[(f + 2) * QS + r] = t.z;
+        sq[(f + 3) * QS + r] = t.w;
+      }
+    }
+  };
+  auto stage_c = [&](int buf) {
+    float* sc = smem_f32 + buf * STAGE + F32_DK * QS;
+#pragma unroll
+    for (int u = 0; u < CLOADS; ++u) {
+      const int e = tid + F32_NT * u;
+      const int r = e / F4, f = 4 * (e % F4);
+      sc[(f + 0) * F32_CS + r] = cr[u].x;
+      sc[(f + 1) * F32_CS + r] = cr[u].y;
+      sc[(f + 2) * F32_CS + r] = cr[u].z;
+      sc[(f + 3) * F32_CS + r] = cr[u].w;
+    }
+  };
+
+  float acc[RM][8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  if (total > 0) {
+    fetch_q(0);
+    fetch_c(tile_begin, 0);
+    stage_q(0);
+    stage_c(0);
   }
   __syncthreads();
 
-  const int tile_begin = split * tiles_per_split;
-  for (int tile = tile_begin; tile < tile_begin + tiles_per_split; ++tile) {
-    const int n0 = tile * F32_BN;
-    if (n0 >= valid_n) break;
-    float s[4][4];
+  int tile = tile_begin, c = 0;
+  for (int it = 0; it < total; ++it) {
+    const bool last_chunk = c == n_chunks - 1;
+    const bool has_next = it + 1 < total;
+    const int nt = last_chunk ? tile + 1 : tile, nc = last_chunk ? 0 : c + 1;
+    const float* sq = smem_f32 + (it & 1) * STAGE;
+    const float* sc = sq + F32_DK * QS;
+    if (has_next) {
+      fetch_q(nc);
+      fetch_c(nt, nc);
+    }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int d = 0; d < F32_DK; ++d) {
+      float a[RM], b[8];
+      if constexpr (RM == 2) {
+        const float2 t = *reinterpret_cast<const float2*>(sq + d * QS + ty * 2);
+        a[0] = t.x;
+        a[1] = t.y;
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d0 = 0; d0 < D; d0 += F32_DK) {
-      __syncthreads();
-      for (int e = tid; e < BQ * F32_DK; e += F32_NT) {
-        const int r = e / F32_DK, d = e % F32_DK;
-        const bool din = d0 + d < D;
-        sQ[r * F32_RP + d] = (din && q0 + r < Q)
-            ? queries[(size_t)(q0 + r) * D + d0 + d] : 0.f;
-        sC[r * F32_RP + d] = (din && n0 + r < N)
-            ? corpus[(size_t)(n0 + r) * D + d0 + d] : 0.f;
+        for (int g = 0; g < RM / 4; ++g) {
+          const float4 t = *reinterpret_cast<const float4*>(
+              sq + d * QS + g * 64 + ty * 4);
+          a[4 * g] = t.x;
+          a[4 * g + 1] = t.y;
+          a[4 * g + 2] = t.z;
+          a[4 * g + 3] = t.w;
+        }
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int d = 0; d < F32_DK; ++d) {
-        float qv[4], cv[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * F32_RP + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) cv[j] = sC[(tx + 16 * j) * F32_RP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], cv[j], s[i][j]);
+      for (int g = 0; g < 2; ++g) {
+        const float4 t = *reinterpret_cast<const float4*>(
+            sc + d * F32_CS + g * 64 + tx * 4);
+        b[4 * g] = t.x;
+        b[4 * g + 1] = t.y;
+        b[4 * g + 2] = t.z;
+        b[4 * g + 3] = t.w;
       }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (has_next) {
+      stage_q((it + 1) & 1);
+      stage_c((it + 1) & 1);
+    }
+    __syncthreads();
+    if (!last_chunk) {
+      ++c;
+      continue;
     }
 
-    bool mine = false;
+    // ---- epilogue of corpus tile `tile`: this warp's 2 x RM rows, one
+    // row of each half-warp at a time (few registers beside the scores) ----
+    const int n0 = tile * F32_BN;
+    const unsigned below = (1u << (lane & 15)) - 1u;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const float thr_v = lv[r * k + k - 1];
-      const int thr_i = li[r * k + k - 1];
+    for (int i = 0; i < RM; ++i) {
+      const int row = row_of(i);
+      float tv = thr_v[row];
+      int ti = thr_i[row], cn = cnt[row];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = n0 + tx + 16 * j;
-        if (col < valid_n && q0 + r < Q &&
-            better(s[i][j], col, thr_v, thr_i))
-          mine = true;
-      }
-    }
-    if (__any_sync(0xffffffffu, mine)) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        const float thr_v = lv[r * k + k - 1];
-        const int thr_i = li[r * k + k - 1];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = n0 + tx + 16 * j;
-          const bool cand = col < valid_n && q0 + r < Q &&
-                            better(s[i][j], col, thr_v, thr_i);
-          unsigned m = __ballot_sync(0xffffffffu, cand);
-          while (m) {
-            const int src = __ffs(m) - 1;
-            m &= m - 1;
-            const float cs_ = __shfl_sync(0xffffffffu, s[i][j], src);
-            const int cc = __shfl_sync(0xffffffffu, col, src);
-            const int cr = __shfl_sync(0xffffffffu, r, src);
-            warp_topk_insert(lv + cr * k, li + cr * k, k, cs_, cc, lane);
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + col_of(j);
+        const bool pass = col < valid_n && better(acc[i][j], col, tv, ti);
+        const unsigned votes = __ballot_sync(FULL, pass);
+        if (!votes) continue;
+        const unsigned half = (votes >> (lane & 16)) & 0xffffu;
+        if (pass) {
+          const int slot = cn + __popc(half & below);
+          bv[row * CAP + slot] = acc[i][j];
+          bi[row * CAP + slot] = col;
+        }
+        cn += __popc(half);
+        __syncwarp();
+        // a row over the mark (bit 0: the lower half-warp's, bit 16: the
+        // upper's); a row holds <= CAP - F32_PART entries before a part
+        unsigned need = __ballot_sync(FULL, cn > CAP - F32_PART) & 0x00010001u;
+        while (need) {
+          const int src = __ffs(need) - 1;
+          need &= need - 1;
+          const int n = __shfl_sync(FULL, cn, src);
+          const int r = (i / 4) * 64 + ((ty & ~1) | (src >> 4)) * RG + i % 4;
+          const RankedEntry t = compact_row_ranked<R>(bv, bi, r, n, k, lane);
+          if ((lane & 16) == src) {
+            cn = min(n, k);
+            tv = t.v;
+            ti = t.i;
           }
         }
       }
+      if (tx == 0) {
+        thr_v[row] = tv;
+        thr_i[row] = ti;
+        cnt[row] = cn;
+      }
     }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    ++tile;
+    c = 0;
   }
 
-  __syncthreads();
-  for (int e = tid; e < BQ * k; e += F32_NT) {
-    const int r = e / k, j = e % k;
-    if (q0 + r < Q) {
-      const size_t off = ((size_t)split * Q + q0 + r) * k + j;
-      cand_vals[off] = lv[e];
-      cand_idx[off] = li[e];
+  // each warp sorts and writes the lists of its own rows
+  __syncthreads();  // the row state initialised by other warps is visible
+  const int warp = tid >> 5;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    for (int h = 0; h < 2; ++h) {
+      const int row = (i / 4) * 64 + (2 * warp + h) * RG + i % 4;
+      const int n = cnt[row];
+      if (q0 + row >= Q) continue;
+      compact_row_ranked<R>(bv, bi, row, n, k, lane);
+      const size_t off = ((size_t)blockIdx.y * Q + q0 + row) * k;
+      for (int j = lane; j < k; j += 32) {
+        const int ix = j < n ? bi[row * CAP + j] : TOPK_INT_MAX;
+        vals_out[off + j] = j < n ? bv[row * CAP + j] : -INFINITY;
+        idx_out[off + j] = (direct && ix == TOPK_INT_MAX) ? -1 : ix;
+      }
     }
   }
+}
+
+template <int BQ, int R>
+int launch_f32(const float* queries, const float* corpus, float* vals_out,
+               int* idx_out, int Q, int D, int k, int valid_n, int n_splits,
+               int tiles_per_split, int direct, cudaStream_t stream) {
+  constexpr int smem = 4 * f32_smem_words(BQ, 32 * R);
+  static bool attr_set = false;  // per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        topk_matmul_f32<BQ, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  dim3 grid((Q + BQ - 1) / BQ, n_splits);
+  topk_matmul_f32<BQ, R><<<grid, F32_NT, smem, stream>>>(
+      queries, corpus, vals_out, idx_out, Q, D, k, valid_n, tiles_per_split,
+      direct);
+  return (int)cudaGetLastError();
 }
 
 template <bool INT8, int NWG, int R>
@@ -587,13 +797,15 @@ const char* kernel_error_string(int code) {
 
 // dtype: 0 = float32, 1 = bfloat16, 2 = int8 (queries int8 with q_scales
 // [Q], corpus int8 with c_scales [N]; both null otherwise).  cand_* are
-// scratch [n_splits, Q, k] (unused with one split of a tensor-core body,
-// which writes out_* itself); out_* are [Q, k].  Split s covers corpus
-// tiles [s * tiles_per_split, (s + 1) * tiles_per_split) of 128 rows (64
-// for float32).  q_rows (64 or 128 query rows a block), cap (entries of a
-// row's candidate buffer: 64, 128 or 256, at least k + 32) and stages come
-// from ops/topk.py topk_mma_geometry and are ignored for float32.  Returns
-// 0, a CUDA error code, or a negative code of kernel_error_string.
+// scratch [n_splits, Q, k] (unused with one split, which writes out_*
+// itself); out_* are [Q, k].  Split s covers corpus tiles
+// [s * tiles_per_split, (s + 1) * tiles_per_split) of 128 rows.  q_rows
+// (query rows a block), cap (entries of a row's candidate buffer) and
+// stages come from ops/topk.py: topk_mma_geometry for the tensor-core
+// bodies (q_rows 64 or 128; cap 64, 128 or 256, at least k + 32),
+// topk_f32_geometry for float32 (q_rows 32, 64 or 128; cap at least
+// k + 16; stages unused).  Returns 0, a CUDA error code, or a negative
+// code of kernel_error_string.
 int topk_matmul(const void* queries, const void* corpus,
                 const float* q_scales, const float* c_scales,
                 float* cand_vals, int* cand_idx, float* out_vals,
@@ -604,17 +816,23 @@ int topk_matmul(const void* queries, const void* corpus,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = -1;
   if (dtype == 0) {
-    const size_t smem =
-        (size_t)(64 + F32_BN) * F32_RP * 4 + (size_t)64 * k * 8;
-    cudaError_t err = cudaFuncSetAttribute(
-        topk_matmul_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((Q + 63) / 64, n_splits);
-    topk_matmul_f32<<<grid, F32_NT, smem, s>>>(
-        static_cast<const float*>(queries), static_cast<const float*>(corpus),
-        cand_vals, cand_idx, Q, N, D, k, valid_n, tiles_per_split);
-    rc = (int)cudaGetLastError();
+    if (D % 4 || cap < k + F32_PART) return -1;
+    const int direct = n_splits == 1;
+    const float* qf = static_cast<const float*>(queries);
+    const float* cf = static_cast<const float*>(corpus);
+    float* vals = direct ? out_vals : cand_vals;
+    int* idx = direct ? out_idx : cand_idx;
+#define TOPK_F32(BQ, R)                                                      \
+  rc = launch_f32<BQ, R>(qf, cf, vals, idx, Q, D, k, valid_n, n_splits,      \
+                         tiles_per_split, direct, s)
+    if (q_rows == 128 && cap == 64) TOPK_F32(128, 2);
+    else if (q_rows == 64 && cap == 64) TOPK_F32(64, 2);
+    else if (q_rows == 64 && cap == 128) TOPK_F32(64, 4);
+    else if (q_rows == 32 && cap == 64) TOPK_F32(32, 2);
+    else if (q_rows == 32 && cap == 128) TOPK_F32(32, 4);
+    else if (q_rows == 32 && cap == 256) TOPK_F32(32, 8);
+#undef TOPK_F32
+    if (rc != 0 || direct) return rc;
   } else if (dtype == 1 || dtype == 2) {
     const bool int8 = dtype == 2;
     const int row_bytes = int8 ? D : 2 * D;

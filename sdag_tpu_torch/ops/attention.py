@@ -10,14 +10,15 @@ on a CUDA tensor and the plain dense-mask version
 K1 walks, per (batch, q-tile), the packed list of live key tiles
 (``compute_block_kinds`` + ``_pack_kv_lists`` at K1's own 64x64 tiles) and
 specializes the mask by tile kind: FULL tiles take no mask, CAUSAL tiles
-the 3-op causal rule, PARTIAL tiles the full SDAG rule: the f32 body
-evaluates it in-kernel from O(L) metadata, the bf16 body tests bit tiles
-that the plan evaluates once per prefill for all layers and heads
+the 3-op causal rule, PARTIAL tiles the full SDAG rule as bit tiles that
+the plan evaluates once per prefill for all layers and heads
 (``partial_tile_masks``; the TPU path's int8 mask tiles, ``use_mask_tiles``,
-are the same trade).
+are the same trade).  Both bodies take work heaviest q-tile first
+(``heavy_first_order``).
 bf16 inputs run on the tensor cores (wgmma fed by TMA, f32 accumulation,
 two q heads of a GQA group sharing each K/V tile); f32 inputs stay f32 on
-CUDA-core FMA.
+CUDA-core FMA (K/V tiles staged by cp.async, two q heads of an even GQA
+group sharing each K/V tile).
 
 Decode keeps reference semantics: generated tokens attend the whole cache
 with plain causal attention; it is plain PyTorch (XLA in the JAX package).
@@ -228,8 +229,9 @@ def tile_masks_from_metadata(doc_id, nbr_bits, sys_user_len, valid_len,
                              block_q: int, block_k: int,
                              doc_id_q=None, nbr_bits_q=None, q_offset=None):
     """The exact SDAG mask as int8 tiles [B, nQ, nK, block_q, block_k]
-    (the JAX package streams these on the TPU; K1 evaluates the rule
-    in-kernel instead, so this is a test and inspection helper)."""
+    (the JAX package streams these on the TPU; K1 tests the bits of
+    ``partial_tile_masks`` instead, so this is a test and inspection
+    helper)."""
     B, Lk = doc_id.shape
     dev = doc_id.device
     doc_id_q = doc_id if doc_id_q is None else doc_id_q
@@ -262,8 +264,8 @@ def _pack_kv_lists(kinds: torch.Tensor):
 
 def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
                        sys_user_len, valid_len, q_offset):
-    """The SDAG token rule on the PARTIAL tiles only, as bits: K1's bf16
-    body tests these instead of evaluating the rule per layer and head (a
+    """The SDAG token rule on the PARTIAL tiles only, as bits: both of K1's
+    bodies test these instead of evaluating the rule per layer and head (a
     tile's mask depends on neither).
 
     kinds [B, nQ, nK] and the tile-padded metadata of ``k1_plan``.  Returns
@@ -306,15 +308,27 @@ def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
 
 def heavy_first_order(counts: torch.Tensor) -> torch.Tensor:
     """The (batch, q-tile) pairs b * nQ + qt sorted by live key tiles, most
-    first (ties in index order): K1's bf16 body hands out work in this
+    first (ties in index order): both of K1's bodies hand out work in this
     order, so the last blocks to finish hold the lightest q-tiles."""
     return torch.argsort(counts.reshape(-1), descending=True,
                          stable=True).to(torch.int32).contiguous()
 
 
+def live_tile_stats(counts: torch.Tensor) -> dict:
+    """Live key tiles per (batch, q-tile) of a plan: the most, the mean and
+    their ratio.  K1 hands out one q-tile's tiles to one block, so a ratio
+    far above 1 with few q-tiles per SM means the heaviest q-tile sets the
+    kernel's time."""
+    c = counts.reshape(-1).double()
+    most = float(c.max()) if c.numel() else 0.0
+    mean = float(c.mean()) if c.numel() else 0.0
+    return {"max": int(most), "mean": mean,
+            "max_over_mean": most / mean if mean else 0.0}
+
+
 def k1_group_items(n_q_heads: int, n_kv_heads: int):
-    """How K1's bf16 body cuts a GQA layout into work items per (batch,
-    q-tile): (q heads per block, items).  Two q heads of a kv head share
+    """How K1 cuts a GQA layout into work items per (batch, q-tile): (q
+    heads per block, items).  Two q heads of a kv head share
     one block (and each K/V tile) when the group size is even, else every
     q head is an item of its own.  Each item is (kv head, its q heads), in
     the order the kernel numbers them."""
@@ -381,7 +395,8 @@ def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
 
 _K1_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launch-count key per kernel body: bf16 runs the tensor-core kernel
-# (sdag_prefill_wgmma_kernel), f32 the CUDA-core one (sdag_prefill_kernel)
+# (sdag_prefill_wgmma_kernel), f32 the CUDA-core one
+# (sdag_prefill_f32_kernel)
 K1_BODIES = {torch.float32: "sdag_prefill_f32",
              torch.bfloat16: "sdag_prefill_bf16"}
 
@@ -390,7 +405,7 @@ def _k1_lib():
     lib = _build.load("sdag_prefill")
     if lib.sdag_prefill.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sdag_prefill.argtypes = [p] * 16 + [i] * 9 + [ctypes.c_float,
+        lib.sdag_prefill.argtypes = [p] * 12 + [i] * 8 + [ctypes.c_float,
                                                           i, i, i, p]
         lib.sdag_prefill.restype = i
     return lib
@@ -431,13 +446,11 @@ def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
     lib = _k1_lib()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     rc = lib.sdag_prefill(
-        ptr(q), ptr(k), ptr(v), ptr(out), ptr(plan["doc_id"]),
-        ptr(plan["doc_id_q"]), ptr(plan["nbr_bits_q"]),
-        ptr(plan["sys_user_len"]), ptr(plan["valid_len"]),
+        ptr(q), ptr(k), ptr(v), ptr(out), ptr(plan["valid_len"]),
         ptr(plan["q_offset"]), ptr(plan["counts"]), ptr(plan["kv_list"]),
         ptr(plan["kind_list"]), ptr(plan["order"]), ptr(plan["mask_bits"]),
         ptr(plan["mask_slot"]), B, Hq, Hkv, Lq, Lk, Dh,
-        plan["nq"], plan["nk"], plan["doc_id"].shape[1], float(scale),
+        plan["nq"], plan["nk"], float(scale),
         _K1_DTYPES[q.dtype], k1_group_items(Hq, Hkv)[0],
         _build.sm_count(q.device),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))

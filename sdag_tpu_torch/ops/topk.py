@@ -160,7 +160,6 @@ def exact_topk_int8(queries: torch.Tensor, corpus_i8: torch.Tensor,
 
 # geometry of the tensor-core bodies (csrc/topk_matmul.cu topk_matmul_mma)
 K4_TILE_N = 128            # corpus rows per tile
-K4_TILE_N_F32 = 64
 K4_CHUNK_BYTES = 128       # bytes of a row per ring stage
 K4_SMEM_LIMIT = 232448     # dynamic shared memory a block may use
 K4_MAX_STAGES = 4
@@ -217,16 +216,54 @@ def topk_mma_geometry(qn: int, valid_n: int, d: int, k: int,
             "smem_bytes": _mma_smem_bytes(q_rows, cap, stages)}
 
 
-def topk_f32_geometry(qn: int, valid_n: int, sms: int) -> dict:
-    """Launch geometry of K4's float32 body: 64 x 64 tiles, corpus splits
-    sized to ~2 blocks per SM, always merged by the second pass."""
-    q_tiles = -(-qn // 64)
-    tiles = max(1, -(-valid_n // K4_TILE_N_F32))
-    n_splits = max(1, min(tiles, (2 * sms) // q_tiles))
+# geometry of the float32 body (csrc/topk_matmul.cu topk_matmul_f32)
+K4_F32_TILE_N = 128        # corpus rows per tile
+K4_F32_CHUNK = 16          # features per staged chunk
+K4_F32_PART = 16           # columns of a row appended between two checks
+# a block's candidate buffers (q_rows x cap entries) stay within 64 KiB, so
+# two blocks fit on an SM
+K4_F32_BUFFER_ENTRIES = 8192
+K4_F32_BLOCKS_PER_SM = 2
+
+
+def _f32_smem_bytes(q_rows: int, cap: int) -> int:
+    """csrc/topk_matmul.cu f32_smem_words() in bytes: two chunk buffers of
+    [chunk][q_rows + 4] and [chunk][128 + 4] floats, the next query chunk as
+    copied ([q_rows][chunk]), a threshold value, index and count per row,
+    the rows' candidate buffers."""
+    stage = K4_F32_CHUNK * (q_rows + 4 + K4_F32_TILE_N + 4)
+    return 4 * (2 * stage + q_rows * K4_F32_CHUNK + 3 * q_rows
+                + 2 * q_rows * cap)
+
+
+def topk_f32_geometry(qn: int, valid_n: int, k: int, sms: int) -> dict:
+    """Launch geometry of K4's float32 body, a pure function of the shapes
+    and the SM count.
+
+    * ``cap``: entries of a row's candidate buffer, 64 / 128 / 256 for
+      k <= 48 / 112 / 128 (at least k + 16: 16 columns are appended between
+      two checks).
+    * ``q_rows``: 32, 64 or 128 query rows a block: the least that covers Q
+      (so a small batch pays no idle rows), as long as the buffers stay
+      within K4_F32_BUFFER_ENTRIES.
+    * two blocks per SM: ``n_splits`` corpus splits of ``tiles_per_split``
+      128-row tiles per query tile; one split writes the result itself
+      (``direct``), more are merged by the second pass.
+    """
+    cap = next(c for c in (64, 128, 256) if c >= k + K4_F32_PART)
+    q_rows = 32
+    while q_rows < 128 and q_rows < qn \
+            and 2 * q_rows * cap <= K4_F32_BUFFER_ENTRIES:
+        q_rows *= 2
+    q_tiles = -(-qn // q_rows)
+    tiles = max(1, -(-valid_n // K4_F32_TILE_N))
+    n_splits = max(1, min(tiles, K4_F32_BLOCKS_PER_SM * sms // q_tiles))
     tiles_per_split = -(-tiles // n_splits)
-    return {"q_rows": 64, "cap": 0, "stages": 0, "tiles": tiles,
-            "n_splits": -(-tiles // tiles_per_split),
-            "tiles_per_split": tiles_per_split, "direct": False}
+    n_splits = -(-tiles // tiles_per_split)
+    return {"q_rows": q_rows, "cap": cap, "stages": 0, "q_tiles": q_tiles,
+            "tiles": tiles, "n_splits": n_splits,
+            "tiles_per_split": tiles_per_split, "direct": n_splits == 1,
+            "smem_bytes": _f32_smem_bytes(q_rows, cap)}
 
 
 def _k4_lib():
@@ -290,7 +327,7 @@ def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     valid_n = n if valid_n is None else max(0, min(int(valid_n), n))
     dev = corpus.device
     if dt == torch.float32:
-        geo = topk_f32_geometry(qn, valid_n, _build.sm_count(dev))
+        geo = topk_f32_geometry(qn, valid_n, k, _build.sm_count(dev))
     else:
         geo = topk_mma_geometry(qn, valid_n, d, k, dt, _build.sm_count(dev))
     out_v = torch.empty(qn, k, dtype=torch.float32, device=dev)

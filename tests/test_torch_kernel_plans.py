@@ -1,7 +1,7 @@
-"""Launch geometry and work plans of the port's tensor-core kernels, on the
-CPU: the pure functions that decide what the CUDA kernels K1 (bf16 body),
-K4 (bf16 body) and K5 are launched with, held against their own invariants
-and, where the JAX package has the same function, against it."""
+"""Launch geometry and work plans of the port's kernels, on the CPU: the
+pure functions that decide what the CUDA kernels K1 (both bodies), K4 (both
+bodies) and K5 are launched with, held against their own invariants and,
+where the JAX package has the same function, against it."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -71,13 +71,47 @@ def test_topk_mma_smem_bytes_by_hand():
 
 
 @pytest.mark.parametrize("qn,n,sms", [(1, 50, 132), (256, 131072, 132),
-                                      (32, 130072, 108), (1000, 4096, 132)])
+                                      (32, 130072, 108), (1000, 4096, 132),
+                                      (24, 384, 132), (33, 5000, 132),
+                                      (65, 131072, 132), (129, 5000, 108)])
 def test_topk_f32_geometry_covers_every_tile(qn, n, sms):
-    g = ttopk.topk_f32_geometry(qn, n, sms)
-    tiles = max(1, -(-n // ttopk.K4_TILE_N_F32))
-    assert g["n_splits"] * g["tiles_per_split"] >= tiles
-    assert (g["n_splits"] - 1) * g["tiles_per_split"] < tiles
-    assert not g["direct"] and g["q_rows"] == 64
+    """K4's float32 body over k: the splits cover every 128-row tile
+    exactly once, at most two blocks per SM across the query tiles, the
+    candidate buffer leaves room for the 16 columns appended between two
+    checks and stays within its budget, the query tile is the least of
+    32 / 64 / 128 rows that covers Q where the buffers allow (never past the
+    next tile size above Q), one split skips the merge pass, and the shared
+    memory of two blocks fits on an SM."""
+    for k in (1, 5, 10, 48, 49, 64, 112, 113, 128):
+        g = ttopk.topk_f32_geometry(qn, n, k, sms)
+        tiles = max(1, -(-n // ttopk.K4_F32_TILE_N))
+        assert g["tiles"] == tiles
+        assert g["n_splits"] * g["tiles_per_split"] >= tiles
+        assert (g["n_splits"] - 1) * g["tiles_per_split"] < tiles
+        assert g["n_splits"] * g["q_tiles"] <= max(g["q_tiles"], 2 * sms)
+        assert g["q_tiles"] == -(-qn // g["q_rows"])
+        assert g["direct"] == (g["n_splits"] == 1)
+        assert g["cap"] in (64, 128, 256) and g["cap"] >= k + 16
+        assert g["q_rows"] * g["cap"] <= ttopk.K4_F32_BUFFER_ENTRIES
+        assert g["q_rows"] in (32, 64, 128)
+        least = next(r for r in (32, 64, 128) if r >= min(qn, 128))
+        assert g["q_rows"] <= least
+        if g["q_rows"] < least:            # held back by the buffers only
+            assert 2 * g["q_rows"] * g["cap"] > ttopk.K4_F32_BUFFER_ENTRIES
+        assert 2 * g["smem_bytes"] + 2048 <= 233472
+
+
+def test_topk_f32_smem_bytes_by_hand():
+    """128 query rows, 64-entry buffers: two chunks of 16 x (132 + 132)
+    floats, the next query chunk (128 x 16), three words a row, 2 x 128 x 64
+    words of buffer."""
+    assert ttopk._f32_smem_bytes(128, 64) == \
+        4 * (2 * 16 * 264 + 128 * 16 + 3 * 128 + 2 * 128 * 64)
+    g = ttopk.topk_f32_geometry(256, 131072, 10, 132)
+    assert (g["q_rows"], g["cap"], g["q_tiles"]) == (128, 64, 2)
+    assert g["n_splits"] == 128 and g["tiles_per_split"] == 8
+    g = ttopk.topk_f32_geometry(24, 384, 5, 132)
+    assert (g["q_rows"], g["n_splits"], g["direct"]) == (32, 3, False)
 
 
 @pytest.mark.parametrize("rows,width", [(1, 48), (24, 1024), (7, 1040)])
@@ -181,7 +215,7 @@ def test_k1_plan_equals_jax_block_kinds_at_k1_tiles(case):
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
 def test_k1_partial_tile_mask_bits_equal_the_token_rule(case):
-    """The bit tiles K1's bf16 body tests on PARTIAL tiles: every PARTIAL
+    """The bit tiles both K1 bodies test on PARTIAL tiles: every PARTIAL
     tile of a worklist has a slot, no other tile has one, and the bits
     equal the JAX package's int8 mask tiles (its token rule) on the same
     padded metadata."""
@@ -218,7 +252,7 @@ def test_k1_partial_tile_mask_bits_equal_the_token_rule(case):
 
 @pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
 def test_k1_heavy_first_order(case):
-    """The order K1's bf16 body hands out (batch, q-tile) pairs in: every
+    """The order both K1 bodies hand out (batch, q-tile) pairs in: every
     pair once, live-tile counts never rising, ties in index order."""
     plan = _plan(case, seed=12)
     order = plan["order"].numpy()
@@ -234,7 +268,7 @@ def test_k1_heavy_first_order(case):
 @pytest.mark.parametrize("group", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("n_kv", [1, 2, 8])
 def test_k1_group_items_cover_every_head_once(group, n_kv):
-    """How K1's bf16 body packs a GQA layout: two q heads of one kv head
+    """How both K1 bodies pack a GQA layout: two q heads of one kv head
     per block when the group is even, one otherwise; every q head in
     exactly one item, with its own kv head."""
     nwg, items = TA.k1_group_items(group * n_kv, n_kv)
@@ -251,3 +285,40 @@ def test_k1_cuda_wrapper_checks_the_plan_against_the_tensors():
     q = torch.zeros(1, 2, 64, 32)
     with pytest.raises(ValueError):
         TA.sdag_prefill_cuda(q, q, q, None)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: c[0])
+def test_k1_live_tile_stats_by_hand(case):
+    """The most and mean live key tiles per (batch, q-tile) that
+    chip_smoke.py logs beside K1's times, against numpy on the plan's
+    counts and against the JAX package's worklist counts."""
+    plan = _plan(case, seed=14)
+    counts = plan["counts"].numpy()
+    st = TA.live_tile_stats(plan["counts"])
+    assert st["max"] == int(counts.max())
+    assert st["mean"] == pytest.approx(float(counts.mean()))
+    assert st["max_over_mean"] == pytest.approx(
+        counts.max() / counts.mean() if counts.mean() else 0.0)
+    kinds = jnp.asarray(plan["kinds"].numpy())
+    jcounts = np.asarray(JA._pack_kv_lists(kinds)[0])
+    assert st["max"] == int(jcounts.max())
+
+
+def test_k1_live_tile_stats_of_an_empty_plan():
+    st = TA.live_tile_stats(torch.zeros(2, 3, dtype=torch.int32))
+    assert st == {"max": 0, "mean": 0.0, "max_over_mean": 0.0}
+
+
+def test_k1_f32_cuda_wrapper_rejects_cpu_tensors_with_a_plan():
+    """The f32 body reads the same plan as the bf16 body (kinds, worklists,
+    heavy-first order, PARTIAL bit tiles); a CPU tensor handed to the CUDA
+    wrapper raises instead of falling back."""
+    plan = _plan(PLAN_CASES[0], seed=15)
+    for key in ("order", "mask_bits", "mask_slot", "counts", "kv_list",
+                "kind_list", "valid_len", "q_offset"):
+        assert plan[key].dtype == torch.int32 and plan[key].is_contiguous()
+    B, Lq = plan["doc_id_q"].shape
+    q = torch.zeros(B, 2, plan["Lq"], 32)
+    k = torch.zeros(B, 2, plan["Lk"], 32)
+    with pytest.raises(ValueError):
+        TA.sdag_prefill_cuda(q, k, k, plan)
