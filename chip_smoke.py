@@ -25,13 +25,15 @@ Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          plain version, and F.scaled_dot_product_attention with the dense
          boolean mask.
 Phase 2  K2 against its plain version: 1,048,576 docs x 64 Zipf term slots
-         (2^18 vocab), 32 queries x 16 terms, k=10 (and k=20; and 32 terms,
-         k=64: every pass-1 instantiation); and the main path's
-         index/query shapes.  Indices must agree wherever scores differ by
-         more than 1e-5 relative; scores agree within 1e-5 relative.  No
-         single PyTorch call computes the scan, so library_ms is null;
-         torch.topk over precomputed scores (selection alone) is reported
-         as topk_only_ms.
+         (2^18 vocab), 32 queries x 16 terms, k=10 and k=20, and 32 terms,
+         k=64 (both buffer sizes), all timed; 5,000 docs with 33 queries
+         (two query groups) and valid_n 4,321; one query at k=1; rows of
+         50 slots (the 4-byte copy path); and the main path's index/query
+         shapes.  Scores and indices must be bit-equal to the plain
+         version's (ties in index order, (-inf, -1) tails).  No single
+         PyTorch call computes the scan, so library_ms is null; torch.topk
+         over precomputed scores (selection alone) is reported as
+         topk_only_ms.
 Phase 3  run_experiment on experiments/data/qa_ckpt (trained decoder):
          clean ACC iso/noiso >= 0.5, attacked ASR iso+noiso > 0.
 Phase 4  the main path at full width: run_experiment with LLM_ARCH=llama3-8b
@@ -43,8 +45,10 @@ Phase 5  K3 against its plain version (encoder_attention_qkv_reference):
          e5-large-v2 heads (H=16, Dh=64) in bf16 at (B=64, L=256) and
          (B=32, L=512) with ragged valid_len including L, 1 and 0; tiny
          heads (H=4, Dh=32) in f32 at L=64; lengths off the tile grid
-         (L 72/100/200) and Dh=128; and the ranker path's own batch
-         (32 passages of the synthetic world through the byte tokenizer).
+         (L 72/100/200) and Dh=128; bf16 Dh=128 at (B=4, L=512), whose
+         K/V tiles do not fit the ring and stream through it, and one
+         sequence of 512; and the ranker path's own batch (32 passages of
+         the synthetic world through the byte tokenizer).
          All rows are compared with K1's limits.  Two planted faults (one
          key tile dropped; the mask off by one column) must fail the check.
          Times K3, the plain version, and scaled_dot_product_attention
@@ -465,6 +469,10 @@ def _k2_case(name, term_ids, impacts, q_terms, q_weights, k, valid_n,
     scores = M.bm25_scores(term_ids, impacts, q_terms, q_weights)
     scores[:, valid_n:] = float("-inf")
     vp, ip = M._ordered_topk(scores, k)
+    # the kernel repeats the plain version's float operations in its order
+    if not (torch.equal(vk, vp) and torch.equal(ik, ip)):
+        raise AssertionError(f"K2 {name}: not bit-equal to the plain "
+                             "version")
     ok_v = torch.isclose(vk, vp, rtol=1e-5, atol=0) | (
         torch.isneginf(vk) & torch.isneginf(vp))
     if not bool(ok_v.all()):
@@ -531,14 +539,27 @@ def phase2(dev):
                              > 0.8).float(), 0.0).contiguous()
     recs.append(_k2_case("a_N1M_Lp64_zipf", term_ids, impacts, q_terms,
                          q_weights, 10, N))
-    # the wrapper's other pass-1 instantiations: k > 16 at T <= 16, and
-    # T > 16 with k > 16
+    # both candidate-buffer sizes (k <= 32 and k > 32), 16 and 32 terms
     recs.append(_k2_case("a_N1M_k20", term_ids, impacts, q_terms,
-                         q_weights, 20, N, timed=False))
-    q_terms = _dedup_rows(_zipf_ids(g, (Q, 32), V, 1.07, dev)).contiguous()
-    q_weights = torch.where(q_terms >= 0, 1.0, 0.0).contiguous()
-    recs.append(_k2_case("a_N1M_T32_k64", term_ids, impacts, q_terms,
-                         q_weights, 64, N, timed=False))
+                         q_weights, 20, N))
+    q32 = _dedup_rows(_zipf_ids(g, (Q, 32), V, 1.07, dev)).contiguous()
+    w32 = torch.where(q32 >= 0, 1.0, 0.0).contiguous()
+    recs.append(_k2_case("a_N1M_T32_k64", term_ids, impacts, q32, w32, 64,
+                         N))
+    # two query groups with valid_n inside the index; a single query at
+    # k = 1; rows of 50 slots, whose chunks are not 16-byte aligned
+    q33 = _dedup_rows(_zipf_ids(g, (33, T), V, 1.07, dev)).contiguous()
+    w33 = torch.where(q33 >= 0, 1.0 + (torch.rand(
+        (33, T), generator=g, device=dev) > 0.8).float(), 0.0).contiguous()
+    small_t = term_ids[:5000].contiguous()
+    small_i = impacts[:5000].contiguous()
+    recs.append(_k2_case("c_Q33_N5000_valid4321", small_t, small_i, q33, w33,
+                         10, 4321, timed=False))
+    recs.append(_k2_case("c_Q1_k1", small_t, small_i, q33[:1].contiguous(),
+                         w33[:1].contiguous(), 1, 5000, timed=False))
+    recs.append(_k2_case("c_Lp50_unaligned", small_t[:, :50].contiguous(),
+                         small_i[:, :50].contiguous(), q_terms, q_weights, 10,
+                         5000, timed=False))
     del term_ids, impacts
     torch.cuda.empty_cache()
     # (b) the main path's shapes: the synthetic world's BM25 index, its
@@ -861,6 +882,14 @@ def phase5(dev):
     recs.append(_k3_case("e_Dh128_f32_L200_B3",
                          qkv_of(3, 200, 2, 128, torch.float32),
                          ragged(3, 200), 2))
+    # Dh = 128 at L = 512: the K/V tiles stream through the ring
+    recs.append(_k3_case("g_Dh128_bf16_B4_L512_streaming",
+                         qkv_of(4, 512, 8, 128, torch.bfloat16),
+                         ragged(4, 512), 8, plant_fault=True))
+    recs.append(_k3_case("g_e5_large_bf16_B1_L512",
+                         qkv_of(1, 512, 16, 64, torch.bfloat16),
+                         torch.tensor([333], dtype=torch.int32, device=dev),
+                         16))
     L, lens = _ranker_path_passages(32)
     recs.append(_k3_case(
         "f_ranker_path_batch", qkv_of(len(lens), L, 16, 64, torch.bfloat16),

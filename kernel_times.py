@@ -24,7 +24,17 @@ that builds that tree's kernels with nvcc:
 * K1 in float32: the qa_ckpt main path's ISO and NO-ISO shapes (B = 8,
   H = Hkv = 6, L = 640, Dh = 32), the ISO shape with the (batch, q-tile)
   pairs handed out in index order instead of heaviest first, and the
-  L = 4096 2-NN layout at Hq = 16, Hkv = 8, Dh = 128.
+  L = 4096 2-NN layout at Hq = 16, Hkv = 8, Dh = 128 (with its bound,
+  plain time and F.scaled_dot_product_attention with the dense mask, from
+  chip_smoke's K1 case);
+* K3 ``encoder_attention_cuda`` in bfloat16 at e5-large-v2's heads (H = 16,
+  Dh = 64): (B = 64, L = 256) and (B = 32, L = 512) with ragged valid
+  lengths (L, 1, 0 and random), and the ranker path's first encode batch
+  (32 passages of the synthetic world, L = 64);
+* K2 ``bm25_topk_cuda``: 1,048,576 docs x 64 Zipf term slots with 32
+  queries of 16 terms at k = 10 and k = 20, and 32 terms at k = 64; the
+  main path's shape (the synthetic world's 384 docs, Lp = 128, 32 queries,
+  k = 5).
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
@@ -72,19 +82,89 @@ def graph_ms(fn, calls: int = 20, replays: int = 10) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
+def k3_times(c, dev, out):
+    """K3's bf16 body at e5-large-v2's heads and the ranker batch."""
+    import torch
+    from sdag_tpu_torch.ops import encoder_attention as E
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for B, L in ((64, 256), (32, 512)):
+        qkv = torch.randn(B, L, 3 * 1024, generator=g, device=dev).to(
+            torch.bfloat16)
+        vl = torch.randint(2, L, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        vl[0], vl[1], vl[2] = L, 1, 0
+        out[f"K3_bf16_B{B}_L{L}_ragged"] = c.cuda_ms(
+            lambda: E.encoder_attention_cuda(qkv, vl, 16), iters=20)
+    L, lens = c._ranker_path_passages(32)
+    qkv = torch.randn(len(lens), L, 3 * 1024, generator=g, device=dev).to(
+        torch.bfloat16)
+    vl = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    fn = lambda: E.encoder_attention_cuda(qkv, vl, 16)  # noqa: E731
+    name = f"K3_bf16_ranker_B{len(lens)}_L{L}"
+    out[name] = c.cuda_ms(fn, iters=20)
+    out[name + "_graph"] = graph_ms(fn)
+
+
+def k2_times(c, dev, out):
+    """K2 at 1M docs (three instantiations) and the main path's shape."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch.ops import bm25 as M
+    from sdag_tpu_torch.retrieval.sparse import BM25Index
+    from sdag_tpu_torch.pipeline.resources import load_corpus_jsonl
+    from sdag_tpu_torch.utils.synth_qa import (fact_query, load_world,
+                                               write_corpus_jsonl)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    N, Lp, V = 1 << 20, 64, 1 << 18
+    term_ids = c._dedup_rows(c._zipf_ids(g, (N, Lp), V, 1.07, dev))
+    impacts = (0.1 + 2.9 * torch.rand((N, Lp), generator=g, device=dev))
+    impacts = torch.where(term_ids >= 0, impacts, 0.0).contiguous()
+    for t, k in ((16, 10), (16, 20), (32, 64)):
+        qt = c._dedup_rows(c._zipf_ids(g, (32, t), V, 1.07, dev)).contiguous()
+        qw = torch.where(qt >= 0, 1.0, 0.0).contiguous()
+        out[f"K2_N1M_Lp64_T{t}_k{k}"] = c.cuda_ms(
+            lambda: M.bm25_topk_cuda(term_ids, impacts, qt, qw, k), iters=10)
+    del term_ids, impacts
+    world = load_world(os.path.join(HERE, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    corpus = os.path.join(c.OUT_DIR, "kernel_times_corpus.jsonl")
+    os.makedirs(c.OUT_DIR, exist_ok=True)
+    write_corpus_jsonl(world, corpus)
+    texts, ids = load_corpus_jsonl(corpus)
+    index = BM25Index.from_texts(texts, ids, engine="scan", device=dev)
+    qt, qw = index.encode_queries([fact_query(f) for f in world.facts[:32]])
+    qt = torch.from_numpy(np.ascontiguousarray(qt)).to(dev)
+    qw = torch.from_numpy(np.ascontiguousarray(qw)).to(dev)
+
+    def fn():
+        return M.bm25_topk_cuda(index.term_ids, index.impacts, qt, qw, 5,
+                                valid_n=index.valid_n)
+    out["K2_path_384docs_Lp128_k5"] = c.cuda_ms(fn, iters=20)
+    out["K2_path_384docs_Lp128_k5_graph"] = graph_ms(fn)
+
+
 def worker(tree: str) -> int:
     sys.path.insert(0, tree)
-    import numpy as np
     import torch
     import chip_smoke as c                      # the tree's own helpers
     from sdag_tpu_torch import _build
-    from sdag_tpu_torch.ops import attention as A
-    from sdag_tpu_torch.ops import topk as T
 
-    _build.build_all(["sdag_prefill", "topk_matmul"])
+    _build.build_all()
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
+    for times in (k3_times, k2_times, k4_times, k1_times):
+        times(c, dev, out)
+    print(json.dumps({"tree": tree, "ms": out}), flush=True)
+    return 0
+
+
+def k4_times(c, dev, out):
+    """K4 (bf16, f32) and K5 at 1M / 128K rows and the ranker path."""
+    import torch
+    from sdag_tpu_torch.ops import topk as T
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     n, d = 1 << 20, 1024
@@ -129,6 +209,14 @@ def worker(tree: str) -> int:
     del cb, ci, cs, cf
     torch.cuda.empty_cache()
 
+
+def k1_times(c, dev, out):
+    """K1's bf16 and f32 bodies at the main paths' and long shapes."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
     t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa
 
     def rnd(*shape, dtype=torch.bfloat16):
@@ -168,6 +256,11 @@ def worker(tree: str) -> int:
     did, nb = c._layout_docs(4096, 256, 20, 176, True)
     k1("K1_f32_L4096_20docs_2nn_Dh128", q, k, v, t32(did[None]),
        t32(nb[None]), t32([256]), t32([4096]))
+    rec = c._k1_case("K1_f32_L4096_20docs_2nn_Dh128", q, k, v,
+                     t32(did[None]), t32(nb[None]), t32([256]), t32([4096]),
+                     timed=True)
+    for key in ("plain_ms", "library_ms", "bound_ms"):
+        out[f"K1_f32_L4096_20docs_2nn_Dh128_{key}"] = rec[key]
     q, k, v = (rnd(8, h, lp, 128) for h in (32, 8, 8))
     k1("K1_bf16_path_iso", q, k, v, *iso, graph=True)
     q, k, v = (rnd(8, h, lpn, 128) for h in (32, 8, 8))
@@ -182,8 +275,6 @@ def worker(tree: str) -> int:
         did, nb = c._layout_docs(L, 256 if docs else 0, docs, doc_len, nn)
         k1(name, q, k, v, t32(did[None]), t32(nb[None]),
            t32([256 if docs else 0]), t32([L]))
-    print(json.dumps({"tree": tree, "ms": out}), flush=True)
-    return 0
 
 
 def main() -> int:

@@ -18,24 +18,49 @@
 //
 // What bounds it: at the encoder's lengths (L <= 512) the packed input is
 // read once and the output written once (bytes); the two L x L x Dh
-// products per head are small beside that on the tensor cores.  First
-// version: mma.sync, register-staged shared tiles, no wgmma / TMA.
-// chip_smoke.py reports the times beside the bound.
+// products per head are small beside that on the tensor cores.
+// chip_smoke.py and kernel_times.py report the times beside the bound.
 //
-// Design: grid (q-tile of 64 rows, head, batch).  The block keeps its
-// scaled Q tile on chip and streams the head's K/V in 64-row tiles with an
-// online softmax in f32.  With valid_len > 0 the masked columns weigh
-// exp(-1e30 - m) == 0 exactly, so key tiles wholly past valid_len are not
-// visited; with valid_len == 0 all tiles are.  Columns >= L (a ragged last
-// tile) score -inf.  bf16: 4 warps, each 16 q rows, mma.sync.m16n8k16 with
-// f32 accumulation; the score fragments are re-packed in registers as the
-// A operand of P.V and V comes through ldmatrix.trans.  f32: 256 threads
-// on CUDA-core FMA, thread (ty, tx) owning rows ty+16i and columns tx+16j.
+// bf16 inputs (the serving path), encoder_attention_wgmma_kernel:
+// persistent blocks walk the (batch, head) pairs.  One producer thread
+// loads by TMA through one 3D tensor map over the packed [B, L, 3d] row
+// (rows >= L arrive as zeros; a box never reaches into batch b + 1): each
+// consumer warpgroup's 64-row Q tile into a double buffer, and the pair's
+// K and V tiles (only the key tiles below valid_len, all L when it is 0)
+// into a ring of mbarrier-guarded stages.  A pair's q-tiles go to the
+// consumer warpgroups in rounds; every warpgroup of a round reads the same
+// K/V stage (when the pairs are too few to fill the card, a pair's rounds
+// are split between blocks).  When the ring holds all of a pair's live key
+// tiles the tiles stay resident: later rounds re-arm the stages without
+// loading them again, so each K/V byte leaves device memory once per pair (at
+// L <= 512, Dh = 64).  Otherwise (Dh = 128 at L = 512) the tiles stream
+// through the ring once per round.  A pair of a single q-tile (L <= 64,
+// the ranker's batches) runs on blocks of one warpgroup, two to an SM.
+// The ring has as many stages as fit, so the next pair's tiles load while
+// this pair runs.
+// A consumer scales its Q tile in shared memory (bf16 multiply, then
+// fence.proxy.async before wgmma reads it), computes S = Q.K^T with wgmma
+// from shared memory (m64n64k16), masks only the tile that holds the
+// valid_len or L edge, runs the online softmax as exp2(s log2 e -
+// m log2 e) (one FFMA and one MUFU.EX2 an element; with valid_len 0 the
+// masked columns score 0 instead of -1e30, the same uniform softmax), and
+// feeds P, rounded to bf16, from registers into the wgmma for P.V (V
+// MN-major).  At Dh <= 64 two score tiles are in flight: the scores of
+// tile t + 1 run on the tensor cores under tile t's softmax, and P.V of
+// tile t - 1 has finished by then (at Dh = 128 the registers hold one
+// score tile, and tile t + 1's scores run under tile t's P.V, as in K1).
+// Tiles go in pairs with the odd tail peeled, so no branch sits around a
+// wgmma in the loop.  The output is staged in the Q tile and stored in
+// 16-byte row segments.  f32 inputs: 256 threads on CUDA-core FMA, grid
+// (q-tile, head, batch), thread (ty, tx) owning rows ty+16i and columns
+// tx+16j, K/V streamed in 64-row tiles.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_async.cuh"
 
 namespace {
 
@@ -204,41 +229,20 @@ int launch_f32(const void* qkv, const int* valid_len, void* out, int B, int H,
 }
 
 // ----------------------------------------------------------------- bf16
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_NT = MMA_WARPS * 32;
-
-template <int DH>
-constexpr size_t mma_smem_bytes() {
-  return (size_t)3 * BQ * (DH + 8) * sizeof(bf16);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// encoder_attention_wgmma_kernel, warp-specialised on wgmma + TMA
+// (hopper_async.cuh); see the header comment for the design.
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int Q_BUFS = 2;        // each warpgroup's Q tile, double-buffered
+constexpr int ITEM_WORDS = 8;    // b, h, first q-tile, live key tiles, vl,
+                                 // first ring stage, unused
+constexpr int MAX_STAGES = 16;   // per-stage phases live in 32-bit masks
+constexpr int SMEM_LIMIT = 232448;
+constexpr float LOG2E = 1.4426950408889634f;
 
 // two floats -> one register of two bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// B fragment (k = key, n = head dim) of a row-major [key][dh] V tile
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
 }
 
 // two bf16 in one register times a bf16 scale, rounded to bf16 (a bf16
@@ -249,190 +253,489 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   return pack_bf16(f.x * scale, f.y * scale);
 }
 
-// rows [row0, row0+64) x DH columns of a matrix with row stride ld
-// (elements) into a padded shared tile, 16 bytes per thread per step; rows
-// >= L read as zeros.  SCALE multiplies by `scale` in bf16.
-template <int DH, bool SCALE>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               size_t ld, int row0, int L,
-                                               int tid, float scale) {
-  constexpr int CH = DH / 8;
-  constexpr int RP = DH + 8;
-  for (int c = tid; c < BQ * CH; c += MMA_NT) {
-    const int r = c / CH, cc = c % CH, gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < L) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * ld + cc * 8);
-      if (SCALE) {
-        val.x = scale_bf16x2(val.x, scale);
-        val.y = scale_bf16x2(val.y, scale);
-        val.z = scale_bf16x2(val.z, scale);
-        val.w = scale_bf16x2(val.w, scale);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * RP + cc * 8) = val;
-  }
+// 2^x in one MUFU instruction (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(MMA_NT)
-encoder_attention_mma_kernel(const bf16* __restrict__ qkv,
-                             const int* __restrict__ valid_len,
-                             bf16* __restrict__ out, int H, int L,
-                             float scale_bf16) {
-  constexpr int RP = DH + 8;   // padded shared row (bf16 elements)
-  constexpr int KS = DH / 16;  // k-steps of Q.K^T over the head dim
-  constexpr int DN = DH / 8;   // n-tiles of the output
-  constexpr int NTK = BK / 8;  // n-tiles of the score tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BQ * RP;
-  bf16* sV = sK + BK * RP;
+// the 128 threads of one warpgroup (named barrier id) meet
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+// A [64 rows][DH] bf16 tile in shared memory is DH / PW panels of
+// [64][PW elements], PW = min(DH, 64), written by TMA with the swizzle of
+// PW * 2 bytes (128 or 64).
+template <int DH>
+struct TileGeom {
+  static constexpr int PW = DH < 64 ? DH : 64;  // panel width, elements
+  static constexpr int SW = PW * 2;             // swizzle span, bytes
+  static constexpr int NP = DH / PW;            // panels per tile
+  static constexpr int PANEL_BYTES = 64 * SW;
+  static constexpr int TILE_BYTES = 64 * DH * 2;
+};
+
+// Shared-memory layout from a 1024-aligned base (ops/encoder_attention.py
+// _k3_smem_bytes mirrors it): [Q_BUFS][NWG] Q tiles, [stages][K, V]
+// tiles, [Q_BUFS] item records, then the barriers kv_full, kv_empty
+// [stages] and q_full, q_empty [Q_BUFS].
+template <int DH, int NWG>
+struct EncLayout {
+  static constexpr int TILE = TileGeom<DH>::TILE_BYTES;
+  static constexpr int kv = Q_BUFS * NWG * TILE;
+  __host__ __device__ static int item(int stages) {
+    return kv + stages * 2 * TILE;
+  }
+  __host__ __device__ static int bars(int stages) {
+    return item(stages) + Q_BUFS * ITEM_WORDS * 4;
+  }
+  __host__ __device__ static int total(int stages) {
+    return bars(stages) + (2 * stages + 2 * Q_BUFS) * 8;
+  }
+};
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DH == 128) wgmma_m64n128k16_bf16_rs_tb(o, a, db, 1);
+  else if constexpr (DH == 64) wgmma_m64n64k16_bf16_rs_tb(o, a, db, 1);
+  else wgmma_m64n32k16_bf16_rs_tb(o, a, db, 1);
+}
+
+// Blocks of one warpgroup (pairs of one q-tile) run two to an SM
+// (ops/encoder_attention.py K3_MIN_BLOCKS mirrors the launch bounds).
+// ptxas sizes a wgmma kernel's registers for whole warpgroups: 288 or
+// 2 x 160 threads get 168 registers each.
+template <int DH, int NWG>
+__global__ void __launch_bounds__(NWG * 128 + 32, NWG == 1 ? 2 : 1)
+encoder_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                               const int* __restrict__ valid_len,
+                               bf16* __restrict__ out, int B, int H, int L,
+                               int stages, int splits, float scale_bf16) {
+  typedef TileGeom<DH> T;
+  typedef EncLayout<DH, NWG> Lay;
+  constexpr int KS = DH / 16;  // k-steps of Q.K^T over the head dim
+  constexpr int NTK = BK / 8;  // 8-column groups of the score tile
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t kv_s = smem_u32(smem + Lay::kv);
+  int* s_item = reinterpret_cast<int*>(smem + Lay::item(stages));
+  const uint32_t bars = smem_u32(smem + Lay::bars(stages));
+  const uint32_t kv_full = bars, kv_empty = bars + 8 * stages;
+  const uint32_t q_full = bars + 16 * stages;
+  const uint32_t q_empty = q_full + 8 * Q_BUFS;
+
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = lane >> 2;   // fragment row group
-  const int t4 = lane & 3;   // fragment column pair
   const int d = H * DH;
-  const size_t ld = (size_t)3 * d;
-  const bf16* qp = qkv + (size_t)b * L * ld + (size_t)h * DH;
-  const bf16* kp = qp + d;
-  const bf16* vp = qp + 2 * d;
-  const int vl = valid_len[b];
-  const int nkeys = live_keys(vl, L);
-  const int wr = 16 * warp + g;  // this thread's rows: wr and wr + 8
+  const int nqt = (L + BQ - 1) / BQ;
+  const int rounds = (nqt + NWG - 1) / NWG;
+  // a work unit is one pair's rounds, or a share of them when the pairs
+  // alone would leave SMs idle
+  const int units = B * H * splits;
+  const int per_unit = (rounds + splits - 1) / splits;
 
-  load_tile_bf16<DH, true>(sQ, qp, ld, q0, L, tid, scale_bf16);
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(kv_full + 8 * s, 1);         // the producer's arrive
+      mbar_init(kv_empty + 8 * s, NWG * 4);  // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < Q_BUFS; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, NWG * 4);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    const bf16* base = sQ + wr * RP + 16 * ks + 2 * t4;
-    qa[ks][0] = ld_u32(base);
-    qa[ks][1] = ld_u32(base + 8 * RP);
-    qa[ks][2] = ld_u32(base + 8);
-    qa[ks][3] = ld_u32(base + 8 * RP + 8);
-  }
-  float o[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-  float m_i[2] = {-INFINITY, -INFINITY};
-  float l_i[2] = {0.f, 0.f};  // per-thread partial row sums
-
-  for (int k0 = 0; k0 < nkeys; k0 += BK) {
-    __syncthreads();  // previous tile's readers of sK/sV are done
-    load_tile_bf16<DH, false>(sK, kp, ld, k0, L, tid, 0.f);
-    load_tile_bf16<DH, false>(sV, vp, ld, k0, L, tid, 0.f);
-    __syncthreads();
-
-    float s[NTK][4];
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        const bf16* kb = sK + (8 * nt + g) * RP + 16 * ks + 2 * t4;
-        mma_bf16(s[nt], qa[ks], ld_u32(kb), ld_u32(kb + 8));
-      }
-    }
-
-    // element e of n-tile nt: row wr + 8*(e>>1), key k0 + 8*nt + 2*t4 + (e&1)
-    float mt[2] = {-INFINITY, -INFINITY};
-    const bool edge = k0 + BK > vl || k0 + BK > L;
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (edge) {
-          const int col = k0 + 8 * nt + 2 * t4 + (e & 1);
-          if (col >= vl) s[nt][e] = MASKED;
-          if (col >= L) s[nt][e] = -INFINITY;
+  if (warp == NWG * 4) {
+    // ---- producer: one thread feeds the rounds' Q tiles and records and
+    // the K/V ring; a stage's phase is bit s of a mask, since a pair uses
+    // only as many stages as it has live key tiles ----
+    if (lane != 0) return;
+    int qb = 0, cursor = 0;
+    uint32_t qph = 0, empty_ph = 0;
+    for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+      const int pair = unit / splits;
+      const int r0 = (unit % splits) * per_unit;
+      const int r1 = min(rounds, r0 + per_unit);
+      const int b = pair / H, h = pair % H;
+      const int vl = valid_len[b];
+      const int nkt = (live_keys(vl, L) + BK - 1) / BK;
+      const bool resident = nkt <= stages;
+      for (int r = r0; r < r1; ++r) {
+        const int qt0 = r * NWG;
+        const int active = min(NWG, nqt - qt0);
+        mbar_wait(q_empty + 8 * qb, qph ^ 1);
+        int* it = s_item + qb * ITEM_WORDS;
+        it[0] = b;
+        it[1] = h;
+        it[2] = qt0;
+        it[3] = nkt;
+        it[4] = vl;
+        it[5] = cursor;
+        const uint32_t full_q = q_full + 8 * qb;
+        mbar_arrive_expect_tx(full_q, active * T::TILE_BYTES);
+        for (int w = 0; w < active; ++w)
+          for (int p = 0; p < T::NP; ++p)
+            tma_load_3d(q_s + (qb * NWG + w) * T::TILE_BYTES +
+                            p * T::PANEL_BYTES,
+                        &qkv_map, full_q, h * DH + p * T::PW,
+                        (qt0 + w) * BQ, b);
+        if (++qb == Q_BUFS) {
+          qb = 0;
+          qph ^= 1;
         }
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[nt][e]);
+        for (int t = 0; t < nkt; ++t) {
+          const int s = (cursor + t) % stages;
+          mbar_wait(kv_empty + 8 * s, ((empty_ph >> s) & 1u) ^ 1u);
+          empty_ph ^= 1u << s;
+          const uint32_t full = kv_full + 8 * s;
+          if (resident && r > r0) {
+            mbar_arrive(full);  // the tile is still in the stage
+          } else {
+            mbar_arrive_expect_tx(full, 2 * T::TILE_BYTES);
+            const uint32_t kdst = kv_s + s * 2 * T::TILE_BYTES;
+            for (int p = 0; p < T::NP; ++p) {
+              tma_load_3d(kdst + p * T::PANEL_BYTES, &qkv_map, full,
+                          d + h * DH + p * T::PW, t * BK, b);
+              tma_load_3d(kdst + T::TILE_BYTES + p * T::PANEL_BYTES,
+                          &qkv_map, full, 2 * d + h * DH + p * T::PW, t * BK,
+                          b);
+            }
+          }
+        }
+        if (!resident || r + 1 == r1) cursor = (cursor + nkt) % stages;
       }
     }
-    float m_new[2], alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
-      mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
-      // column k0 < L always, so m_new is finite from the first tile on
-      m_new[i] = fmaxf(m_i[i], mt[i]);
-      alpha[i] = expf(m_i[i] - m_new[i]);
-      m_i[i] = m_new[i];
-    }
-
-    uint32_t pa[BK / 16][4];  // P as the A operand of P.V, per key k-step
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < NTK; ++nt) {
-      const float p0 = expf(s[nt][0] - m_new[0]);
-      const float p1 = expf(s[nt][1] - m_new[0]);
-      const float p2 = expf(s[nt][2] - m_new[1]);
-      const float p3 = expf(s[nt][3] - m_new[1]);
-      ls[0] += p0 + p1;
-      ls[1] += p2 + p3;
-      pa[nt >> 1][2 * (nt & 1)] = pack_bf16(p0, p1);
-      pa[nt >> 1][2 * (nt & 1) + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * alpha[i] + ls[i];
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      o[dn][0] *= alpha[0];
-      o[dn][1] *= alpha[0];
-      o[dn][2] *= alpha[1];
-      o[dn][3] *= alpha[1];
-    }
-
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-      for (int dn = 0; dn < DN; ++dn) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, sV + (16 * j + (lane & 15)) * RP + 8 * dn);
-        mma_bf16(o[dn], pa[j], b0, b1);
-      }
-    }
+    return;
   }
 
-  bf16* op = out + (size_t)b * L * d + (size_t)h * DH;
+  // ---- consumers: warpgroup w takes q-tile qt0 + w of each round ----
+  const int wg = warp >> 2;
+  const int ctid = tid & 127;
+  const int g = lane >> 2;             // fragment row group
+  const int t4 = lane & 3;             // fragment column pair
+  const int wr = 16 * (warp & 3) + g;  // this thread's rows: wr and wr + 8
+  int qb = 0;
+  uint32_t qph = 0, full_ph = 0;
+  for (int unit = blockIdx.x; unit < units; unit += gridDim.x) {
+    const int r0 = (unit % splits) * per_unit;
+    for (int r = r0; r < min(rounds, r0 + per_unit); ++r) {
+      mbar_wait(q_full + 8 * qb, qph);
+      const int* it = s_item + qb * ITEM_WORDS;
+      const int b = it[0], h = it[1], qt = it[2] + wg, nkt = it[3];
+      const int vl = it[4], cursor = it[5];
+      unsigned char* q_tile_p =
+          smem + (qb * NWG + wg) * T::TILE_BYTES;
+      const uint32_t q_tile = smem_u32(q_tile_p);
+      auto stage_of = [&](int t) { return (cursor + t) % stages; };
+      auto wait_full = [&](int s) {
+        mbar_wait(kv_full + 8 * s, (full_ph >> s) & 1u);
+        full_ph ^= 1u << s;
+      };
+      auto release = [&](int s) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(kv_empty + 8 * s);
+      };
+
+      if (qt >= nqt) {
+        // an idle warpgroup of the last round still passes every stage
+        for (int t = 0; t < nkt; ++t) {
+          const int s = stage_of(t);
+          wait_full(s);
+          release(s);
+        }
+      } else {
+        // q * scale in bf16, in place; the swizzle does not matter to an
+        // elementwise product.  wgmma reads the tile through the async
+        // proxy, so the generic writes are fenced before the barrier.
+        uint4* q4 = reinterpret_cast<uint4*>(q_tile_p);
+        for (int c = ctid; c < T::TILE_BYTES / 16; c += 128) {
+          uint4 v = q4[c];
+          v.x = scale_bf16x2(v.x, scale_bf16);
+          v.y = scale_bf16x2(v.y, scale_bf16);
+          v.z = scale_bf16x2(v.z, scale_bf16);
+          v.w = scale_bf16x2(v.w, scale_bf16);
+          q4[c] = v;
+        }
+        fence_proxy_async();
+        warpgroup_sync(1 + wg);
+
+        float o[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
-    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
-    const int gr = q0 + wr + 8 * i;
-    if (gr < L) {
+        for (int e = 0; e < DH / 2; ++e) o[e] = 0.f;
+        float m_i[2] = {-INFINITY, -INFINITY};  // running row maxima
+        float l_i[2] = {0.f, 0.f};              // per-thread partial sums
+        float sc_a[BK / 2], sc_b[BK / 2];       // two score tiles in flight
+        uint32_t pa[BK / 16][4];
+        float alpha[2];
+        // a sequence with valid_len 0 attends all L columns uniformly: its
+        // masked columns score 0 instead of -1e30 (the same softmax, and
+        // the exp2 argument below stays exact)
+        const float masked = vl > 0 ? MASKED : 0.f;
+
+        // S = Q . K^T of the tile in stage st: both operands K-major
+        auto issue_scores = [&](float (&acc)[BK / 2], int st) {
+          const uint32_t k_tile = kv_s + st * 2 * T::TILE_BYTES;
+          wgmma_fence();
 #pragma unroll
-      for (int dn = 0; dn < DN; ++dn)
-        *reinterpret_cast<uint32_t*>(op + (size_t)gr * d + 8 * dn + 2 * t4) =
-            pack_bf16(o[dn][2 * i] / l_i[i], o[dn][2 * i + 1] / l_i[i]);
+          for (int ks = 0; ks < KS; ++ks) {
+            const int off = (ks * 16 / T::PW) * T::PANEL_BYTES +
+                            (ks * 16 % T::PW) * 2;
+            wgmma_m64n64k16_bf16(
+                acc, smem_desc(q_tile + off, T::SW, 8 * T::SW, 0),
+                smem_desc(k_tile + off, T::SW, 8 * T::SW, 0), ks != 0);
+          }
+          wgmma_commit();
+        };
+
+        // acc[4 * nt + e] (row wr + 8 * (e >> 1), key k0 + 8 * nt + 2 * t4 +
+        // (e & 1)) from scores of key tile t to unnormalised probabilities,
+        // exp2(s * log2 e - m * log2 e); alpha is what the running output
+        // must shrink by first
+        auto scores_to_probs = [&](float (&acc)[BK / 2], int t) {
+          const int k0 = t * BK;
+          if (k0 + BK > vl || k0 + BK > L) {
+            // the valid_len / L edge: -1e30 past valid_len, -inf past L
+#pragma unroll
+            for (int x = 0; x < BK / 2; ++x) {
+              const int col = k0 + 8 * (x >> 2) + 2 * t4 + (x & 1);
+              if (col >= vl) acc[x] = masked;
+              if (col >= L) acc[x] = -INFINITY;
+            }
+          }
+          float mt[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // a tree over the row's 16 values (max is exact in any order)
+            float m8[NTK];
+#pragma unroll
+            for (int nt = 0; nt < NTK; ++nt)
+              m8[nt] = fmaxf(acc[4 * nt + 2 * i], acc[4 * nt + 2 * i + 1]);
+#pragma unroll
+            for (int w = NTK / 2; w > 0; w >>= 1)
+#pragma unroll
+              for (int nt = 0; nt < w; ++nt)
+                m8[nt] = fmaxf(m8[nt], m8[nt + w]);
+            mt[i] = m8[0];
+            mt[i] = fmaxf(mt[i], __shfl_xor_sync(FULL_MASK, mt[i], 1));
+            mt[i] = fmaxf(mt[i], __shfl_xor_sync(FULL_MASK, mt[i], 2));
+          }
+          float mb[2], ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            // column k0 < L always, so m_new is finite from the first tile
+            const float m_new = fmaxf(m_i[i], mt[i]);
+            alpha[i] = ex2((m_i[i] - m_new) * LOG2E);  // 0 at the first
+            m_i[i] = m_new;
+            mb[i] = m_new * LOG2E;
+          }
+#pragma unroll
+          for (int x = 0; x < BK / 2; ++x) {
+            const int i = (x >> 1) & 1;
+            acc[x] = ex2(fmaf(acc[x], LOG2E, -mb[i]));
+            ls[i][(x >> 2) & 1] += acc[x];
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            l_i[i] = l_i[i] * alpha[i] + (ls[i][0] + ls[i][1]);
+        };
+
+        // P, rounded to bf16, is the A operand of P.V: the score fragment
+        // of k-step j (keys 16 j .. 16 j + 15) is the m16k16 A fragment
+        auto pack_probs = [&](const float (&acc)[BK / 2]) {
+#pragma unroll
+          for (int nt = 0; nt < NTK; ++nt) {
+            pa[nt >> 1][2 * (nt & 1)] =
+                pack_bf16(acc[4 * nt], acc[4 * nt + 1]);
+            pa[nt >> 1][2 * (nt & 1) + 1] =
+                pack_bf16(acc[4 * nt + 2], acc[4 * nt + 3]);
+          }
+#pragma unroll
+          for (int j = 0; j < BK / 16; ++j) wgmma_pin(pa[j]);
+        };
+
+        // O += P . V of the tile in stage st: V is [key][dh], B MN-major
+        auto issue_pv = [&](int st) {
+          const uint32_t v_tile =
+              kv_s + st * 2 * T::TILE_BYTES + T::TILE_BYTES;
+          wgmma_pin(o);
+          wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < BK / 16; ++j)
+            wgmma_pv<DH>(o, pa[j],
+                         smem_desc(v_tile + j * 16 * T::SW, T::SW, 8 * T::SW,
+                                   T::PANEL_BYTES));
+          wgmma_commit();
+        };
+
+        // Tile t's scores are in cur.  The scores of tile t + 1 are issued
+        // first, so they run on the tensor cores under tile t's softmax;
+        // P.V of tile t - 1 has finished by then too.
+        auto step = [&](float (&cur)[BK / 2], float (&nxt)[BK / 2], int t) {
+          const int sn = stage_of(t + 1);
+          wait_full(sn);
+          issue_scores(nxt, sn);
+          scores_to_probs(cur, t);
+          wgmma_wait<1>();  // P.V of tile t - 1 (the older group)
+          wgmma_pin(o);
+          if (t > 0) release(stage_of(t - 1));
+#pragma unroll
+          for (int x = 0; x < DH / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+          pack_probs(cur);
+          issue_pv(stage_of(t));
+          wgmma_wait<1>();  // the scores of tile t + 1; P.V of t may run
+          wgmma_pin(nxt);
+        };
+        // the last tile: no scores to issue ahead
+        auto last = [&](float (&cur)[BK / 2], int t) {
+          scores_to_probs(cur, t);
+          wgmma_wait<0>();
+          wgmma_pin(o);
+          if (t > 0) release(stage_of(t - 1));
+#pragma unroll
+          for (int x = 0; x < DH / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+          pack_probs(cur);
+          issue_pv(stage_of(t));
+          wgmma_wait<0>();
+          wgmma_pin(o);
+          release(stage_of(t));
+        };
+
+        wait_full(stage_of(0));
+        issue_scores(sc_a, stage_of(0));
+        wgmma_wait<0>();
+        wgmma_pin(sc_a);
+        if constexpr (DH <= 64) {
+          // tiles in pairs, so each score tile keeps its registers (no
+          // branch around a wgmma inside the loop; the odd tail is peeled)
+          const int pairs2 = (nkt - 1) / 2;
+          for (int p = 0; p < pairs2; ++p) {
+            step(sc_a, sc_b, 2 * p);
+            step(sc_b, sc_a, 2 * p + 1);
+          }
+          if ((nkt - 1) & 1) {
+            step(sc_a, sc_b, nkt - 2);
+            last(sc_b, nkt - 1);
+          } else {
+            last(sc_a, nkt - 1);
+          }
+        } else {
+          // Dh = 128: two score tiles and the 64 output registers do not
+          // fit beside each other (ptxas then serialises the wgmma), so one
+          // score tile: tile t + 1's scores run under tile t's P.V
+          scores_to_probs(sc_a, 0);
+          pack_probs(sc_a);
+          int s = stage_of(0);
+          for (int t = 0; t + 1 < nkt; ++t) {
+            const int sn = stage_of(t + 1);
+            wait_full(sn);
+            issue_scores(sc_a, sn);
+            issue_pv(s);
+            wgmma_wait<1>();
+            wgmma_pin(sc_a);
+            scores_to_probs(sc_a, t + 1);
+            wgmma_wait<0>();
+            wgmma_pin(o);
+            release(s);
+#pragma unroll
+            for (int x = 0; x < DH / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
+            pack_probs(sc_a);
+            s = sn;
+          }
+          issue_pv(s);
+          wgmma_wait<0>();
+          wgmma_pin(o);
+          release(s);
+        }
+
+        // Every product that reads the Q tile has completed: the warp
+        // stages its 16 output rows there (16-byte chunk c of row r at
+        // chunk c ^ swz(r)) and stores whole row segments, 16 bytes a lane.
+        constexpr int RB = DH * 2;   // bytes of an output row segment
+        constexpr int CPR = DH / 8;  // 16-byte chunks of a row segment
+        auto swz = [](int rr) {
+          return CPR >= 8 ? (rr & 7) : ((rr >> 1) & (CPR - 1));
+        };
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          l_i[i] += __shfl_xor_sync(FULL_MASK, l_i[i], 1);
+          l_i[i] += __shfl_xor_sync(FULL_MASK, l_i[i], 2);
+          const float inv = 1.f / l_i[i];  // l >= 1: the row's max has p 1
+          const int rr = wr + 8 * i;
+#pragma unroll
+          for (int dn = 0; dn < CPR; ++dn)
+            *reinterpret_cast<uint32_t*>(q_tile_p + rr * RB +
+                                         ((dn ^ swz(rr)) << 4) + 4 * t4) =
+                pack_bf16(o[4 * dn + 2 * i] * inv,
+                          o[4 * dn + 2 * i + 1] * inv);
+        }
+        __syncwarp();
+        const int q0 = qt * BQ;
+        bf16* op = out + (size_t)b * L * d + (size_t)h * DH;
+#pragma unroll
+        for (int idx = lane; idx < 16 * CPR; idx += 32) {
+          const int rr = 16 * (warp & 3) + idx / CPR;
+          const int c = idx % CPR;
+          if (q0 + rr < L)
+            *reinterpret_cast<uint4*>(op + (size_t)(q0 + rr) * d + 8 * c) =
+                *reinterpret_cast<const uint4*>(q_tile_p + rr * RB +
+                                                ((c ^ swz(rr)) << 4));
+        }
+      }
+      // the Q tile and the record are free; the TMA unit writes the tile
+      // next, after these generic-proxy accesses
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(q_empty + 8 * qb);
+      if (++qb == Q_BUFS) {
+        qb = 0;
+        qph ^= 1;
+      }
     }
   }
 }
 
-template <int DH>
-int launch_mma(const void* qkv, const int* valid_len, void* out, int B, int H,
-               int L, float scale, cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_mma_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+template <int DH, int NWG>
+int launch_wgmma(const void* qkv, const int* valid_len, void* out, int B,
+                 int H, int L, float scale, int stages, int splits,
+                 int grid, cudaStream_t stream) {
+  typedef TileGeom<DH> T;
+  const int smem = EncLayout<DH, NWG>::total(stages);
+  // a step waits for tile t + 1 before it frees tile t - 1: >= 3 stages
+  if (stages < 3 || stages > MAX_STAGES || smem > SMEM_LIMIT || grid < 1 ||
+      splits < 1)
+    return -1;
+  static bool attr_set = false;  // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        encoder_attention_wgmma_kernel<DH, NWG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  // the packed [B][L][3d] rows in boxes of [1][64][PW]; rows past L arrive
+  // as zeros
+  const int d = H * DH;
+  const CUtensorMapSwizzle sw =
+      T::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const uint32_t box[3] = {(uint32_t)T::PW, (uint32_t)BQ, 1u};
+  const uint64_t dims[3] = {(uint64_t)3 * d, (uint64_t)L, (uint64_t)B};
+  const uint64_t strides[2] = {(uint64_t)3 * d * 2, (uint64_t)L * 3 * d * 2};
+  CUtensorMap map;
+  if (!make_tensor_map(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, qkv, dims,
+                       strides, box, sw))
+    return -2;
   // the scale as q's dtype holds it
   const float scale_bf16 = __bfloat162float(__float2bfloat16_rn(scale));
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  encoder_attention_mma_kernel<DH><<<grid, MMA_NT, smem, stream>>>(
-      static_cast<const bf16*>(qkv), valid_len, static_cast<bf16*>(out), H, L,
-      scale_bf16);
+  encoder_attention_wgmma_kernel<DH, NWG>
+      <<<grid, NWG * 128 + 32, smem, stream>>>(
+          map, valid_len, static_cast<bf16*>(out), B, H, L, stages, splits,
+          scale_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -441,28 +744,42 @@ int launch_mma(const void* qkv, const int* valid_len, void* out, int B, int H,
 extern "C" {
 
 const char* kernel_error_string(int code) {
-  if (code == -1) return "unsupported dtype / head dim / batch";
+  if (code == -1) return "unsupported dtype / head dim / batch / launch plan";
+  if (code == -2) return "cuTensorMapEncodeTiled refused the tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 
 // qkv [B, L, 3*H*Dh] contiguous, valid_len [B] int32, out [B, L, H*Dh].
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 or a CUDA error code.
+// dtype: 0 = float32, 1 = bfloat16.  bfloat16 takes the launch plan of
+// ops/encoder_attention.py encoder_attention_geometry: consumer
+// warpgroups per block (1 or 2), ring stages, splits of a pair's rounds
+// and grid size; float32
+// ignores them.  Returns 0, a CUDA error code, or a negative code of
+// kernel_error_string.
 int encoder_attention(const void* qkv, const int* valid_len, void* out, int B,
-                      int H, int L, int Dh, float scale, int dtype,
-                      void* stream) {
+                      int H, int L, int Dh, float scale, int dtype, int nwg,
+                      int stages, int splits, int grid, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define ENC_LAUNCH(FN, D) return FN<D>(qkv, valid_len, out, B, H, L, scale, s)
+#define ENC_F32(D) \
+  return launch_f32<D>(qkv, valid_len, out, B, H, L, scale, s)
+#define ENC_WGMMA(D, W)                                                   \
+  return launch_wgmma<D, W>(qkv, valid_len, out, B, H, L, scale, stages, \
+                            splits, grid, s)
   if (dtype == 0) {
-    if (Dh == 32) ENC_LAUNCH(launch_f32, 32);
-    if (Dh == 64) ENC_LAUNCH(launch_f32, 64);
-    if (Dh == 128) ENC_LAUNCH(launch_f32, 128);
+    if (Dh == 32) ENC_F32(32);
+    if (Dh == 64) ENC_F32(64);
+    if (Dh == 128) ENC_F32(128);
   } else if (dtype == 1) {
-    if (Dh == 32) ENC_LAUNCH(launch_mma, 32);
-    if (Dh == 64) ENC_LAUNCH(launch_mma, 64);
-    if (Dh == 128) ENC_LAUNCH(launch_mma, 128);
+    if (Dh == 32 && nwg == 1) ENC_WGMMA(32, 1);
+    if (Dh == 32 && nwg == 2) ENC_WGMMA(32, 2);
+    if (Dh == 64 && nwg == 1) ENC_WGMMA(64, 1);
+    if (Dh == 64 && nwg == 2) ENC_WGMMA(64, 2);
+    if (Dh == 128 && nwg == 1) ENC_WGMMA(128, 1);
+    if (Dh == 128 && nwg == 2) ENC_WGMMA(128, 2);
   }
-#undef ENC_LAUNCH
+#undef ENC_F32
+#undef ENC_WGMMA
   return -1;
 }
 

@@ -22,6 +22,7 @@ tf_norm = tf / (tf + k1 * (1 - b + b * dl/avgdl)), defaults k1=0.9, b=0.4.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -92,11 +93,77 @@ def bm25_topk_reference(term_ids, impacts, q_terms, q_weights, k: int,
     return _ordered_topk(scores, k)
 
 
+# launch plan of K2 (csrc/bm25_scan_topk.cu; ScanLayout there mirrors
+# _k2_smem_bytes)
+K2_WARPS = 8
+K2_TILE_MAX = 64           # docs of a tile
+K2_CHUNK = 64              # row slots of a staged chunk
+K2_RING = 8                # chunks in flight per warp
+K2_MERGE_MAX_LISTS = 512   # topk_merge_sorted_pass takes at most this many
+K2_SMEM_LIMIT = 232448
+K2_SM_SMEM = 233472        # shared memory of an SM
+K2_BLOCK_RESERVED = 1024
+K2_MAX_BLOCKS_PER_SM = 2   # the kernel's __launch_bounds__
+
+
+def _k2_smem_bytes(t: int, cap: int, ht: int) -> int:
+    return (2 * 32 * (K2_TILE_MAX + 1) * 4 + 2 * 32 * cap * 4
+            + K2_WARPS * K2_RING * 2 * K2_CHUNK * 4 + ht * 8 + 32 * t * 32
+            + K2_WARPS * t * 32 * 4 + 2 * t * 32 * 4 + 32 * 12
+            + K2_WARPS * 32 * 8 + 16)
+
+
+@functools.lru_cache(maxsize=256)
+def bm25_scan_geometry(valid_n: int, qn: int, t: int, k: int,
+                       sms: int) -> dict:
+    """Launch plan of K2, a pure function of the shapes and the SM count.
+
+    * ``cap``: entries of a query's candidate buffer, 64 for k <= 32 else
+      128 (32 survivors of a step are appended between two checks).
+    * ``ht``: slots of the block's term table, a power of two at least
+      twice the 32 * T query slots (so it is at most half full).
+    * ``td`` docs a tile, at most 64, as many as leave every block slot of
+      the card a tile; ``n_blocks`` blocks per query group of 32 walk the
+      ``n_tiles`` tiles (block x takes tiles x, x + n_blocks, ...), warp w
+      of a block docs [w td / 8, (w + 1) td / 8) of a tile.  Each block
+      writes one sorted list per query, so the merge sees ``n_blocks``
+      lists.
+    """
+    cap = 64 if k <= 32 else 128
+    ht = 64
+    while ht < 64 * t:
+        ht *= 2
+    smem = _k2_smem_bytes(t, cap, ht)
+    blocks_per_sm = min(K2_MAX_BLOCKS_PER_SM,
+                        K2_SM_SMEM // (smem + K2_BLOCK_RESERVED))
+    groups = -(-qn // 32)
+    slots = max(1, sms * blocks_per_sm // groups)
+    td = max(1, min(K2_TILE_MAX, valid_n // slots))
+    n_tiles = -(-max(valid_n, 0) // td)
+    n_blocks = max(1, min(n_tiles, slots, K2_MERGE_MAX_LISTS))
+    return {"cap": cap, "ht": ht, "ht_log2": ht.bit_length() - 1,
+            "smem_bytes": smem, "blocks_per_sm": blocks_per_sm,
+            "groups": groups, "td": td, "n_tiles": n_tiles,
+            "n_blocks": n_blocks}
+
+
+def bm25_scan_work(geom: dict, valid_n: int, block: int):
+    """(tile, warp, first doc, end doc) a block of the plan scores, in its
+    order; warps with no doc in a tile are left out."""
+    td = geom["td"]
+    for tile in range(block, geom["n_tiles"], geom["n_blocks"]):
+        for w in range(K2_WARPS):
+            first = min(tile * td + (w * td) // K2_WARPS, valid_n)
+            end = min(tile * td + ((w + 1) * td) // K2_WARPS, valid_n)
+            if first < end:
+                yield tile, w, first, end
+
+
 def _k2_lib():
     lib = _build.load("bm25_scan_topk")
     if lib.bm25_scan_topk.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.bm25_scan_topk.argtypes = [p] * 8 + [i] * 7 + [p]
+        lib.bm25_scan_topk.argtypes = [p] * 8 + [i] * 10 + [p]
         lib.bm25_scan_topk.restype = i
     return lib
 
@@ -123,16 +190,14 @@ def bm25_topk_cuda(term_ids, impacts, q_terms, q_weights, k: int,
     if t > K2_MAX_QUERY_TERMS or not 1 <= k <= K2_MAX_K:
         raise ValueError(f"bm25_topk_cuda: needs T <= {K2_MAX_QUERY_TERMS} "
                          f"and 1 <= k <= {K2_MAX_K}, got T={t} k={k}")
-    valid_n = n if valid_n is None else min(int(valid_n), n)
+    valid_n = n if valid_n is None else max(0, min(int(valid_n), n))
     dev = term_ids.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    warps = 8
-    n_blocks = max(1, min(-(-max(valid_n, 1) // (warps * 32)), sms * 4))
-    docs_per_warp = -(-max(valid_n, 1) // (n_blocks * warps))
-    cand_v = torch.empty(n_blocks * warps, qn, k, dtype=torch.float32,
-                         device=dev)
-    cand_i = torch.empty(n_blocks * warps, qn, k, dtype=torch.int32,
-                         device=dev)
+    geom = bm25_scan_geometry(valid_n, qn, t, k, _build.sm_count(dev))
+    vec16 = int(lp % 4 == 0 and term_ids.data_ptr() % 16 == 0
+                and impacts.data_ptr() % 16 == 0)
+    nb = geom["n_blocks"]
+    cand_v = torch.empty(nb, qn, k, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(nb, qn, k, dtype=torch.int32, device=dev)
     out_v = torch.empty(qn, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(qn, k, dtype=torch.int32, device=dev)
     lib = _k2_lib()
@@ -140,7 +205,7 @@ def bm25_topk_cuda(term_ids, impacts, q_terms, q_weights, k: int,
     rc = lib.bm25_scan_topk(
         ptr(term_ids), ptr(impacts), ptr(q_terms), ptr(q_weights),
         ptr(cand_v), ptr(cand_i), ptr(out_v), ptr(out_i), lp, qn, t, k,
-        valid_n, n_blocks, docs_per_warp,
+        valid_n, geom["td"], geom["n_tiles"], nb, geom["ht_log2"], vec16,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(lib, rc, "bm25_scan_topk")
     _build.LAUNCHES["bm25_scan_topk"] += 1

@@ -22,6 +22,7 @@ tokenizer right-pads), so the mask is one valid length per batch row.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,12 +60,94 @@ def encoder_attention_qkv_reference(qkv: torch.Tensor,
     return o.permute(0, 2, 1, 3).reshape(B, L, d)
 
 
+# launch plan of the bf16 body (csrc/encoder_attention.cu
+# encoder_attention_wgmma_kernel; EncLayout there mirrors _k3_smem_bytes)
+K3_TILE = 64               # q rows and key rows per tile
+K3_Q_BUFS = 2              # each warpgroup's Q tile, double-buffered
+K3_ITEM_WORDS = 8          # ints of a round's record
+K3_MAX_STAGES = 16
+K3_SMEM_LIMIT = 232448     # dynamic shared memory a block may use
+K3_SM_SMEM = 233472        # shared memory of an SM
+K3_BLOCK_RESERVED = 1024   # shared memory the card reserves per block
+# the kernel's __launch_bounds__ minimum blocks per SM, by (warpgroups, Dh)
+K3_MIN_BLOCKS = {(1, 32): 2, (1, 64): 2, (1, 128): 2,
+                 (2, 32): 1, (2, 64): 1, (2, 128): 1}
+
+
+def _k3_smem_bytes(dh: int, nwg: int, stages: int) -> int:
+    tile = K3_TILE * dh * 2
+    return (K3_Q_BUFS * nwg * tile + stages * 2 * tile
+            + K3_Q_BUFS * K3_ITEM_WORDS * 4 + (2 * stages + 2 * K3_Q_BUFS) * 8)
+
+
+@functools.lru_cache(maxsize=256)
+def encoder_attention_geometry(B: int, H: int, L: int, dh: int,
+                               sms: int) -> dict:
+    """Launch plan of K3's bf16 body, a pure function of the shapes and the
+    SM count.
+
+    * ``nwg``: consumer warpgroups a block, one 64-row q-tile each per
+      round: 2, or 1 when a sequence is a single q-tile (L <= 64), where
+      two one-warpgroup blocks share an SM instead.
+    * ``stages``: K/V ring stages, as many as fit beside the Q tiles of the
+      ``blocks_per_sm`` blocks an SM holds (the kernel's register bound, or
+      fewer blocks where 3 stages do not fit), at least 3 (a tile step
+      waits for tile t + 1 before it frees tile t - 1), at most 16.  When
+      they hold every key tile of a sequence the tiles stay resident (a
+      (batch, head) pair's K/V is read once however many rounds its
+      q-tiles take); the stages beyond a pair's tiles take the next pair's
+      tiles while this one still runs.
+    * ``splits``: shares of a pair's ``rounds`` rounds, 1 unless the
+      pairs alone would leave block slots idle; unit u = p * splits + i is
+      pair p = b * H + h, rounds [i * per_unit, (i + 1) * per_unit),
+      warpgroup w taking q-tile round * nwg + w.
+    * ``grid``: persistent blocks, at most ``blocks_per_sm`` on every SM;
+      block x walks units x, x + grid, ....
+    """
+    nqt = -(-L // K3_TILE)
+    nwg = 1 if nqt == 1 else 2
+    blocks_per_sm = K3_MIN_BLOCKS[(nwg, dh)]
+    while True:
+        budget = min(K3_SMEM_LIMIT,
+                     K3_SM_SMEM // blocks_per_sm - K3_BLOCK_RESERVED)
+        fit = [s for s in range(3, K3_MAX_STAGES + 1)
+               if _k3_smem_bytes(dh, nwg, s) <= budget]
+        if fit or blocks_per_sm == 1:
+            break
+        blocks_per_sm -= 1
+    stages = fit[-1]
+    smem = _k3_smem_bytes(dh, nwg, stages)
+    pairs = B * H
+    rounds = -(-nqt // nwg)
+    slots = sms * blocks_per_sm
+    splits = min(rounds, max(1, slots // pairs))
+    per_unit = -(-rounds // splits)
+    splits = -(-rounds // per_unit)
+    return {"nwg": nwg, "stages": stages, "q_tiles": nqt, "rounds": rounds,
+            "resident": nqt <= stages, "pairs": pairs, "splits": splits,
+            "per_unit": per_unit, "blocks_per_sm": blocks_per_sm,
+            "grid": max(1, min(pairs * splits, slots)), "smem_bytes": smem}
+
+
+def encoder_attention_work(geom: dict, H: int, block: int):
+    """(b, h, q-tile, warpgroup) a block of the plan computes, in its
+    order; idle warpgroups of a last round are left out."""
+    for unit in range(block, geom["pairs"] * geom["splits"], geom["grid"]):
+        pair, part = divmod(unit, geom["splits"])
+        r0 = part * geom["per_unit"]
+        for r in range(r0, min(geom["rounds"], r0 + geom["per_unit"])):
+            for w in range(geom["nwg"]):
+                qt = r * geom["nwg"] + w
+                if qt < geom["q_tiles"]:
+                    yield pair // H, pair % H, qt, w
+
+
 def _k3_lib():
     lib = _build.load("encoder_attention")
     if lib.encoder_attention.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.encoder_attention.argtypes = [p, p, p, i, i, i, i,
-                                          ctypes.c_float, i, p]
+                                          ctypes.c_float, i, i, i, i, i, p]
         lib.encoder_attention.restype = i
     return lib
 
@@ -93,11 +176,16 @@ def encoder_attention_cuda(qkv: torch.Tensor, valid_len: torch.Tensor,
         raise ValueError("encoder_attention_cuda: valid_len must be [B]")
     vl = valid_len.to(torch.int32).contiguous()
     out = torch.empty(B, L, d, dtype=qkv.dtype, device=qkv.device)
+    geom = {"nwg": 0, "stages": 0, "splits": 0, "grid": 0}
+    if qkv.dtype == torch.bfloat16:
+        geom = encoder_attention_geometry(B, n_heads, L, dh,
+                                          _build.sm_count(qkv.device))
     lib = _k3_lib()
     rc = lib.encoder_attention(
         ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(vl.data_ptr()),
         ctypes.c_void_p(out.data_ptr()), B, n_heads, L, dh, dh ** -0.5,
-        _K3_DTYPES[qkv.dtype],
+        _K3_DTYPES[qkv.dtype], geom["nwg"], geom["stages"], geom["splits"],
+        geom["grid"],
         ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream))
     _build.check(lib, rc, "encoder_attention")
     _build.LAUNCHES[K3_BODIES[qkv.dtype]] += 1

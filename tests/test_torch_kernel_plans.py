@@ -1,7 +1,11 @@
 """Launch geometry and work plans of the port's kernels, on the CPU: the
-pure functions that decide what the CUDA kernels K1 (both bodies), K4 (both
-bodies) and K5 are launched with, held against their own invariants and,
-where the JAX package has the same function, against it."""
+pure functions that decide what the CUDA kernels K1 (both bodies), K2, K3
+(bf16 body), K4 (both bodies) and K5 are launched with, held against their
+own invariants and, where the JAX package has the same function, against
+it; K2's and K3's arithmetic simulated over their plans against the JAX
+kernels in interpret mode."""
+
+import collections
 
 import numpy as np
 import jax.numpy as jnp
@@ -9,8 +13,12 @@ import pytest
 import torch
 
 from sdag_tpu.ops import attention as JA
+from sdag_tpu.ops import bm25 as JB
+from sdag_tpu.ops import encoder_attention as jea
 from sdag_tpu.ops import topk as jtopk
 from sdag_tpu_torch.ops import attention as TA
+from sdag_tpu_torch.ops import bm25 as tb
+from sdag_tpu_torch.ops import encoder_attention as tea
 from sdag_tpu_torch.ops import topk as ttopk
 
 SMEM_LIMIT = 232448   # bytes of dynamic shared memory a block may use
@@ -322,3 +330,288 @@ def test_k1_f32_cuda_wrapper_rejects_cpu_tensors_with_a_plan():
     k = torch.zeros(B, 2, plan["Lk"], 32)
     with pytest.raises(ValueError):
         TA.sdag_prefill_cuda(q, k, k, plan)
+
+
+# ----------------------------------------------------------------- K3
+K3_SHAPES = [(B, H, L, dh) for dh in (32, 64, 128)
+             for (B, H, L) in ((1, 1, 1), (3, 2, 64), (32, 16, 64),
+                               (2, 3, 100), (64, 16, 256), (4, 2, 300),
+                               (32, 16, 512), (1, 16, 512))]
+
+
+@pytest.mark.parametrize("B,H,L,dh", K3_SHAPES)
+@pytest.mark.parametrize("sms", [132, 108])
+def test_k3_geometry_covers_every_q_tile_once(B, H, L, dh, sms):
+    """K3's bf16 body over Dh 32/64/128 and L up to 512: every (b, h,
+    q-tile) is computed by exactly one warpgroup of one block, the block
+    fits in shared memory (as many times as it claims an SM), the ring has
+    at least 3 stages and holds every key tile when L <= 512 at Dh <= 64,
+    and the split of a pair's rounds is the one the kernel derives."""
+    g = tea.encoder_attention_geometry(B, H, L, dh, sms)
+    assert g["smem_bytes"] == tea._k3_smem_bytes(dh, g["nwg"], g["stages"])
+    assert g["smem_bytes"] <= SMEM_LIMIT
+    assert g["blocks_per_sm"] >= 1
+    assert g["blocks_per_sm"] * (g["smem_bytes"] + 1024) <= 233472
+    assert 3 <= g["stages"] <= tea.K3_MAX_STAGES
+    assert g["nwg"] == (1 if L <= 64 else 2)
+    if dh <= 64:
+        assert g["resident"]
+    # the kernel's share of rounds per unit: ceil(rounds / splits)
+    assert -(-g["rounds"] // g["splits"]) == g["per_unit"]
+    assert 1 <= g["grid"] <= sms * g["blocks_per_sm"]
+    seen = collections.Counter()
+    for blk in range(g["grid"]):
+        for b, h, qt, w in tea.encoder_attention_work(g, H, blk):
+            assert 0 <= w < g["nwg"]
+            seen[(b, h, qt)] += 1
+    nqt = -(-L // 64)
+    assert set(seen) == {(b, h, qt) for b in range(B) for h in range(H)
+                         for qt in range(nqt)}
+    assert set(seen.values()) == {1}
+
+
+def test_k3_smem_bytes_by_hand():
+    """Dh 64, two warpgroups, 8 stages: 2 x 2 Q tiles and 8 x (K, V) tiles
+    of 64 x 64 bf16, two 8-word records, 2 x 8 + 2 x 2 barriers; the
+    plan fills shared memory with stages (12 at one block an SM)."""
+    assert tea._k3_smem_bytes(64, 2, 8) == \
+        4 * 8192 + 16 * 8192 + 2 * 8 * 4 + 20 * 8
+    g = tea.encoder_attention_geometry(32, 16, 512, 64, 132)
+    assert (g["nwg"], g["stages"], g["rounds"], g["grid"]) == (2, 12, 4, 132)
+    assert g["smem_bytes"] == 4 * 8192 + 24 * 8192 + 64 + 28 * 8
+    g = tea.encoder_attention_geometry(32, 16, 64, 64, 132)
+    assert (g["nwg"], g["stages"], g["blocks_per_sm"]) == (1, 6, 2)
+    # Dh 128 at L 512 does not fit resident: the K/V tiles stream
+    g = tea.encoder_attention_geometry(4, 16, 512, 128, 132)
+    assert not g["resident"] and g["stages"] == 5
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _k3_tiles_simulated(qkv, vl, H):
+    """K3's bf16 arithmetic tile by tile, in float32 on the CPU, over the
+    launch plan's (b, h, q-tile) assignments: q * scale in bf16, p =
+    exp2(s * log2 e - m * log2 e), on the edge tile only -1e30 past
+    valid_len (0 for every column when valid_len is 0: the same uniform
+    softmax) and -inf past L, key tiles past valid_len skipped (all L when
+    it is 0), P rounded to bf16 for P.V, the row sum over f32 P, the
+    output times the sum's reciprocal last."""
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // H
+    log2e = 1.4426950408889634
+    scale = float(torch.tensor(dh ** -0.5).to(torch.bfloat16))
+    x = qkv.float()
+    out = torch.full((B, L, d), float("nan"))
+    g = tea.encoder_attention_geometry(B, H, L, dh, 132)
+    for blk in range(g["grid"]):
+        for b, h, qt, _ in tea.encoder_attention_work(g, H, blk):
+            q = _bf16(x[b, qt * 64:(qt + 1) * 64, h * dh:(h + 1) * dh]
+                      * scale)
+            v_len = int(vl[b])
+            live = min(v_len, L) if v_len > 0 else L
+            m = torch.full((q.shape[0],), float("-inf"))
+            lsum = torch.zeros(q.shape[0])
+            o = torch.zeros(q.shape[0], dh)
+            for t in range(-(-live // 64)):
+                rows = slice(t * 64, min((t + 1) * 64, L))
+                k = x[b, rows, d + h * dh:d + (h + 1) * dh]
+                v = x[b, rows, 2 * d + h * dh:2 * d + (h + 1) * dh]
+                s = q @ k.T
+                col = torch.arange(rows.start, rows.stop)
+                s = torch.where(col[None] >= v_len,
+                                -1e30 if v_len > 0 else 0.0, s)
+                m_new = torch.maximum(m, s.max(1).values)
+                alpha = torch.exp2((m - m_new) * log2e)
+                p = torch.exp2(s * log2e - (m_new * log2e)[:, None])
+                lsum = lsum * alpha + p.sum(1)
+                o = o * alpha[:, None] + _bf16(p) @ v
+                m = m_new
+            out[b, qt * 64:qt * 64 + q.shape[0], h * dh:(h + 1) * dh] = \
+                o * (1.0 / lsum)[:, None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("H,Dh,L,vl", [
+    (4, 32, 64, [64, 1, 0, 37]),
+    (2, 64, 200, [200, 64, 0, 1, 130]),
+    (2, 128, 72, [72, 65, 0]),
+])
+def test_k3_bf16_tile_arithmetic_matches_pallas_interpret(H, Dh, L, vl):
+    """The bf16 body's arithmetic, simulated over its launch plan, against
+    the JAX kernel in interpret mode on the same bf16 inputs: within the
+    limits chip_smoke.py holds the CUDA kernel to (2e-2 absolute, 5e-2 of
+    a row's RMS); every output element is written; valid_len 0 gives the
+    mean of V."""
+    rng = np.random.default_rng(len(vl) * L)
+    qkv = rng.standard_normal((len(vl), L, 3 * H * Dh)).astype(np.float32)
+    qkv_b = torch.from_numpy(qkv).to(torch.bfloat16)
+    vl_np = np.asarray(vl, np.int32)
+    ref = np.asarray(jea.encoder_attention_fused_qkv(
+        jnp.asarray(qkv_b.float().numpy()).astype(jnp.bfloat16),
+        jnp.asarray(vl_np), n_heads=H, interpret=True).astype(jnp.float32))
+    got = _k3_tiles_simulated(qkv_b, vl_np, H).float()
+    assert torch.isfinite(got).all()
+    diff = (got.numpy() - ref).reshape(len(vl), L, H, Dh)
+    rms = np.sqrt((ref.reshape(len(vl), L, H, Dh) ** 2).mean(-1))
+    assert np.abs(diff).max() <= 2e-2
+    assert (np.abs(diff).max(-1) / np.maximum(rms, 1e-30)).max() <= 5e-2
+    plain = tea.encoder_attention_qkv_reference(
+        qkv_b, torch.from_numpy(vl_np), H).float()
+    assert (got - plain).abs().max() <= 2e-2
+
+
+def test_k3_cuda_wrapper_rejects_cpu_tensors():
+    qkv = torch.zeros(2, 64, 3 * 64, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tea.encoder_attention_cuda(qkv, torch.ones(2, dtype=torch.int32), 1)
+
+
+# ----------------------------------------------------------------- K2
+@pytest.mark.parametrize("valid_n", [0, 1, 7, 384, 4321, 5000, 1 << 20])
+@pytest.mark.parametrize("qn,t,k", [(32, 16, 10), (32, 32, 64), (33, 16, 20),
+                                    (1, 1, 1), (24, 32, 5)])
+def test_k2_geometry_covers_every_doc_once(valid_n, qn, t, k):
+    """Every valid doc falls in exactly one warp's range of one tile of one
+    block, ranges ascend within a block, the block fits in shared memory
+    (as many times as it claims an SM), the lists fit the sorted merge, and
+    at 384 docs every SM of the card gets a block."""
+    sms = 132
+    g = tb.bm25_scan_geometry(valid_n, qn, t, k, sms)
+    assert g["smem_bytes"] <= SMEM_LIMIT
+    assert g["blocks_per_sm"] >= 1
+    assert g["blocks_per_sm"] * (g["smem_bytes"] + 1024) <= 233472
+    assert 1 <= g["n_blocks"] <= tb.K2_MERGE_MAX_LISTS
+    assert g["n_blocks"] * g["groups"] <= max(
+        g["groups"], sms * g["blocks_per_sm"])
+    assert 1 <= g["td"] <= tb.K2_TILE_MAX
+    assert g["cap"] >= k + 32
+    assert g["ht"] >= 2 * 32 * t and g["ht"] == 1 << g["ht_log2"]
+    assert g["groups"] == -(-qn // 32)
+    hit = np.zeros(valid_n, np.int32)
+    for blk in range(g["n_blocks"]):
+        last = -1
+        for _tile, _w, first, end in tb.bm25_scan_work(g, valid_n, blk):
+            assert first > last
+            hit[first:end] += 1
+            last = end - 1
+    assert (hit == 1).all()
+    if valid_n == 384 and qn <= 32:
+        assert g["n_blocks"] >= sms
+
+
+def test_k2_smem_bytes_by_hand():
+    """T 16, 64-entry buffers: two 32 x 65 score tiles, 2 x 32 x 64 words
+    of buffer, 8 warps x 8 chunks x 2 x 64 words of ring, 1024 table
+    slots of 8 bytes, 512 entries of 32 slot bytes, 8 x 16 x 32
+    accumulators, 16 x 32 weights and terms, 32 query states of 12 bytes,
+    8 x 32 hits of 8 bytes, 16 bytes."""
+    assert tb._k2_smem_bytes(16, 64, 1024) == \
+        2 * 32 * 65 * 4 + 2 * 32 * 64 * 4 + 8 * 8 * 2 * 64 * 4 \
+        + 1024 * 8 + 512 * 32 + 8 * 16 * 32 * 4 + 2 * 16 * 32 * 4 \
+        + 32 * 12 + 8 * 32 * 8 + 16
+    g = tb.bm25_scan_geometry(1 << 20, 32, 16, 10, 132)
+    assert (g["blocks_per_sm"], g["td"], g["n_blocks"]) == (2, 64, 264)
+
+
+def _k2_simulated(term_ids, impacts, q_terms, q_weights, k, valid_n):
+    """K2 step by step on the CPU in float32: the launch plan's blocks and
+    warp ranges, a per-query slot mask with each slot's impact stored at
+    its first match and added after, the score summed over the set slots
+    in slot order with one rounding per multiply and add, the (score, doc)
+    threshold and buffer compaction of the selection, each block's sorted
+    list, and the heads-only merge of the lists."""
+    qn, t = q_terms.shape
+    lp = term_ids.shape[1]
+    g = tb.bm25_scan_geometry(valid_n, qn, t, k, 132)
+    cap = g["cap"]
+    f32 = np.float32
+    key = lambda e: (-e[0], e[1])  # noqa: E731
+    lists = [[[] for _ in range(qn)] for _ in range(g["n_blocks"])]
+    for blk in range(g["n_blocks"]):
+        buf = [[] for _ in range(qn)]
+        thr = [(f32(-np.inf), 2 ** 31 - 1)] * qn
+        for tile in range(blk, g["n_tiles"], g["n_blocks"]):
+            scores = {}
+            for _, _, first, end in tb.bm25_scan_work(g, valid_n, blk):
+                if not tile * g["td"] <= first < (tile + 1) * g["td"]:
+                    continue
+                for doc in range(first, end):
+                    for q in range(qn):
+                        c, matched = {}, 0
+                        for l in range(lp):
+                            term = term_ids[doc, l]
+                            if term < 0:
+                                continue
+                            for s in range(t):
+                                if q_terms[q, s] == term:
+                                    if matched >> s & 1:
+                                        c[s] = f32(c[s] + impacts[doc, l])
+                                    else:
+                                        c[s] = impacts[doc, l]
+                                        matched |= 1 << s
+                        sc = f32(0.0)
+                        for s in range(t):
+                            if matched >> s & 1:
+                                sc = f32(sc + f32(q_weights[q, s] * c[s]))
+                        scores[(q, doc)] = sc
+            for q in range(qn):
+                for doc in sorted(d for (qq, d) in scores if qq == q):
+                    e = (scores[(q, doc)], doc)
+                    if key(e) < key(thr[q]):
+                        buf[q].append(e)
+                    if len(buf[q]) > cap - 32:
+                        buf[q] = sorted(buf[q], key=key)[:k]
+                        if len(buf[q]) == k:
+                            thr[q] = buf[q][-1]
+        for q in range(qn):
+            lists[blk][q] = sorted(buf[q], key=key)[:k]
+    vals = np.full((qn, k), -np.inf, np.float32)
+    idx = np.full((qn, k), -1, np.int32)
+    for q in range(qn):
+        merged = sorted((e for blk in lists for e in blk[q]), key=key)[:k]
+        for j, (v, d) in enumerate(merged):
+            vals[q, j], idx[q, j] = v, d
+    return vals, idx
+
+
+@pytest.mark.parametrize("k,valid_n", [(5, None), (10, 250), (4, 2),
+                                       (40, 300)])
+def test_k2_simulated_kernel_bit_equal_to_plain_and_pallas(k, valid_n):
+    """K2's arithmetic and selection, simulated over its launch plan, give
+    the plain version's scores bit for bit and the JAX kernel's (interpret
+    mode) doc ids, with queries that repeat a term in two slots, 0-score
+    docs ranked by index and (-inf, -1) past valid_n."""
+    rng = np.random.default_rng(k)
+    n, lp, v, qn, tq = 300, 24, 40, 5, 8
+    term_ids = np.full((n, lp), -1, np.int32)
+    impacts = np.zeros((n, lp), np.float32)
+    for i in range(n):
+        terms = rng.choice(v, size=int(rng.integers(3, 20)), replace=False)
+        term_ids[i, :len(terms)] = terms
+        impacts[i, :len(terms)] = rng.random(len(terms)) + 0.01
+    q_terms = rng.integers(0, v, size=(qn, tq)).astype(np.int32)
+    q_terms[:, tq - 2:] = -1
+    q_terms[0, 1] = q_terms[0, 0]          # one term in two slots
+    q_weights = np.where(q_terms == -1, 0.0, rng.integers(
+        1, 3, size=(qn, tq)) + 0.3).astype(np.float32)
+    vn = n if valid_n is None else valid_n
+    sv, si = _k2_simulated(term_ids, impacts, q_terms, q_weights, k, vn)
+    pv, pi = tb.bm25_topk(torch.from_numpy(term_ids),
+                          torch.from_numpy(impacts),
+                          torch.from_numpy(q_terms),
+                          torch.from_numpy(q_weights), k, valid_n=valid_n)
+    np.testing.assert_array_equal(sv, pv.numpy())
+    np.testing.assert_array_equal(si, pi.numpy())
+    jv, ji = JB.bm25_topk(jnp.asarray(term_ids), jnp.asarray(impacts),
+                          jnp.asarray(q_terms), jnp.asarray(q_weights), k,
+                          valid_n=valid_n, block_n=128, interpret=True)
+    np.testing.assert_array_equal(si, np.asarray(ji))
+
+
+def test_k2_cuda_wrapper_rejects_cpu_tensors():
+    z = torch.zeros(4, 8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="not on CUDA"):
+        tb.bm25_topk_cuda(z, z.float(), z, z.float(), 2)
