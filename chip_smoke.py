@@ -40,19 +40,31 @@ Phase 4  the main path at full width: run_experiment with LLM_ARCH=llama3-8b
          (random bf16 weights, 32 layers), BM25_ENGINE=scan, 36 queries;
          launch counts are zeroed before and read after, and both kernels
          must have launched (K1 at least 32 layers x ISO+NO-ISO batches).
-         Phase 3 counts its own run the same way.
+         Phase 3 counts its own run the same way.  Decode runs as
+         captured CUDA graphs (at least one capture, or it fails):
+         reports decode tok/s, ms a step, captures and their seconds,
+         peak memory, and the device busy share of a profiled NO-ISO
+         batch (prefill + 16 steps); one NO-ISO batch decoded through the
+         graphs and through the same steps run eagerly must give equal
+         tokens, greedy and sampled (Config TEMPERATURE/TOP_P, one seed);
+         the decode attention at the 8B shape (its bf16 scores contracted
+         with f32 out) against its f32-copy form: scores within 1e-5 of
+         the largest score, outputs within 2e-2.
 Phase 5  K3 against its plain version (encoder_attention_qkv_reference):
          e5-large-v2 heads (H=16, Dh=64) in bf16 at (B=64, L=256) and
          (B=32, L=512) with ragged valid_len including L, 1 and 0; tiny
-         heads (H=4, Dh=32) in f32 at L=64; lengths off the tile grid
+         heads (H=4, Dh=32) in f32 at L=64; the f32 (split-TF32) body at
+         e5-large-v2's heads, (B=64, L=256) and (B=32, L=512), timed,
+         with the planted faults at L=512; lengths off the tile grid
          (L 72/100/200) and Dh=128; bf16 Dh=128 at (B=4, L=512), whose
          K/V tiles do not fit the ring and stream through it, and one
          sequence of 512; and the ranker path's own batch (32 passages of
-         the synthetic world through the byte tokenizer).
+         the synthetic world through the byte tokenizer) in bf16 and f32.
          All rows are compared with K1's limits.  Two planted faults (one
          key tile dropped; the mask off by one column) must fail the check.
          Times K3, the plain version, and scaled_dot_product_attention
-         with its split + transposes.
+         with its split + transposes; f32 cases also get their bound at
+         the split-TF32 rate (495 / 3 TFLOP/s).
 Phase 6  K4 and K5 against their plain versions (exact_topk,
          exact_topk_int8): 1,048,576 x 1024 normalised rows in bf16 and
          int8, Q=256 and Q=32, k=10 and k=64, valid_n = N and N - 1000;
@@ -79,7 +91,11 @@ Phase 7  the ranker path at full width through run_experiment, counts
          a bfloat16, once with an int8 and once with a float32 (the
          default) dense index: K3, the K4 body of the index' dtype resp.
          K5, K2 and K1 launched, outputs written, the first batch's dense
-         hits equal to the plain version's on the same query embeddings.
+         hits equal to the plain version's on the same query embeddings;
+         (c) e5-large-v2's geometry at float32 (random weights) encoding
+         the phase-7 corpus through E5Encoder: K3's f32 body launched
+         layers x batches, the first batch's embeddings within 1e-4 of
+         the unfused plain attention's.
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -101,6 +117,7 @@ OUT_DIR = os.path.join(REPO, "smoke_out")
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+TF32_FLOPS = 495e12
 BF16_TOL, F32_TOL = 2e-2, 1e-4
 # a row's max abs error over the row's RMS (catches a few leaked or dropped
 # keys in long rows, whose outputs sit far below the absolute limits)
@@ -690,6 +707,12 @@ def phase4(dev):
            "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
            "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
            "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "decode_steps": st["decode_steps"],
+           "decode_chunks": st["decode_chunks"],
+           "decode_ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
+           "graph_captures": st["graph_captures"],
+           "capture_s": st["capture_s"],
+           "live_decode_shapes": len(res.generator._live),
            "peak_mem_gib": peak / 2 ** 30,
            "metrics": {"acc_iso": metrics[(5, 1)]["answer_match_stats"][
                "iso"]["ground_truth_match_rate"]},
@@ -707,9 +730,111 @@ def phase4(dev):
     if not rec["logits_finite"] or rec["logits_shape"] != [
             1, 1, res.generator.cfg.vocab_size]:
         raise AssertionError(f"phase 4: bad logits {rec['logits_shape']}")
+    if st["graph_captures"] < 1:
+        raise AssertionError("phase 4: decode captured no CUDA graph")
     rec["profile"] = _profile_window(res.generator, dev)
     log(f"[phase4] profile {json.dumps(rec['profile'])}")
+    rec["graph_vs_eager"] = _decode_graph_vs_eager(res.generator, dev)
+    log(f"[phase4] graph vs eager {json.dumps(rec['graph_vs_eager'])}")
+    rec["decode_attention"] = _decode_attention_check(res.generator.cfg,
+                                                      dev)
+    log(f"[phase4] decode attention {json.dumps(rec['decode_attention'])}")
     del res
+    return rec
+
+
+def _decode_attention_check(cfg, dev, batch=8, slots=672):
+    """The decode attention at the 8B decode shape (bf16 cache, a quarter
+    of its slots masked), against its earlier form that copied the cache
+    to f32 before the score product: scores within 1e-5 of the largest
+    score's magnitude (f32 sums in another order; the bf16 products are
+    exact), outputs within the bf16 limit."""
+    import torch
+    from sdag_tpu_torch.ops import attention as A
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    hd, hkv = cfg.head_dim, cfg.n_kv_heads
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(cfg.dtype)
+    q = rnd(batch, cfg.n_heads, hd)
+    k, v = rnd(batch, hkv, slots, hd), rnd(batch, hkv, slots, hd)
+    mask = torch.rand(batch, slots, generator=g, device=dev) < 0.75
+    mask[:, 0] = True
+
+    def f32_copy_scores():
+        qg = q.reshape(batch, hkv, cfg.n_heads // hkv, hd).float()
+        return (qg @ k.float().transpose(-1, -2)) * hd ** -0.5
+
+    def f32_copy_attention():
+        s = torch.where(mask[:, None, None, :], f32_copy_scores(),
+                        A.DEFAULT_MASK_VALUE)
+        p = torch.softmax(s, dim=-1).to(v.dtype)
+        return (p @ v).reshape(batch, cfg.n_heads, hd)
+    ref = f32_copy_scores()
+    s_err = float((A.decode_scores(q, k) - ref).abs().max())
+    o_err = float((A.masked_decode_attention(q, k, v, mask).float()
+                   - f32_copy_attention().float()).abs().max())
+    rec = {"shape": [batch, cfg.n_heads, hkv, slots, hd],
+           "dtype": str(cfg.dtype), "scores_max_abs_err": s_err,
+           "scores_max_abs": float(ref.abs().max()),
+           "scores_tol": 1e-5 * float(ref.abs().max()),
+           "out_max_abs_err": o_err, "out_tol": BF16_TOL,
+           "ms": cuda_ms(lambda: A.masked_decode_attention(q, k, v, mask),
+                         iters=50),
+           "f32_copy_ms": cuda_ms(f32_copy_attention, iters=50)}
+    if not (s_err <= rec["scores_tol"] and o_err <= BF16_TOL):
+        raise AssertionError(f"phase 4: decode attention differs from its "
+                             f"f32-copy form: {rec}")
+    return rec
+
+
+def _decode_graph_vs_eager(gen, dev, new_tokens=32):
+    """One NO-ISO batch of the main path decoded through the captured
+    graphs and through the same steps run eagerly: greedy tokens and
+    lengths equal; then sampled at the Config's TEMPERATURE and TOP_P by
+    two generators seeded alike, one on graphs, one eager: equal too."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch.config import Config
+    from sdag_tpu_torch.sdag.generate import Generator
+    _plans, plain = _main_path_prompts(gen.batch_bucket or 8)
+    lp = gen._pad_len(max(len(x) for x in plain))
+    b = len(plain)
+    ids = np.full((b, lp), gen.tokenizer.pad_token_id, np.int32)
+    for i, x in enumerate(plain):
+        ids[i, :len(x)] = x
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    args = (t(ids), t(np.full((b, lp), -1, np.int32)),
+            t(np.zeros((b, lp), np.int32)), t(np.zeros(b, np.int32)),
+            t(np.asarray([len(x) for x in plain], np.int32)))
+    cfg = Config()
+    rec = {"batch": b, "new_tokens": new_tokens,
+           "temperature": cfg.TEMPERATURE, "top_p": cfg.TOP_P}
+    for name, engine in (
+            ("greedy", lambda: gen),
+            ("sampled", lambda: Generator(
+                gen.params, gen.cfg, gen.tokenizer,
+                temperature=cfg.TEMPERATURE, top_p=cfg.TOP_P, seed=1234,
+                batch_bucket=gen.batch_bucket, device=dev))):
+        runs = {}
+        for graphs in (True, False):
+            eng = engine()
+            out, lengths = eng._generate(*args, new_tokens, graphs=graphs)
+            runs[graphs] = (out.cpu(), lengths.cpu())
+            if graphs and not eng._live[next(reversed(eng._live))].graphs:
+                raise AssertionError(f"phase 4 {name}: no graph replayed")
+        equal = torch.equal(runs[True][0], runs[False][0]) and \
+            torch.equal(runs[True][1], runs[False][1])
+        rec[name] = {"equal": equal,
+                     "lengths": runs[True][1].tolist(),
+                     "tokens_differing": int((runs[True][0]
+                                              != runs[False][0]).sum())}
+        if not equal:
+            raise AssertionError(f"phase 4: {name} tokens of the captured "
+                                 f"graphs differ from the eager steps: "
+                                 f"{rec[name]}")
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -720,8 +845,9 @@ def _profile_window(gen, dev, new_tokens=16):
     import torch
     from torch.profiler import ProfilerActivity, profile
     _plans, plain = _main_path_prompts(gen.batch_bucket or 8)
-    gen.generate_ids(plain, max_new_tokens=2)            # warm
+    gen.generate_ids(plain, max_new_tokens=new_tokens)   # warm: captures
     torch.cuda.synchronize(dev)
+    captures = gen.stats["graph_captures"]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -741,6 +867,8 @@ def _profile_window(gen, dev, new_tokens=16):
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     return {"batch": len(plain), "new_tokens": new_tokens,
+            "graph_captures_in_window": gen.stats["graph_captures"]
+            - captures,
             "wall_ms": wall_us / 1e3,
             "device_ms": total / 1e3 if total else None,
             "device_busy_share": total / wall_us if total else None,
@@ -816,6 +944,10 @@ def _k3_case(name, qkv, vl, n_heads, timed=False, plant_fault=False):
             o = torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, attn_mask=key_ok)
             return o.transpose(1, 2).reshape(B, L, d)
+        if dtype == "float32":
+            # the f32 body runs split TF32: three TF32 products for one
+            rec["bound_tf32x3_ms"] = max(
+                flops / (TF32_FLOPS / 3), t_bytes) * 1e3
         rec.update(
             ms=cuda_ms(lambda: E.encoder_attention_cuda(qkv, vl, n_heads)),
             plain_ms=cuda_ms(lambda: E.encoder_attention_qkv_reference(
@@ -870,6 +1002,13 @@ def phase5(dev):
     recs.append(_k3_case("c_tiny_f32_L64",
                          qkv_of(8, 64, 4, 32, torch.float32),
                          ragged(8, 64), 4, timed=True, plant_fault=False))
+    # the f32 body at e5-large-v2's heads (a converted checkpoint loads at
+    # f32)
+    for name, B, L in (("h_e5_large_f32_B64_L256", 64, 256),
+                       ("h_e5_large_f32_B32_L512", 32, 512)):
+        recs.append(_k3_case(name, qkv_of(B, L, 16, 64, torch.float32),
+                             ragged(B, L), 16, timed=True,
+                             plant_fault=L == 512))
     recs.append(_k3_case("d_e5_large_f32_L128",
                          qkv_of(4, 128, 16, 64, torch.float32),
                          ragged(4, 128), 16, plant_fault=True))
@@ -881,7 +1020,7 @@ def phase5(dev):
                          ragged(3, 72), 2))
     recs.append(_k3_case("e_Dh128_f32_L200_B3",
                          qkv_of(3, 200, 2, 128, torch.float32),
-                         ragged(3, 200), 2))
+                         ragged(3, 200), 2, timed=True))
     # Dh = 128 at L = 512: the K/V tiles stream through the ring
     recs.append(_k3_case("g_Dh128_bf16_B4_L512_streaming",
                          qkv_of(4, 512, 8, 128, torch.bfloat16),
@@ -891,10 +1030,12 @@ def phase5(dev):
                          torch.tensor([333], dtype=torch.int32, device=dev),
                          16))
     L, lens = _ranker_path_passages(32)
-    recs.append(_k3_case(
-        "f_ranker_path_batch", qkv_of(len(lens), L, 16, 64, torch.bfloat16),
-        torch.as_tensor(lens, dtype=torch.int32, device=dev), 16,
-        timed=True))
+    for name, dtype in (("f_ranker_path_batch", torch.bfloat16),
+                        ("f_ranker_path_batch_f32", torch.float32)):
+        recs.append(_k3_case(
+            name, qkv_of(len(lens), L, 16, 64, dtype),
+            torch.as_tensor(lens, dtype=torch.int32, device=dev), 16,
+            timed=True))
     torch.cuda.empty_cache()
     return recs
 
@@ -1290,7 +1431,69 @@ def phase7(dev):
                                  f"{rec['acc_iso']} < 0.8")
         recs[name] = rec
         del res
+    recs["c_f32_encode"] = _f32_encode(dev)
     return recs
+
+
+def _f32_encode(dev, batch=32):
+    """(c) e5-large-v2's geometry at float32 (how a converted checkpoint
+    loads) through E5Encoder over the phase-7 corpus, random weights from a
+    seed: K3's f32 body launched layers x batches and no other K3 body;
+    the first batch's unit embeddings within the kernel's own f32 limit
+    (1e-4) of the plain attention's (the unfused encoder on the card)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.e5 import (E5Encoder, EncoderConfig,
+                                          init_encoder_params)
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.pipeline.resources import load_corpus_jsonl
+    from sdag_tpu_torch.utils.synth_qa import load_world, write_corpus_jsonl
+    world = load_world(os.path.join(REPO, "experiments", "data",
+                                    "qa_ckpt_v4", "world.json"))
+    corpus = os.path.join(OUT_DIR, "chip_smoke_corpus_v4.jsonl")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    write_corpus_jsonl(world, corpus)
+    texts, _ids = load_corpus_jsonl(corpus)
+    cfg = dataclasses.replace(EncoderConfig.e5_large_v2(),
+                              dtype=torch.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    params = init_encoder_params(g, cfg, device=dev)
+    tok = load_tokenizer("")
+    enc = E5Encoder(params, cfg, tok, model_name="intfloat/e5-large-v2",
+                    device=dev)
+    torch.cuda.synchronize(dev)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    emb = enc.encode(texts, kind="passage", batch_size=batch)
+    seconds = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    plain = E5Encoder(params, cfg, tok, model_name="intfloat/e5-large-v2",
+                      fused=False, device=dev)
+    ref = plain.encode(texts[:batch], kind="passage", batch_size=batch)
+    err = float(np.abs(emb[:batch] - ref).max())
+    need = cfg.n_layers * enc.stats["batches"]
+    rec = {"docs": len(texts), "layers": cfg.n_layers, "d_model":
+           cfg.d_model, "dtype": "float32", "fused": enc.fused,
+           "batches": enc.stats["batches"], "tokens": enc.stats["tokens"],
+           "seconds": seconds, "tokens_per_s": enc.stats["tokens"] / seconds,
+           "launches": launches, "k3_f32_launches_needed": need,
+           "first_batch_max_abs_err": err, "tol": F32_TOL,
+           "finite": bool(np.isfinite(emb).all()),
+           "shape": list(emb.shape)}
+    log(f"[phase7] c_f32_encode {json.dumps(rec)}")
+    if launches.get("encoder_attention_f32", 0) != need or not need or \
+            launches.get("encoder_attention_bf16", 0):
+        raise AssertionError(f"phase 7 f32 encode: K3 launches {launches}, "
+                             f"need {need} of the f32 body")
+    if not rec["finite"] or rec["shape"] != [len(texts), cfg.d_model] \
+            or not err <= F32_TOL:
+        raise AssertionError(f"phase 7 f32 encode: {rec}")
+    del params, enc, plain
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _first_batch_questions(cfg):
@@ -1362,6 +1565,15 @@ def main() -> int:
     # K3-K5: timed at the ranker path's shapes (phase 5 case f, phase 6
     # cases f), counted over the phase-7 run that drives each
     kernels += [
+        dict(name="encoder_attention_f32", route="cuda",
+             source="sdag_tpu_torch/csrc/encoder_attention.cu",
+             replaces="sdag_tpu/ops/encoder_attention.py:108",
+             launches=p7["c_f32_encode"]["launches"].get(
+                 "encoder_attention_f32", 0),
+             max_abs_err=max(r["max_abs_err"] for r in k3
+                             if r["dtype"] == "float32"),
+             **{key: by_name["f_ranker_path_batch_f32"][key]
+                for key in keys}),
         dict(name="encoder_attention_bf16", route="cuda",
              source="sdag_tpu_torch/csrc/encoder_attention.cu",
              replaces="sdag_tpu/ops/encoder_attention.py:108",
@@ -1396,7 +1608,10 @@ def main() -> int:
              **{key: by_name["f_ranker_path_int8"][key] for key in keys}),
     ]
     log(f"[summary] phase 4 prefill {p4['prefill_tok_s']:.1f} tok/s, "
-        f"decode {p4['decode_tok_s']:.1f} tok/s, peak "
+        f"decode {p4['decode_tok_s']:.1f} tok/s "
+        f"({p4['decode_ms_per_step']:.2f} ms a step, "
+        f"{p4['graph_captures']} graph captures, device busy "
+        f"{p4['profile']['device_busy_share']}), peak "
         f"{p4['peak_mem_gib']:.2f} GiB on {card}")
     log(json.dumps({"ptxas": ptxas}))
     log(card)

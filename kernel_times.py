@@ -3,7 +3,7 @@
 checkout of the same package, on one GPU, within one run.
 
     git archive <earlier commit> | tar -x -C <dir>     # the earlier tree
-    python3 kernel_times.py --old <dir>
+    python3 kernel_times.py --old <dir> [--only k3_f32,decode]
 
 Both trees are timed at the same seeded shapes through the same public
 wrappers, in turns (old, new, new, old), each turn in a process of its own
@@ -31,6 +31,12 @@ that builds that tree's kernels with nvcc:
   Dh = 64): (B = 64, L = 256) and (B = 32, L = 512) with ragged valid
   lengths (L, 1, 0 and random), and the ranker path's first encode batch
   (32 passages of the synthetic world, L = 64);
+* K3 in float32: the same two e5-large-v2 shapes, the tiny-head case
+  (B = 8, L = 64, H = 4, Dh = 32) and Dh = 128 (B = 3, L = 200, H = 2),
+  each with its bound, plain time and SDPA time;
+* decode at llama3-8b (random bf16 weights): one NO-ISO batch of 8
+  main-path prompts, 32 new tokens, greedy: tok/s, ms a step, peak
+  memory and the device busy share of a profiled window;
 * K2 ``bm25_topk_cuda``: 1,048,576 docs x 64 Zipf term slots with 32
   queries of 16 terms at k = 10 and k = 20, and 32 terms at k = 64; the
   main path's shape (the synthetic world's 384 docs, Lp = 128, 32 queries,
@@ -106,6 +112,69 @@ def k3_times(c, dev, out):
     out[name + "_graph"] = graph_ms(fn)
 
 
+def k3_f32_times(c, dev, out):
+    """K3's f32 body at e5-large-v2's heads, the tiny-head case and Dh=128,
+    ragged valid lengths (L, 1, 0 and random); the bound, the plain
+    version's time and SDPA's from the tree's chip_smoke K3 case."""
+    import torch
+    from sdag_tpu_torch.ops import encoder_attention as E
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    for name, B, L, H, dh in (("K3_f32_B64_L256_ragged", 64, 256, 16, 64),
+                              ("K3_f32_B32_L512_ragged", 32, 512, 16, 64),
+                              ("K3_f32_tiny_B8_L64_H4_Dh32", 8, 64, 4, 32),
+                              ("K3_f32_Dh128_B3_L200", 3, 200, 2, 128)):
+        qkv = torch.randn(B, L, 3 * H * dh, generator=g, device=dev)
+        vl = torch.randint(2, L, (B,), generator=g, device=dev,
+                           dtype=torch.int32)
+        vl[0], vl[1], vl[2] = L, 1, 0
+        out[name] = c.cuda_ms(lambda: E.encoder_attention_cuda(qkv, vl, H),
+                              iters=20)
+        rec = c._k3_case(name, qkv, vl, H, timed=True)
+        for key in ("bound_ms", "bound_tf32x3_ms", "plain_ms",
+                    "library_ms"):
+            if key in rec:
+                out[f"{name}_{key}"] = rec[key]
+
+
+def decode_times(c, dev, out, reps=3, new_tokens=32):
+    """Phase 4's decode at llama3-8b width and depth (random bf16 weights
+    from a seed): one NO-ISO batch of the 8 main-path prompts, 32 new
+    tokens, greedy, through the tree's Generator after a warm-up call;
+    decode tok/s and s a step from its own stats, the device busy share
+    of the tree's profiled window (prefill + 32 steps), peak memory."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = init_decoder_params(g, cfg, device=dev)
+    gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
+                    batch_bucket=8, device=dev)
+    _plans, plain = c._main_path_prompts(8)
+    gen.generate_ids(plain, max_new_tokens=new_tokens)       # warm
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen.stats.update(decode_tokens=0, decode_s=0.0)
+    for _ in range(reps):
+        gen.generate_ids(plain, max_new_tokens=new_tokens)
+    st = gen.stats
+    name = f"decode_8b_B8_new{new_tokens}"
+    out[name + "_tok_s"] = st["decode_tokens"] / st["decode_s"]
+    # no EOS under random weights: every call runs all its steps
+    out[name + "_rows_full"] = st["decode_tokens"] == reps * 8 * new_tokens
+    out[name + "_ms_per_step"] = 1e3 * st["decode_s"] / (reps * new_tokens)
+    out[name + "_peak_mem_gib"] = torch.cuda.max_memory_allocated(dev) / \
+        2 ** 30
+    prof = c._profile_window(gen, dev, new_tokens=new_tokens)
+    out[name + "_device_busy_share"] = prof["device_busy_share"]
+    out[name + "_profile_wall_ms"] = prof["wall_ms"]
+    del gen, params
+    torch.cuda.empty_cache()
+
+
 def k2_times(c, dev, out):
     """K2 at 1M docs (three instantiations) and the main path's shape."""
     import numpy as np
@@ -145,7 +214,10 @@ def k2_times(c, dev, out):
     out["K2_path_384docs_Lp128_k5_graph"] = graph_ms(fn)
 
 
-def worker(tree: str) -> int:
+FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1")
+
+
+def worker(tree: str, families) -> int:
     sys.path.insert(0, tree)
     import torch
     import chip_smoke as c                      # the tree's own helpers
@@ -155,8 +227,8 @@ def worker(tree: str) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    for times in (k3_times, k2_times, k4_times, k1_times):
-        times(c, dev, out)
+    for fam in families:
+        globals()[f"{fam}_times"](c, dev, out)
     print(json.dumps({"tree": tree, "ms": out}), flush=True)
     return 0
 
@@ -282,14 +354,20 @@ def main() -> int:
     ap.add_argument("--old", help="checkout of the earlier commit")
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--only", default=",".join(FAMILIES),
+                    help="comma-separated families to time, of "
+                    + ", ".join(FAMILIES))
     args = ap.parse_args()
+    families = args.only.split(",")
+    if not set(families) <= set(FAMILIES):
+        ap.error(f"--only takes {', '.join(FAMILIES)}")
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 2
     if args.worker:
-        return worker(os.path.abspath(args.tree))
+        return worker(os.path.abspath(args.tree), families)
     if not args.old:
         ap.error("--old is required")
     card = subprocess.run(
@@ -301,7 +379,8 @@ def main() -> int:
                         ("old", args.old)):
         res = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--worker", "--tree",
-             os.path.abspath(tree)], capture_output=True, text=True)
+             os.path.abspath(tree), "--only", args.only],
+            capture_output=True, text=True)
         if res.returncode != 0:
             sys.stderr.write(res.stdout[-4000:] + res.stderr[-4000:])
             return 1

@@ -51,9 +51,14 @@
 // score tile, and tile t + 1's scores run under tile t's P.V, as in K1).
 // Tiles go in pairs with the odd tail peeled, so no branch sits around a
 // wgmma in the loop.  The output is staged in the Q tile and stored in
-// 16-byte row segments.  f32 inputs: 256 threads on CUDA-core FMA, grid
-// (q-tile, head, batch), thread (ty, tx) owning rows ty+16i and columns
-// tx+16j, K/V streamed in 64-row tiles.
+// 16-byte row segments.
+//
+// f32 inputs (a converted E5 checkpoint loads at f32),
+// encoder_attention_f32_kernel: split-TF32 on mma.sync, one block of four
+// warps per (64-row q-tile, head, batch), K/V streamed through a cp.async
+// ring; see the comment above the kernel.  Its bound at e5-large-v2's
+// width is the operations: 4 L^2 Dh flops a head against 67 TFLOP/s of f32
+// FMA, or 495 / 3 TFLOP/s for split TF32.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,156 +80,339 @@ __device__ __forceinline__ int live_keys(int vl, int L) {
 }
 
 // ------------------------------------------------------------------ f32
-constexpr int F32_NT = 256;
+// encoder_attention_f32_kernel: split-TF32 ("3xTF32") on the tensor cores
+// through mma.sync.m16n8k8.tf32.  An f32 operand x is split into
+// hi = x rounded to TF32 and lo = x - hi (exact in f32; the tensor core
+// reads lo's top 19 bits), and each product takes hi.lo + lo.hi + hi.hi
+// with f32 accumulation: about f32 accuracy at a third of the TF32 rate.
+// wgmma would need both TF32 operands K-major in shared memory, which V of
+// P.V is not, and whole-warpgroup register budgets; mma.sync takes P from
+// the registers the scores land in and V row-major.
+//
+// A block of four warps takes one 64-row q-tile of one (batch, head) pair;
+// the q-tiles of a pair are neighbours in the grid, so they find the
+// pair's K/V in L2.  Each warp keeps its 16 q rows, scaled, in registers
+// (in shared memory at Dh = 128) and streams the live 64-key K/V tiles
+// through a two-stage cp.async ring (tile t + 1 loads under tile t's
+// math).  Permutations that change no sum
+// give every fragment a 16-byte shared-memory load: the head dim of Q.K^T
+// is walked in 16-wide chunks of which thread t4 holds elements
+// 4 t4 .. 4 t4 + 3 (k-step 2c takes +0/+1, 2c + 1 takes +2/+3, the same in
+// A and B); P.V takes the score fragment as its A fragment with the keys
+// of a k-step in the order 0, 2, 4, 6, 1, 3, 5, 7; output group jj's
+// column n is head dim n * DH/8 + jj, so a thread's B fragments are
+// contiguous in a V row and its outputs contiguous in an output row.  The
+// K and V rows are stored with an XOR swizzle of their 16-byte chunks that
+// keeps those loads free of bank conflicts.  The softmax is online in the
+// exp2 domain, as in the bf16 body.
+constexpr int F32_WARPS = 4;
+constexpr int F32_NT = F32_WARPS * 32;
+constexpr int F32_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
-constexpr size_t f32_smem_bytes() {
-  return (size_t)(BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * (BK + 1)) *
-         sizeof(float);
+struct F32Geom {
+  static constexpr int CHUNKS = DH / 4;  // 16-byte chunks of a K/V row
+  static constexpr int TILE_FLOATS = BK * DH;
+  static constexpr int STAGE_FLOATS = 2 * TILE_FLOATS;  // K tile, V tile
+  // at Dh = 128 the q rows wait in shared memory (in registers beside the
+  // 64 output registers they spill)
+  static constexpr bool Q_SMEM = DH == 128;
+  static constexpr int SMEM =
+      (F32_STAGES * STAGE_FLOATS + (Q_SMEM ? BQ * DH : 0)) * 4;
+  // blocks an SM holds, bounding the registers a thread may take so that
+  // nothing spills (ops/encoder_attention.py K3F_MIN_BLOCKS mirrors this)
+  static constexpr int MIN_BLOCKS = DH == 128 ? 1 : (DH == 64 ? 2 : 3);
+};
+
+// chunk swizzle of K row `key`: the two rows a quarter-warp reads at once
+// land in opposite halves of the banks
+__device__ __forceinline__ int k_swz(int key) { return (key & 1) << 2; }
+
+// chunk swizzle of V row `key`: (key >> 1) & 3 is the reading thread's t4;
+// its two bits go to the chunk-index bits (mod 8) that the thread's g does
+// not use (bit log2(DH / 32))
+template <int DH>
+__device__ __forceinline__ int v_swz(int key) {
+  const int t = (key >> 1) & 3;
+  if constexpr (DH == 32) return t << 1;
+  else if constexpr (DH == 64) return (t & 1) | ((t & 2) << 1);
+  else return t;
+}
+
+// 2^x in one MUFU instruction (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits), lo the exact
+// remainder
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b in split TF32, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bh0, bh1);
 }
 
 template <int DH>
-__global__ void __launch_bounds__(F32_NT)
+__global__ void __launch_bounds__(F32_NT, F32Geom<DH>::MIN_BLOCKS)
 encoder_attention_f32_kernel(const float* __restrict__ qkv,
                              const int* __restrict__ valid_len,
-                             float* __restrict__ out, int H, int L,
+                             float* __restrict__ out, int H, int L, int nqt,
                              float scale) {
-  constexpr int QP = DH + 1;
-  constexpr int DJ = DH / 16;
-  constexpr int SP = BK + 1;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);  // [BQ][QP]
-  float* sK = sQ + BQ * QP;                        // [BK][QP]
-  float* sV = sK + BK * QP;                        // [BK][DH]
-  float* sP = sV + BK * DH;                        // [BQ][SP]
+  typedef F32Geom<DH> G;
+  constexpr int QC = DH / 16;  // 16-wide head-dim chunks of Q.K^T
+  constexpr int NJ = BK / 8;   // 8-key groups of a score tile
+  constexpr int NO = DH / 8;   // 8-column groups of the output
+  constexpr int VC = DH / 32;  // 16-byte V chunks a thread reads per row
+  extern __shared__ __align__(16) float smem_f[];
+  const uint32_t smem_s = smem_u32(smem_f);
 
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int pair = blockIdx.x / nqt, qt = blockIdx.x % nqt;
+  const int b = pair / H, h = pair % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
   const int d = H * DH;
   const size_t ld = (size_t)3 * d;
-  const float* qp = qkv + (size_t)b * L * ld + (size_t)h * DH;
-  const float* kp = qp + d;
-  const float* vp = qp + 2 * d;
+  const float* base = qkv + (size_t)b * L * ld + (size_t)h * DH;
   const int vl = valid_len[b];
-  const int nkeys = live_keys(vl, L);
+  const int nkt = (live_keys(vl, L) + BK - 1) / BK;
 
-  for (int e = tid; e < BQ * DH; e += F32_NT) {
-    const int r = e / DH, c = e % DH, gr = q0 + r;
-    sQ[r * QP + c] = gr < L ? qp[(size_t)gr * ld + c] * scale : 0.f;
-  }
-
-  float m_i[4], l_i[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = -INFINITY;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < nkeys; k0 += BK) {
-    __syncthreads();  // previous tile's readers of sK/sV/sP are done
-    for (int e = tid; e < BK * DH; e += F32_NT) {
-      const int r = e / DH, c = e % DH, gr = k0 + r;
-      const bool in = gr < L;
-      sK[r * QP + c] = in ? kp[(size_t)gr * ld + c] : 0.f;
-      sV[r * DH + c] = in ? vp[(size_t)gr * ld + c] : 0.f;
+  // K and V rows of key tile t into ring stage st; rows >= L are zeros
+  auto load_tile = [&](int t, int st) {
+    const uint32_t ks = smem_s + st * G::STAGE_FLOATS * 4;
+    const uint32_t vs = ks + G::TILE_FLOATS * 4;
+    for (int e = tid; e < BK * G::CHUNKS; e += F32_NT) {
+      const int r = e / G::CHUNKS, c = e % G::CHUNKS;
+      const int key = t * BK + r;
+      const bool in = key < L;
+      const float* src = base + (size_t)(in ? key : 0) * ld + 4 * c;
+      cp_async16(ks + (r * DH + 4 * (c ^ k_swz(r))) * 4, src + d,
+                 in ? 16 : 0);
+      cp_async16(vs + (r * DH + 4 * (c ^ v_swz<DH>(r))) * 4, src + 2 * d,
+                 in ? 16 : 0);
     }
-    __syncthreads();
+  };
+  load_tile(0, 0);
+  cp_async_commit();
 
-    float s[4][4];
+  // this warp's q rows row0 and row0 + 8, times the scale in f32: in
+  // registers, or at Dh = 128 in the warp's [16][DH] shared rows (chunks
+  // swizzled as K's)
+  const int row0 = qt * BQ + 16 * warp + g;
+  float4 q[G::Q_SMEM ? 1 : QC][2];
+  float* sq = smem_f + F32_STAGES * G::STAGE_FLOATS + warp * 16 * DH;
+  auto sq_at = [&](int r, int c) {
+    return reinterpret_cast<float4*>(sq + r * DH +
+                                     4 * ((4 * c + t4) ^ k_swz(r)));
+  };
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row0 + 8 * i < L;
+    const float* qp = base + (size_t)(in ? row0 + 8 * i : 0) * ld + 4 * t4;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DH; ++c) {
-      float qv[4], kv[4];
+    for (int c = 0; c < QC; ++c) {
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (in) v = *reinterpret_cast<const float4*>(qp + 16 * c);
+      v = make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+      if constexpr (G::Q_SMEM) *sq_at(g + 8 * i, c) = v;
+      else q[c][i] = v;
+    }
+  }
+  if constexpr (G::Q_SMEM) __syncwarp();
+
+  float o[NO][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty + 16 * i) * QP + c];
+  for (int jj = 0; jj < NO; ++jj)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * QP + c];
+    for (int e = 0; e < 4; ++e) o[jj][e] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY};  // running row maxima
+  float l_i[2] = {0.f, 0.f};              // per-thread partial row sums
+  // a sequence with valid_len 0 attends all L columns uniformly: its masked
+  // columns score 0 instead of -1e30 (the same softmax; the exp2 argument
+  // stays exact)
+  const float masked = vl > 0 ? MASKED : 0.f;
+
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile t is staged; every warp is done with tile t - 1
+    if (t + 1 < nkt) load_tile(t + 1, (t + 1) & 1);
+    cp_async_commit();
+    const float* ks = smem_f + (t & 1) * G::STAGE_FLOATS;
+    const float* vs = ks + G::TILE_FLOATS;
+
+    // S = Q . K^T; s[j][e]: row g + 8 (e >> 1), key 8 j + 2 t4 + (e & 1)
+    float s[NJ][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int c = 0; c < QC; ++c) {
+      uint32_t ah[2][4], al[2][4];
+      float4 q0, q1;
+      if constexpr (G::Q_SMEM) {
+        q0 = *sq_at(g, c);
+        q1 = *sq_at(g + 8, c);
+      } else {
+        q0 = q[c][0];
+        q1 = q[c][1];
+      }
+      const float qa[2][4] = {{q0.x, q1.x, q0.y, q1.y},
+                              {q0.z, q1.z, q0.w, q1.w}};
+#pragma unroll
+      for (int ksp = 0; ksp < 2; ++ksp)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          split_tf32(qa[ksp][e], ah[ksp][e], al[ksp][e]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int key = 8 * j + g;
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + key * DH + 4 * ((4 * c + t4) ^ k_swz(key)));
+        uint32_t bh[4], bl[4];
+        split_tf32(kv.x, bh[0], bl[0]);
+        split_tf32(kv.y, bh[1], bl[1]);
+        split_tf32(kv.z, bh[2], bl[2]);
+        split_tf32(kv.w, bh[3], bl[3]);
+        mma_3xtf32(s[j], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma_3xtf32(s[j], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      }
     }
 
+    // online softmax over the tile: -1e30 past valid_len, -inf past L
+    const int k0 = t * BK;
+    if (k0 + BK > vl || k0 + BK > L) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + 8 * j + 2 * t4 + (e & 1);
+          if (col >= vl) s[j][e] = masked;
+          if (col >= L) s[j][e] = -INFINITY;
+        }
+    }
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
       float mt = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        if (col >= vl) s[i][j] = MASKED;
-        if (col >= L) s[i][j] = -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+      for (int j = 0; j < NJ; ++j)
+        mt = fmaxf(mt, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
       // column k0 < L always, so m_new is finite from the first tile on
       const float m_new = fmaxf(m_i[i], mt);
-      const float alpha = expf(m_i[i] - m_new);
-      float ps = 0.f;
+      alpha[i] = ex2((m_i[i] - m_new) * LOG2E);  // 0 at the first tile
+      m_i[i] = m_new;
+      mb[i] = m_new * LOG2E;
+    }
+    float ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sP[(ty + 16 * i) * SP + tx + 16 * j] = p;
-        ps += p;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], LOG2E, -mb[e >> 1]));
+        ls[e >> 1] += s[j][e];
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_i[i] = l_i[i] * alpha + ps;
-      m_i[i] = m_new;
+    for (int i = 0; i < 2; ++i) l_i[i] = l_i[i] * alpha[i] + ls[i];
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
+    for (int jj = 0; jj < NO; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[jj][e] *= alpha[e >> 1];
 
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float pv[4];
+    // O += P . V; k-step j covers keys 8 j .. 8 j + 7, A column t4 being
+    // key 2 t4 and column t4 + 4 key 2 t4 + 1
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(ty + 16 * i) * SP + c];
+    for (int j = 0; j < NJ; ++j) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[j][0], ph[0], pl[0]);
+      split_tf32(s[j][2], ph[1], pl[1]);
+      split_tf32(s[j][1], ph[2], pl[2]);
+      split_tf32(s[j][3], ph[3], pl[3]);
+      const int key0 = 8 * j + 2 * t4;
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) {
-        const float vv = sV[c * DH + tx + 16 * jj];
+      for (int m = 0; m < VC; ++m) {
+        const float4 v0 = *reinterpret_cast<const float4*>(
+            vs + key0 * DH + 4 * ((g * VC + m) ^ v_swz<DH>(key0)));
+        const float4 v1 = *reinterpret_cast<const float4*>(
+            vs + (key0 + 1) * DH + 4 * ((g * VC + m) ^ v_swz<DH>(key0 + 1)));
+        const float b0[4] = {v0.x, v0.y, v0.z, v0.w};
+        const float b1[4] = {v1.x, v1.y, v1.z, v1.w};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][jj] = fmaf(pv[i], vv, acc[i][jj]);
+        for (int e = 0; e < 4; ++e) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(b0[e], bh0, bl0);
+          split_tf32(b1[e], bh1, bl1);
+          mma_3xtf32(o[4 * m + e], ph, pl, bh0, bh1, bl0, bl1);
+        }
       }
     }
   }
 
-  float* op = out + (size_t)b * L * d + (size_t)h * DH;
+  // o[jj][e]: row g + 8 (e >> 1), head-dim column (2 t4 + (e & 1)) NO + jj
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = q0 + ty + 16 * i;
-    if (gr < L) {
+  for (int i = 0; i < 2; ++i) {
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 1);
+    l_i[i] += __shfl_xor_sync(0xffffffffu, l_i[i], 2);
+    const int row = row0 + 8 * i;
+    if (row >= L) continue;
+    const float inv = 1.f / l_i[i];  // l >= 1: the row's max has p 1
+    float* op = out + ((size_t)b * L + row) * d + (size_t)h * DH;
 #pragma unroll
-      for (int jj = 0; jj < DJ; ++jj)
-        op[(size_t)gr * d + tx + 16 * jj] = acc[i][jj] / l_i[i];
-    }
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int m = 0; m < VC; ++m) {
+        const int e = 2 * i + p;
+        *reinterpret_cast<float4*>(op + (2 * t4 + p) * NO + 4 * m) =
+            make_float4(o[4 * m][e] * inv, o[4 * m + 1][e] * inv,
+                        o[4 * m + 2][e] * inv, o[4 * m + 3][e] * inv);
+      }
   }
 }
 
 template <int DH>
 int launch_f32(const void* qkv, const int* valid_len, void* out, int B, int H,
-               int L, float scale, cudaStream_t stream) {
-  const size_t smem = f32_smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(
-      encoder_attention_f32_kernel<DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  encoder_attention_f32_kernel<DH><<<grid, F32_NT, smem, stream>>>(
+               int L, float scale, int stages, int grid,
+               cudaStream_t stream) {
+  typedef F32Geom<DH> G;
+  const int nqt = (L + BQ - 1) / BQ;
+  // the launch plan (ops/encoder_attention.py) must describe this body
+  if (stages != F32_STAGES || (long long)grid != (long long)B * H * nqt)
+    return -1;
+  static bool attr_set = false;  // once per instantiation
+  if (!attr_set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        encoder_attention_f32_kernel<DH>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  encoder_attention_f32_kernel<DH><<<grid, F32_NT, G::SMEM, stream>>>(
       static_cast<const float*>(qkv), valid_len, static_cast<float*>(out), H,
-      L, scale);
+      L, nqt, scale);
   return (int)cudaGetLastError();
 }
 
@@ -237,7 +425,6 @@ constexpr int ITEM_WORDS = 8;    // b, h, first q-tile, live key tiles, vl,
                                  // first ring stage, unused
 constexpr int MAX_STAGES = 16;   // per-stage phases live in 32-bit masks
 constexpr int SMEM_LIMIT = 232448;
-constexpr float LOG2E = 1.4426950408889634f;
 
 // two floats -> one register of two bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -251,13 +438,6 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t x, float scale) {
   const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&x);
   const float2 f = __bfloat1622float2(v);
   return pack_bf16(f.x * scale, f.y * scale);
-}
-
-// 2^x in one MUFU instruction (denormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // the 128 threads of one warpgroup (named barrier id) meet
@@ -750,19 +930,19 @@ const char* kernel_error_string(int code) {
 }
 
 // qkv [B, L, 3*H*Dh] contiguous, valid_len [B] int32, out [B, L, H*Dh].
-// dtype: 0 = float32, 1 = bfloat16.  bfloat16 takes the launch plan of
+// dtype: 0 = float32, 1 = bfloat16.  Both take the launch plan of
 // ops/encoder_attention.py encoder_attention_geometry: consumer
 // warpgroups per block (1 or 2), ring stages, splits of a pair's rounds
-// and grid size; float32
-// ignores them.  Returns 0, a CUDA error code, or a negative code of
-// kernel_error_string.
+// and grid size (float32 reads only the stages and the grid, and refuses
+// a plan that does not describe its body).  Returns 0, a CUDA error code,
+// or a negative code of kernel_error_string.
 int encoder_attention(const void* qkv, const int* valid_len, void* out, int B,
                       int H, int L, int Dh, float scale, int dtype, int nwg,
                       int stages, int splits, int grid, void* stream) {
   if (B < 1 || B > 65535 || H < 1 || H > 65535 || L < 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ENC_F32(D) \
-  return launch_f32<D>(qkv, valid_len, out, B, H, L, scale, s)
+  return launch_f32<D>(qkv, valid_len, out, B, H, L, scale, stages, grid, s)
 #define ENC_WGMMA(D, W)                                                   \
   return launch_wgmma<D, W>(qkv, valid_len, out, B, H, L, scale, stages, \
                             splits, grid, s)

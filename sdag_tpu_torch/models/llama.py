@@ -14,6 +14,7 @@ package returns a new cache each step; in place saves a cache-sized copy).
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
@@ -128,15 +129,25 @@ def _llama3_scale_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
     return torch.where(is_medium, smoothed, scaled)
 
 
+@functools.lru_cache(maxsize=16)
+def rope_freqs(half: int, theta: float, rope_scaling,
+               device: torch.device) -> torch.Tensor:
+    """RoPE frequencies [half] f32, computed once per (geometry, device):
+    a decode step, captured in a CUDA graph, reads them and rebuilds
+    nothing."""
+    exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
+    freqs = 1.0 / (theta ** exps)
+    if rope_scaling is not None:
+        freqs = _llama3_scale_freqs(freqs, rope_scaling)
+    return freqs
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          rope_scaling=None) -> torch.Tensor:
     """Rotary embedding.  x: [B, H, L, Dh]; positions: [B, L]."""
     dh = x.shape[-1]
     half = dh // 2
-    exps = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / (theta ** exps)
-    if rope_scaling is not None:
-        freqs = _llama3_scale_freqs(freqs, rope_scaling)
+    freqs = rope_freqs(half, theta, rope_scaling, x.device)
     angles = positions[:, None, :, None].float() * freqs
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = x[..., :half], x[..., half:]
@@ -217,13 +228,16 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             with_cache: bool = True,
             positions: Optional[torch.Tensor] = None,
             logits_last_only: bool = False,
+            cache: Optional[Dict[str, torch.Tensor]] = None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-prompt forward.  input_ids: [B, L] right-padded.
 
     With doc metadata -> SDAG block-sparse prefill; without -> plain causal
     (doc_id all -1).  Returns (logits [B, L, V] f32, kv cache sized
     cache_size).  logits_last_only=True unembeds only position
-    valid_len-1 (logits [B, 1, V])."""
+    valid_len-1 (logits [B, 1, V]).  ``cache``: a ``make_kv_cache`` result
+    of at least L slots to write the prompt's K/V into (slots past L keep
+    what they held) instead of a fresh one."""
     B, L = input_ids.shape
     dev = input_ids.device
     cache_size = cache_size or L
@@ -243,13 +257,13 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     # computed once per prefill, shared by every layer
     mask_plan = prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len)
 
-    cache = (make_kv_cache(cfg, B, cache_size, device=dev)
-             if with_cache else None)
+    if cache is None and with_cache:
+        cache = make_kv_cache(cfg, B, cache_size, device=dev)
     for li, layer in enumerate(params["layers"]):
         x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
                                   nbr_bits, sys_user_len, valid_len,
                                   mask_plan=mask_plan)
-        if with_cache:
+        if cache is not None:
             cache["k"][li, :, :, :L] = k
             cache["v"][li, :, :, :L] = v
 
@@ -265,14 +279,18 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                 tokens: torch.Tensor,          # [B] current input token
                 positions: torch.Tensor,       # [B] true (RoPE) positions
                 cache: Dict[str, torch.Tensor],
-                write_index: int,              # cache slot to write
+                write_index,                   # cache slot to write
                 cache_mask: torch.Tensor,      # [B, S] valid cache slots
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: plain causal attention over all valid cache slots
     (reference decode semantics, no isolation after prefill).  Writes the
     step's K/V into ``cache`` in place; cache_mask must already include
-    the written slot.  Returns (logits [B, V] f32, cache)."""
+    the written slot.  ``write_index``: an int, or a one-element int64
+    tensor on the cache's device (a step captured in a CUDA graph reads
+    the slot from device memory).  Returns (logits [B, V] f32, cache)."""
     B = tokens.shape[0]
+    if not isinstance(write_index, torch.Tensor):
+        write_index = torch.tensor([write_index], device=tokens.device)
     x = params["embed"][tokens.long()].to(cfg.dtype)[:, None, :]  # B,1,d
     pos = positions[:, None]
     for li, layer in enumerate(params["layers"]):
@@ -280,8 +298,8 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
         q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
         q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
-        cache["k"][li, :, :, write_index] = k[:, :, 0]
-        cache["v"][li, :, :, write_index] = v[:, :, 0]
+        cache["k"][li].index_copy_(2, write_index, k)
+        cache["v"][li].index_copy_(2, write_index, v)
         attn_out = masked_decode_attention(q[:, :, 0, :], cache["k"][li],
                                            cache["v"][li], cache_mask)
         x = x + attn_out.reshape(B, 1, -1) @ layer["attn"]["wo"]

@@ -489,15 +489,31 @@ def masked_decode_attention(q, k_cache, v_cache, cache_mask):
 
     q: [B, H, Dh]; caches: [B, Hkv, S, Dh] with Hkv dividing H (GQA groups
     contract directly, the repeated kv is never materialized);
-    cache_mask: [B, S] marks valid slots.  Scores in f32, probabilities
-    cast to the cache dtype before the value product (as the JAX op)."""
+    cache_mask: [B, S] marks valid slots.  Scores in f32 (a bf16 cache is
+    contracted as it is, with f32 products out, as the JAX op's
+    preferred_element_type: on CUDA no f32 copy of the cache is made),
+    probabilities cast to the cache dtype before the value product (as
+    the JAX op).  No host value enters: a CUDA graph can capture it."""
     B, H, Dh = q.shape
-    hkv = k_cache.shape[1]
-    rep = H // hkv
-    qg = q.reshape(B, hkv, rep, Dh).float()
-    scores = (qg @ k_cache.float().transpose(-1, -2)) * Dh ** -0.5
-    scores = torch.where(cache_mask[:, None, None, :], scores,
-                         torch.tensor(DEFAULT_MASK_VALUE, device=q.device))
+    scores = decode_scores(q, k_cache)
+    scores = scores.masked_fill(~cache_mask[:, None, None, :],
+                                DEFAULT_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
     out = probs.to(v_cache.dtype) @ v_cache
     return out.reshape(B, H, Dh)
+
+
+def decode_scores(q, k_cache):
+    """Scaled f32 scores [B, Hkv, H / Hkv, S] of ``masked_decode_attention``
+    (same shapes): on CUDA a bf16 cache is contracted as it is with f32
+    out; elsewhere both operands go to f32 first."""
+    B, H, Dh = q.shape
+    hkv, S = k_cache.shape[1], k_cache.shape[2]
+    rep = H // hkv
+    qg = q.reshape(B * hkv, rep, Dh)
+    kt = k_cache.reshape(B * hkv, S, Dh).transpose(1, 2)
+    if q.device.type == "cuda" and k_cache.dtype != torch.float32:
+        scores = torch.bmm(qg, kt, out_dtype=torch.float32)
+    else:
+        scores = torch.bmm(qg.float(), kt.float())
+    return (scores * Dh ** -0.5).reshape(B, hkv, rep, S)

@@ -31,7 +31,7 @@ from sdag_tpu_torch import _build
 _NEG = -1e30
 K3_HEAD_DIMS = (32, 64, 128)
 _K3_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# launch-count key per kernel body (tensor-core bf16, CUDA-core f32)
+# launch-count key per kernel body (wgmma bf16, split-TF32 mma.sync f32)
 K3_BODIES = {torch.float32: "encoder_attention_f32",
              torch.bfloat16: "encoder_attention_bf16"}
 
@@ -80,11 +80,37 @@ def _k3_smem_bytes(dh: int, nwg: int, stages: int) -> int:
             + K3_Q_BUFS * K3_ITEM_WORDS * 4 + (2 * stages + 2 * K3_Q_BUFS) * 8)
 
 
+# launch plan of the f32 body (csrc/encoder_attention.cu
+# encoder_attention_f32_kernel; F32Geom there mirrors these)
+K3F_STAGES = 2             # cp.async K/V ring stages
+K3F_MIN_BLOCKS = {32: 3, 64: 2, 128: 1}   # the kernel's __launch_bounds__
+
+
+def _k3f_smem_bytes(dh: int) -> int:
+    """Two stages of a K and a V tile, and at Dh = 128 the block's q rows."""
+    return (K3F_STAGES * 2 + (dh == 128)) * K3_TILE * dh * 4
+
+
+def _f32_geometry(B: int, H: int, L: int, dh: int) -> dict:
+    """The f32 body's plan in the bf16 plan's terms: one block per unit,
+    unit u = p * q_tiles + qt (pair p = b * H + h, q-tile qt), so a pair's
+    q-tiles are neighbours in the grid."""
+    nqt = -(-L // K3_TILE)
+    smem = _k3f_smem_bytes(dh)
+    blocks_per_sm = min(K3F_MIN_BLOCKS[dh],
+                        K3_SM_SMEM // (smem + K3_BLOCK_RESERVED))
+    return {"nwg": 1, "stages": K3F_STAGES, "q_tiles": nqt, "rounds": nqt,
+            "pairs": B * H, "splits": nqt, "per_unit": 1,
+            "blocks_per_sm": blocks_per_sm, "grid": B * H * nqt,
+            "smem_bytes": smem}
+
+
 @functools.lru_cache(maxsize=256)
 def encoder_attention_geometry(B: int, H: int, L: int, dh: int,
-                               sms: int) -> dict:
-    """Launch plan of K3's bf16 body, a pure function of the shapes and the
-    SM count.
+                               sms: int, dtype: str = "bfloat16") -> dict:
+    """Launch plan of K3, a pure function of the shapes, the SM count and
+    the body ("bfloat16" or "float32"; the f32 plan is ``_f32_geometry``).
+    The bf16 body's:
 
     * ``nwg``: consumer warpgroups a block, one 64-row q-tile each per
       round: 2, or 1 when a sequence is a single q-tile (L <= 64), where
@@ -104,6 +130,8 @@ def encoder_attention_geometry(B: int, H: int, L: int, dh: int,
     * ``grid``: persistent blocks, at most ``blocks_per_sm`` on every SM;
       block x walks units x, x + grid, ....
     """
+    if dtype == "float32":
+        return _f32_geometry(B, H, L, dh)
     nqt = -(-L // K3_TILE)
     nwg = 1 if nqt == 1 else 2
     blocks_per_sm = K3_MIN_BLOCKS[(nwg, dh)]
@@ -176,10 +204,9 @@ def encoder_attention_cuda(qkv: torch.Tensor, valid_len: torch.Tensor,
         raise ValueError("encoder_attention_cuda: valid_len must be [B]")
     vl = valid_len.to(torch.int32).contiguous()
     out = torch.empty(B, L, d, dtype=qkv.dtype, device=qkv.device)
-    geom = {"nwg": 0, "stages": 0, "splits": 0, "grid": 0}
-    if qkv.dtype == torch.bfloat16:
-        geom = encoder_attention_geometry(B, n_heads, L, dh,
-                                          _build.sm_count(qkv.device))
+    geom = encoder_attention_geometry(B, n_heads, L, dh,
+                                      _build.sm_count(qkv.device),
+                                      str(qkv.dtype).split(".")[1])
     lib = _k3_lib()
     rc = lib.encoder_attention(
         ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(vl.data_ptr()),

@@ -2,8 +2,10 @@
 
 Counterpart of ``sdag_tpu/ops/sampling.py``: temperature 0 means greedy
 argmax (first maximum on ties, as jnp.argmax), otherwise softmax sampling
-after top-p truncation.  Draws come from a ``torch.Generator``; they follow
-the same distribution as the JAX sampler, not the same bits.
+after top-p truncation.  A draw inverts the categorical CDF at one uniform
+number per row, taken from a ``torch.Generator`` or handed in (a decode
+step captured in a CUDA graph reads uniforms drawn outside it); draws
+follow the same distribution as the JAX sampler, not the same bits.
 """
 
 from __future__ import annotations
@@ -56,30 +58,37 @@ def _nucleus_vals_idx(logits: torch.Tensor, top_p: float, nucleus_topk: int,
     return torch.where(keep, vals, torch.full_like(vals, float("-inf"))), idx
 
 
-def _categorical(generator: Optional[torch.Generator],
-                 logits: torch.Tensor) -> torch.Tensor:
-    """One draw per row of [..., V] unnormalized log-probabilities."""
+def _categorical(uniform: torch.Tensor, logits: torch.Tensor
+                 ) -> torch.Tensor:
+    """One draw per row of [..., V] unnormalized log-probabilities: the
+    first column whose cumulative probability exceeds the row's uniform
+    number in [0, 1) (zero-probability columns are never taken)."""
     flat = logits.reshape(-1, logits.shape[-1])
-    probs = torch.softmax(flat.float(), dim=-1)
-    draw = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    return draw.reshape(logits.shape[:-1])
+    cdf = torch.cumsum(torch.softmax(flat.float(), dim=-1), dim=-1)
+    target = uniform.reshape(-1, 1).to(cdf.dtype) * cdf[:, -1:]
+    draw = torch.searchsorted(cdf, target, right=True)[:, 0]
+    return draw.clamp(max=flat.shape[-1] - 1).reshape(logits.shape[:-1])
 
 
 def sample_tokens(generator: Optional[torch.Generator],
                   logits: torch.Tensor, temperature: float = 0.0,
-                  top_p: float = 1.0, nucleus_topk: int = 64
-                  ) -> torch.Tensor:
+                  top_p: float = 1.0, nucleus_topk: int = 64,
+                  uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sample next tokens from [..., V] logits.  temperature <= 0 -> greedy.
 
     top_p < 1 ranks only the ``nucleus_topk`` highest logits (identical to
-    the exact filter whenever the nucleus fits in them)."""
+    the exact filter whenever the nucleus fits in them).  ``uniform``:
+    one number in [0, 1) per row (drawn from ``generator`` when None)."""
     if temperature <= 0.0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
+    if uniform is None:
+        uniform = torch.rand(logits.shape[:-1], generator=generator,
+                             device=logits.device)
     logits = logits / temperature
     if top_p >= 1.0:
-        return _categorical(generator, logits).to(torch.int32)
+        return _categorical(uniform, logits).to(torch.int32)
     kk = min(nucleus_topk, logits.shape[-1])
     vals, idx = _nucleus_vals_idx(logits, top_p, kk,
                                   presorted=_ordered_topk(logits, kk))
-    choice = _categorical(generator, vals)
+    choice = _categorical(uniform, vals)
     return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)

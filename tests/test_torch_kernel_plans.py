@@ -1,9 +1,9 @@
 """Launch geometry and work plans of the port's kernels, on the CPU: the
 pure functions that decide what the CUDA kernels K1 (both bodies), K2, K3
-(bf16 body), K4 (both bodies) and K5 are launched with, held against their
-own invariants and, where the JAX package has the same function, against
-it; K2's and K3's arithmetic simulated over their plans against the JAX
-kernels in interpret mode."""
+(both bodies), K4 (both bodies) and K5 are launched with, held against
+their own invariants and, where the JAX package has the same function,
+against it; K2's and both K3 bodies' arithmetic simulated over their
+plans against the JAX kernels in interpret mode."""
 
 import collections
 
@@ -461,6 +461,149 @@ def test_k3_bf16_tile_arithmetic_matches_pallas_interpret(H, Dh, L, vl):
     plain = tea.encoder_attention_qkv_reference(
         qkv_b, torch.from_numpy(vl_np), H).float()
     assert (got - plain).abs().max() <= 2e-2
+
+
+@pytest.mark.parametrize("B,H,L,dh", K3_SHAPES)
+def test_k3_f32_geometry_covers_every_q_tile_once(B, H, L, dh):
+    """K3's f32 body: one block per (b, h, q-tile), each computed exactly
+    once, a pair's q-tiles neighbours in the grid, and the block's two K/V
+    stages within shared memory as many times as it claims an SM."""
+    g = tea.encoder_attention_geometry(B, H, L, dh, 132, "float32")
+    assert g["smem_bytes"] == tea._k3f_smem_bytes(dh) <= SMEM_LIMIT
+    assert g["stages"] == tea.K3F_STAGES == 2
+    assert 1 <= g["blocks_per_sm"] <= tea.K3F_MIN_BLOCKS[dh]
+    assert g["blocks_per_sm"] * (g["smem_bytes"] + 1024) <= 233472
+    nqt = -(-L // 64)
+    assert g["grid"] == B * H * nqt
+    seen = collections.Counter()
+    for blk in range(g["grid"]):
+        work = list(tea.encoder_attention_work(g, H, blk))
+        assert len(work) == 1
+        b, h, qt, w = work[0]
+        assert w == 0 and blk == (b * H + h) * nqt + qt
+        seen[(b, h, qt)] += 1
+    assert set(seen) == {(b, h, qt) for b in range(B) for h in range(H)
+                         for qt in range(nqt)}
+    assert set(seen.values()) == {1}
+
+
+def test_k3_f32_smem_bytes_by_hand():
+    """Two stages of a 64 x Dh float32 K tile and V tile, and at Dh 128 the
+    64 q rows; blocks an SM by the kernel's launch bounds."""
+    for dh, nbytes, blocks in ((32, 32768, 3), (64, 65536, 2),
+                               (128, 163840, 1)):
+        g = tea.encoder_attention_geometry(64, 16, 256, dh, 132, "float32")
+        assert (g["smem_bytes"], g["blocks_per_sm"]) == (nbytes, blocks)
+    # the bf16 plan is the default body's
+    assert tea.encoder_attention_geometry(64, 16, 256, 64, 132) == \
+        tea.encoder_attention_geometry(64, 16, 256, 64, 132, "bfloat16")
+
+
+def _tf32_hi(x):
+    """x rounded to TF32 as the kernel's split does: (bits + 0x1000) with
+    the low 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor core reads of an f32 register: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the f32 body's mma.sync sequence computes it: each operand
+    split into hi (TF32-rounded) and lo (the exact remainder, truncated to
+    TF32 by the tensor core), hi.lo + lo.hi + hi.hi accumulated in f32.
+    The TF32 products are exact in f32."""
+    ah, bh = _tf32_hi(a), _tf32_hi(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return (ah @ bl + al @ bh) + ah @ bh
+
+
+def _mm_tf32(a, b):
+    """a @ b in plain TF32 (operands truncated by the tensor core)."""
+    return _tf32_trunc(a) @ _tf32_trunc(b)
+
+
+def _k3_f32_tiles_simulated(qkv, vl, H, mm=_mm_3xtf32):
+    """K3's f32 arithmetic tile by tile over the f32 launch plan: q * scale
+    in f32, both products through ``mm`` (split TF32 in the kernel), the
+    online softmax as exp2(s log2 e - m log2 e) per 64-key tile, -1e30
+    past valid_len on the edge tile (0 when valid_len is 0), -inf past L,
+    key tiles past valid_len skipped, the output times the row sum's
+    reciprocal last."""
+    B, L, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // H
+    log2e = 1.4426950408889634
+    x = qkv.float()
+    out = torch.full((B, L, d), float("nan"))
+    g = tea.encoder_attention_geometry(B, H, L, dh, 132, "float32")
+    for blk in range(g["grid"]):
+        for b, h, qt, _ in tea.encoder_attention_work(g, H, blk):
+            q = x[b, qt * 64:(qt + 1) * 64, h * dh:(h + 1) * dh] \
+                * torch.tensor(dh ** -0.5, dtype=torch.float32)
+            v_len = int(vl[b])
+            live = min(v_len, L) if v_len > 0 else L
+            m = torch.full((q.shape[0],), float("-inf"))
+            lsum = torch.zeros(q.shape[0])
+            o = torch.zeros(q.shape[0], dh)
+            for t in range(-(-live // 64)):
+                rows = slice(t * 64, min((t + 1) * 64, L))
+                k = x[b, rows, d + h * dh:d + (h + 1) * dh]
+                v = x[b, rows, 2 * d + h * dh:2 * d + (h + 1) * dh]
+                s = mm(q, k.T)
+                col = torch.arange(rows.start, rows.stop)
+                s = torch.where(col[None] >= v_len,
+                                -1e30 if v_len > 0 else 0.0, s)
+                m_new = torch.maximum(m, s.max(1).values)
+                alpha = torch.exp2((m - m_new) * log2e)
+                p = torch.exp2(s * log2e - (m_new * log2e)[:, None])
+                lsum = lsum * alpha + p.sum(1)
+                o = o * alpha[:, None] + mm(p, v)
+                m = m_new
+            out[b, qt * 64:qt * 64 + q.shape[0], h * dh:(h + 1) * dh] = \
+                o * (1.0 / lsum)[:, None]
+    return out
+
+
+def _k3_f32_errors(got, ref, B, L, H, Dh):
+    diff = np.abs(got - ref).reshape(B, L, H, Dh)
+    rms = np.sqrt((ref.reshape(B, L, H, Dh) ** 2).mean(-1))
+    return diff.max(), (diff.max(-1) / np.maximum(rms, 1e-30)).max()
+
+
+@pytest.mark.parametrize("H,Dh,L,vl", [
+    (4, 32, 64, [64, 1, 0, 37]),
+    (2, 64, 200, [200, 64, 0, 1, 130]),
+    (16, 64, 128, [128, 77]),
+    (2, 128, 72, [72, 65, 0]),
+])
+def test_k3_f32_split_tf32_arithmetic_matches_pallas_interpret(H, Dh, L, vl):
+    """The f32 body's split-TF32 arithmetic, simulated over its launch
+    plan, against the JAX kernel in interpret mode on the same f32 inputs:
+    within the limits chip_smoke.py holds the CUDA kernel to (1e-4
+    absolute, 1e-3 of a row's RMS); every output element is written.
+    Plain TF32 through the same tiles misses those limits, so they tell
+    the split from a single TF32 product."""
+    B = len(vl)
+    rng = np.random.default_rng(B * L + Dh)
+    qkv = rng.standard_normal((B, L, 3 * H * Dh)).astype(np.float32)
+    vl_np = np.asarray(vl, np.int32)
+    ref = np.asarray(jea.encoder_attention_fused_qkv(
+        jnp.asarray(qkv), jnp.asarray(vl_np), n_heads=H, interpret=True))
+    got = _k3_f32_tiles_simulated(torch.from_numpy(qkv), vl_np, H)
+    assert torch.isfinite(got).all()
+    err, row_err = _k3_f32_errors(got.numpy(), ref, B, L, H, Dh)
+    assert err <= 1e-4 and row_err <= 1e-3, (err, row_err)
+    plain = tea.encoder_attention_qkv_reference(
+        torch.from_numpy(qkv), torch.from_numpy(vl_np), H)
+    assert (got - plain).abs().max() <= 1e-4
+    one = _k3_f32_tiles_simulated(torch.from_numpy(qkv), vl_np, H,
+                                  mm=_mm_tf32).numpy()
+    err1, row_err1 = _k3_f32_errors(one, ref, B, L, H, Dh)
+    assert err1 > 1e-4 or row_err1 > 1e-3, (err1, row_err1)
 
 
 def test_k3_cuda_wrapper_rejects_cpu_tensors():
