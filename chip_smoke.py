@@ -6,8 +6,9 @@
 Phase 0  print the card (nvidia-smi name, power limit); build the kernels
          with nvcc, one process per source, all at once: K1
          (csrc/sdag_prefill.cu), K2 (csrc/bm25_scan_topk.cu), K3
-         (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu); print
-         ptxas' registers and spill bytes per kernel body.
+         (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu), K6
+         (csrc/int8_matmul.cu); print ptxas' registers and spill bytes per
+         kernel body.
 Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          the card: the L=4096 20-doc 2-NN layout, the same tensors fully
          causal, L=16384 with 31 docs, a Dh=32 f32 case with holes, 40 docs
@@ -96,6 +97,29 @@ Phase 7  the ranker path at full width through run_experiment, counts
          the phase-7 corpus through E5Encoder: K3's f32 body launched
          layers x batches, the first batch's embeddings within 1e-4 of
          the unfused plain attention's.
+
+Phase 8  int8 weights, the int8 KV cache and speculative decoding: (a) K6
+         against int8_matmul_reference at every weight product of the 8B
+         decode step (M = 8, a step's batch, and M = 40, a verification
+         window of 8 x 5) in bf16 and of qa_ckpt's (d 192, tied unembed)
+         in f32: each row's max abs error <= 1e-2 (bf16) / 1e-5 (f32) of
+         its max |y|; one output column's scale doubled and one 64-wide
+         `in` chunk skipped must fail that check; device times of K6, the
+         plain version and the bf16 (f32) torch.matmul it replaces
+         (torch._weight_int8pack_mm beside it where this torch has it for
+         CUDA), summed over a step's products; (b) run_experiment on the
+         8B path with LLM_WEIGHTS_DTYPE and KV_CACHE_DTYPE int8 and
+         SPECULATIVE_DRAFT_LEN=4, 36 queries, 32 new tokens, counts
+         zeroed before: K1, K2 and K6's bf16 body launched; decode tok/s,
+         ms a round, rounds, accepted drafts a round, captures, peak
+         memory, busy share of a profiled window; (c) on one NO-ISO batch
+         and that int8 tree and cache: graph equals eager, greedy and
+         sampled, for plain decode and for speculative rounds, and greedy
+         speculative tokens equal greedy plain tokens; (d) decode tok/s of
+         one 8 x 32 batch in native, int8-weight, + int8 cache and +
+         speculation configurations; (e) qa_ckpt with int8 weights and
+         speculation (K6's f32 body): clean ACC iso >= 0.5, accepted
+         drafts a round.
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -734,7 +758,7 @@ def phase4(dev):
         raise AssertionError("phase 4: decode captured no CUDA graph")
     rec["profile"] = _profile_window(res.generator, dev)
     log(f"[phase4] profile {json.dumps(rec['profile'])}")
-    rec["graph_vs_eager"] = _decode_graph_vs_eager(res.generator, dev)
+    rec["graph_vs_eager"], _ = _decode_graph_vs_eager(res.generator, dev)
     log(f"[phase4] graph vs eager {json.dumps(rec['graph_vs_eager'])}")
     rec["decode_attention"] = _decode_attention_check(res.generator.cfg,
                                                       dev)
@@ -789,15 +813,10 @@ def _decode_attention_check(cfg, dev, batch=8, slots=672):
     return rec
 
 
-def _decode_graph_vs_eager(gen, dev, new_tokens=32):
-    """One NO-ISO batch of the main path decoded through the captured
-    graphs and through the same steps run eagerly: greedy tokens and
-    lengths equal; then sampled at the Config's TEMPERATURE and TOP_P by
-    two generators seeded alike, one on graphs, one eager: equal too."""
+def _no_iso_batch(gen, dev):
+    """The main path's 8 NO-ISO prompts as _generate's device arguments."""
     import numpy as np
     import torch
-    from sdag_tpu_torch.config import Config
-    from sdag_tpu_torch.sdag.generate import Generator
     _plans, plain = _main_path_prompts(gen.batch_bucket or 8)
     lp = gen._pad_len(max(len(x) for x in plain))
     b = len(plain)
@@ -805,25 +824,40 @@ def _decode_graph_vs_eager(gen, dev, new_tokens=32):
     for i, x in enumerate(plain):
         ids[i, :len(x)] = x
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-    args = (t(ids), t(np.full((b, lp), -1, np.int32)),
+    return (t(ids), t(np.full((b, lp), -1, np.int32)),
             t(np.zeros((b, lp), np.int32)), t(np.zeros(b, np.int32)),
             t(np.asarray([len(x) for x in plain], np.int32)))
+
+
+def _decode_graph_vs_eager(gen, dev, new_tokens=32, tag="phase 4", **kw):
+    """One NO-ISO batch of the main path decoded through the captured
+    graphs and through the same steps run eagerly: greedy tokens and
+    lengths equal; then sampled at the Config's TEMPERATURE and TOP_P by
+    two generators seeded alike, one on graphs, one eager: equal too.
+    ``kw``: the Generator settings of the sampled engines (int8 cache,
+    speculation), ``gen``'s own for the greedy one.  Returns the record
+    and the greedy tokens and lengths."""
+    import torch
+    from sdag_tpu_torch.config import Config
+    from sdag_tpu_torch.sdag.generate import Generator
+    args = _no_iso_batch(gen, dev)
     cfg = Config()
-    rec = {"batch": b, "new_tokens": new_tokens,
+    rec = {"batch": int(args[0].shape[0]), "new_tokens": new_tokens,
            "temperature": cfg.TEMPERATURE, "top_p": cfg.TOP_P}
+    greedy = None
     for name, engine in (
             ("greedy", lambda: gen),
             ("sampled", lambda: Generator(
                 gen.params, gen.cfg, gen.tokenizer,
                 temperature=cfg.TEMPERATURE, top_p=cfg.TOP_P, seed=1234,
-                batch_bucket=gen.batch_bucket, device=dev))):
+                batch_bucket=gen.batch_bucket, device=dev, **kw))):
         runs = {}
         for graphs in (True, False):
             eng = engine()
             out, lengths = eng._generate(*args, new_tokens, graphs=graphs)
             runs[graphs] = (out.cpu(), lengths.cpu())
             if graphs and not eng._live[next(reversed(eng._live))].graphs:
-                raise AssertionError(f"phase 4 {name}: no graph replayed")
+                raise AssertionError(f"{tag} {name}: no graph replayed")
         equal = torch.equal(runs[True][0], runs[False][0]) and \
             torch.equal(runs[True][1], runs[False][1])
         rec[name] = {"equal": equal,
@@ -831,11 +865,13 @@ def _decode_graph_vs_eager(gen, dev, new_tokens=32):
                      "tokens_differing": int((runs[True][0]
                                               != runs[False][0]).sum())}
         if not equal:
-            raise AssertionError(f"phase 4: {name} tokens of the captured "
+            raise AssertionError(f"{tag}: {name} tokens of the captured "
                                  f"graphs differ from the eager steps: "
                                  f"{rec[name]}")
+        if name == "greedy":
+            greedy = runs[True]
     torch.cuda.empty_cache()
-    return rec
+    return rec, greedy
 
 
 def _profile_window(gen, dev, new_tokens=16):
@@ -1496,6 +1532,376 @@ def _f32_encode(dev, batch=32):
     return rec
 
 
+# ---------------------------------------------------------------- phase 8
+# K6 limits: each row's max abs error over the row's max |y|
+K6_F32_TOL, K6_BF16_TOL = 1e-5, 1e-2
+
+
+def device_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed after a warm-up (the wrapper's host work left
+    out, as on the decode path, which replays captured graphs)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def k6_products(cfg):
+    """One decode step's weight products of a decoder config: (name,
+    out N, in K, count a step); the unembed once a step."""
+    d, hd, ff = cfg.d_model, cfg.head_dim, cfg.d_ff
+    L = cfg.n_layers
+    prods = [("wq", cfg.n_heads * hd, d, L), ("wk", cfg.n_kv_heads * hd, d, L),
+             ("wv", cfg.n_kv_heads * hd, d, L), ("wo", d, cfg.n_heads * hd, L),
+             ("gate", ff, d, L), ("up", ff, d, L), ("down", d, ff, L),
+             ("tied_unembed" if cfg.tie_embeddings else "lm_head",
+              cfg.vocab_size, d, 1)]
+    shapes = {}
+    for name, n, k, count in prods:
+        key = (n, k)
+        if key in shapes:
+            shapes[key][0].append(name)
+            shapes[key][1] += count
+        else:
+            shapes[key] = [[name], count]
+    return [("+".join(names), n, k, count)
+            for (n, k), (names, count) in shapes.items()]
+
+
+def _k6_row_errors(y, ref):
+    """(max abs error, max over rows of the row's max abs error over its
+    max |ref|)."""
+    d = (y.float() - ref.float()).abs()
+    row = d.amax(-1) / ref.float().abs().amax(-1).clamp_min(1e-30)
+    return float(d.max()), float(row.max())
+
+
+def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
+    """K6 against int8_matmul_reference at one shape (random int8 weights,
+    scales ~ the int8 tree's); optionally the two planted faults (one
+    output column's scale doubled, one 64-wide `in` chunk skipped) must
+    fail the limit.  Times K6, the plain version and the bf16 (f32)
+    torch.matmul that K6 replaces as device time a call."""
+    import torch
+    from sdag_tpu_torch.ops import int8_matmul as Q
+    tol = K6_F32_TOL if dtype == torch.float32 else K6_BF16_TOL
+    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+    w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    s = (torch.rand(N, generator=g, device=dev) * 2e-3 + 1e-4)
+    y = Q.int8_matmul_cuda(x, w, s)
+    ref = Q.int8_matmul_reference(x, w, s)
+    torch.cuda.synchronize(dev)
+    err, row_err = _k6_row_errors(y, ref)
+    esize = torch.finfo(dtype).bits // 8
+    nbytes = N * K + 4 * N + esize * (M * K + M * N)
+    ops = 2.0 * M * N * K
+    peak = PEAK_FLOPS["bfloat16" if dtype == torch.bfloat16 else "float32"]
+    bt, ot = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
+           "M": M, "N": N, "K": K, "max_abs_err": err, "row_rel_err": row_err,
+           "tol": tol, "bound_ms": max(bt, ot),
+           "bound_by": "bytes" if bt >= ot else "operations",
+           "plan": Q.k6_plan(N, K, torch.cuda.get_device_properties(
+               dev).multi_processor_count)}
+    if plant:
+        col, k0 = N // 3, (K // 2) // 64 * 64
+        s2 = s.clone()
+        s2[col] *= 2
+        w2 = w.clone()
+        w2[:, k0:k0 + 64] = 0
+        faults = {}
+        for fault, (ww, ss) in (("scale_doubled", (w, s2)),
+                                ("chunk_skipped", (w2, s))):
+            faults[fault] = _k6_row_errors(Q.int8_matmul_cuda(x, ww, ss),
+                                           ref)[1]
+        rec["planted_row_rel_err"] = faults
+        if not all(v > tol for v in faults.values()):
+            raise AssertionError(f"phase 8 {name}: a planted fault passed "
+                                 f"the check: {faults}")
+    if timed:
+        wl = w.to(dtype)
+        rec["ms"] = device_ms(lambda: Q.int8_matmul_cuda(x, w, s))
+        rec["event_ms"] = cuda_ms(lambda: Q.int8_matmul_cuda(x, w, s),
+                                  iters=20)
+        rec["plain_ms"] = device_ms(lambda: Q.int8_matmul_reference(x, w, s),
+                                    calls=3, replays=3)
+        rec["library_ms"] = device_ms(lambda: x @ wl.T)
+        rec["int8pack_ms"] = None
+        if dtype == torch.bfloat16 and hasattr(torch, "_weight_int8pack_mm"):
+            try:
+                sb = s.to(dtype)
+                torch._weight_int8pack_mm(x, w, sb)
+                rec["int8pack_ms"] = device_ms(
+                    lambda: torch._weight_int8pack_mm(x, w, sb))
+            except (RuntimeError, NotImplementedError) as exc:
+                rec["int8pack_error"] = str(exc).splitlines()[0][:120]
+        del wl
+    log(f"[phase8] K6 {json.dumps(rec)}")
+    if not row_err <= tol:
+        raise AssertionError(f"phase 8 {name}: K6 differs from its plain "
+                             f"version: {rec}")
+    return rec
+
+
+def _k6_step(recs, cfg, M, dtype):
+    """A decode step's (or window round's) K6 work at M rows: the sums of
+    the cases' times and bounds, each weighted by its count a step."""
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    tot = {k: 0.0 for k in keys}
+    by = {(r["N"], r["K"], r["M"], r["dtype"]): r for r in recs}
+    bytes_ms = ops_ms = 0.0
+    for _name, n, k, count in k6_products(cfg):
+        r = by[(n, k, M, dtype)]
+        for key in keys:
+            tot[key] += count * r[key]
+        if r["bound_by"] == "bytes":
+            bytes_ms += count * r["bound_ms"]
+        else:
+            ops_ms += count * r["bound_ms"]
+    tot["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    tot["M"] = M
+    return tot
+
+
+def _k6_cases(dev):
+    """(a) K6 at every decode product shape of the 8B step (M = 8, a
+    step's batch, and M = 40, a window of batch 8 x (D + 1) = 5) in bf16,
+    and of qa_ckpt's (d 192, d_ff 512, tied unembed 512 x 192) in f32; the
+    planted faults at one shape of each body."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.models.native_ckpt import load_config
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    recs = []
+    for cfg, dtype in ((DecoderConfig.llama3_8b(), torch.bfloat16),
+                       (load_config(os.path.join(REPO, "experiments", "data",
+                                                 "qa_ckpt")), torch.float32)):
+        for M in (8, 40):
+            for i, (name, n, k, _count) in enumerate(k6_products(cfg)):
+                recs.append(_k6_case(f"{name}_M{M}", M, n, k, dtype, g, dev,
+                                     plant=(M == 8 and i == 0)))
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _spec_stats(gen):
+    rr = gen.spec_total_row_rounds
+    return {"rounds": gen.spec_total_rounds, "row_rounds": rr,
+            "tokens": gen.spec_total_tokens,
+            "accepted_drafts_per_round":
+                gen.spec_total_tokens / rr - 1.0 if rr else None}
+
+
+def _p8_main_path(dev):
+    """(b) the 8B path through run_experiment with int8 weights, the int8
+    cache and SPECULATIVE_DRAFT_LEN=4; launch counts zeroed before, K1, K2
+    and K6's bf16 body must have launched."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    tmp = os.path.join(OUT_DIR, "chip_smoke_phase8")
+    cfg, facts = _synth_cfg(tmp, world, world.eval_entities[:6], 1,
+                            world.seed + 3, 1, LLM_ARCH="llama3-8b",
+                            MAX_GEN_TOKENS_RAG=32, BM25_ENGINE="scan",
+                            LLM_WEIGHTS_DTYPE="int8", KV_CACHE_DTYPE="int8",
+                            SPECULATIVE_DRAFT_LEN=4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = init_resources(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    t_init = time.perf_counter() - t0
+    metrics = run_experiment(cfg, resources=res, device=dev)
+    torch.cuda.synchronize(dev)
+    t_run = time.perf_counter() - t0 - t_init
+    launches = dict(LAUNCHES)
+    gen = res.generator
+    st = gen.stats
+    base = cfg.OUTPUT_CSV_BASE + "_top_k=5_attacker_pos=1"
+    rec = {"queries": len(facts), "launches": launches,
+           "init_s": t_init, "run_s": t_run,
+           "outputs_written": all(os.path.isfile(base + ext)
+                                  for ext in (".csv", ".json")),
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "rounds_run": st["decode_steps"],
+           "ms_per_round": 1e3 * st["decode_s"] / st["decode_steps"],
+           "graph_captures": st["graph_captures"],
+           "capture_s": st["capture_s"], "spec": _spec_stats(gen),
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "acc_iso": metrics[(5, 1)]["answer_match_stats"]["iso"][
+               "ground_truth_match_rate"]}
+    need_k1 = gen.cfg.n_layers * 2 * math.ceil(len(facts) / 8)
+    if launches.get("sdag_prefill_bf16", 0) < need_k1:
+        raise AssertionError(f"phase 8: K1 launched {launches} < {need_k1}")
+    for key in ("bm25_scan_topk", "int8_matmul_bf16"):
+        if not launches.get(key, 0):
+            raise AssertionError(f"phase 8: {key} never launched: {rec}")
+    if not rec["outputs_written"] or st["graph_captures"] < 1:
+        raise AssertionError(f"phase 8: outputs or graph captures "
+                             f"missing: {rec}")
+    rec["profile"] = _profile_window(gen, dev)
+    log(f"[phase8] main path {json.dumps(rec)}")
+    return rec, res
+
+
+def _p8_equality(gen, dev):
+    """(c) one NO-ISO batch on the 8B int8 tree and int8 cache: graph
+    equals eager, greedy and sampled, for plain decode and speculative
+    rounds; greedy speculative tokens equal greedy plain tokens."""
+    import torch
+    from sdag_tpu_torch.sdag.generate import Generator
+    rec = {}
+    greedy = {}
+    for name, draft in (("plain", 0), ("spec4", 4)):
+        eng = Generator(gen.params, gen.cfg, gen.tokenizer, temperature=0.0,
+                        batch_bucket=8, kv_cache_dtype="int8",
+                        speculative_draft=draft, device=dev)
+        rec[name], greedy[name] = _decode_graph_vs_eager(
+            eng, dev, tag=f"phase 8 {name}", kv_cache_dtype="int8",
+            speculative_draft=draft)
+    same = torch.equal(greedy["plain"][0], greedy["spec4"][0]) and \
+        torch.equal(greedy["plain"][1], greedy["spec4"][1])
+    rec["spec_equals_plain"] = {
+        "equal": same, "tokens_differing": int(
+            (greedy["plain"][0] != greedy["spec4"][0]).sum())}
+    log(f"[phase8] equality {json.dumps(rec)}")
+    if not same:
+        raise AssertionError(f"phase 8: greedy speculative tokens differ "
+                             f"from plain decode's: {rec}")
+    return rec
+
+
+def decode_configs(dev, new_tokens=32, reps=2):
+    """(d) one batch of the 8 main-path NO-ISO prompts at 8B (random bf16
+    weights from a seed), 32 new tokens, greedy, in four configurations:
+    native, int8 weights, int8 weights + int8 cache, and + speculation
+    (D = 4); decode tok/s and ms a step (round) after a warm-up call."""
+    import torch
+    from sdag_tpu_torch.models.llama import (DecoderConfig,
+                                             init_decoder_params,
+                                             quantize_decoder_params_int8)
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = init_decoder_params(g, cfg, device=dev)
+    qparams = quantize_decoder_params_int8(params)
+    _plans, plain = _main_path_prompts(8)
+    recs = {}
+    for name, p, kw in (("native", params, {}),
+                        ("int8_weights", qparams, {}),
+                        ("int8_weights_int8_kv", qparams,
+                         {"kv_cache_dtype": "int8"}),
+                        ("int8_weights_int8_kv_spec4", qparams,
+                         {"kv_cache_dtype": "int8", "speculative_draft": 4})):
+        gen = Generator(p, cfg, load_tokenizer(""), temperature=0.0,
+                        batch_bucket=8, device=dev, **kw)
+        gen.generate_ids(plain, max_new_tokens=new_tokens)      # captures
+        torch.cuda.synchronize(dev)
+        gen.stats.update(decode_tokens=0, decode_s=0.0, decode_steps=0)
+        for _ in range(reps):
+            gen.generate_ids(plain, max_new_tokens=new_tokens)
+        st = gen.stats
+        recs[name] = {"tok_s": st["decode_tokens"] / st["decode_s"],
+                      "ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
+                      "steps": st["decode_steps"],
+                      "tokens": st["decode_tokens"]}
+        if kw.get("speculative_draft"):
+            recs[name]["spec"] = _spec_stats(gen)
+        del gen
+        torch.cuda.empty_cache()
+    del params, qparams
+    torch.cuda.empty_cache()
+    log(f"[phase8] decode configurations {json.dumps(recs)}")
+    return recs
+
+
+def _p8_qa_ckpt(dev):
+    """(e) the trained qa_ckpt through run_experiment with int8 weights and
+    SPECULATIVE_DRAFT_LEN=4 (K6's f32 body): clean ACC iso >= 0.5, K6-f32
+    and K1 launched; mean accepted drafts a round."""
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    cfg, facts = _synth_cfg(os.path.join(OUT_DIR, "chip_smoke_phase8",
+                                         "qa_ckpt"), world,
+                            world.eval_entities[:4], 1, world.seed + 1, 0,
+                            LLM_CHECKPOINT=ckpt, LLM_WEIGHTS_DTYPE="int8",
+                            SPECULATIVE_DRAFT_LEN=4)
+    LAUNCHES.clear()
+    res = init_resources(cfg, device=dev)
+    m = run_experiment(cfg, resources=res, device=dev)[(5, 0)][
+        "answer_match_stats"]
+    rec = {"queries": len(facts), "launches": dict(LAUNCHES),
+           "acc_iso": m["iso"]["ground_truth_match_rate"],
+           "acc_noiso": m["no_iso"]["ground_truth_match_rate"],
+           "spec": _spec_stats(res.generator)}
+    log(f"[phase8] qa_ckpt int8 + speculation {json.dumps(rec)}")
+    if not rec["acc_iso"] >= 0.5:
+        raise AssertionError(f"phase 8: qa_ckpt int8 ACC iso below 0.5: "
+                             f"{rec}")
+    if not (LAUNCHES["int8_matmul_f32"] and LAUNCHES["sdag_prefill_f32"]):
+        raise AssertionError(f"phase 8: a qa_ckpt kernel never launched: "
+                             f"{rec}")
+    return rec
+
+
+def phase8(dev):
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.models.native_ckpt import load_config
+    torch.cuda.empty_cache()
+    recs = {"k6": _k6_cases(dev)}
+    recs["k6_step_8b"] = {
+        f"M{M}": _k6_step(recs["k6"], DecoderConfig.llama3_8b(), M,
+                          "bfloat16") for M in (8, 40)}
+    qa_cfg = load_config(os.path.join(REPO, "experiments", "data",
+                                      "qa_ckpt"))
+    recs["k6_step_qa_ckpt"] = {
+        f"M{M}": _k6_step(recs["k6"], qa_cfg, M, "float32") for M in (8, 40)}
+    log(f"[phase8] K6 a step {json.dumps(recs['k6_step_8b'])} "
+        f"{json.dumps(recs['k6_step_qa_ckpt'])}")
+    recs["main_path"], res = _p8_main_path(dev)
+    recs["equality"] = _p8_equality(res.generator, dev)
+    del res
+    torch.cuda.empty_cache()
+    recs["decode_configs"] = decode_configs(dev)
+    recs["qa_ckpt"] = _p8_qa_ckpt(dev)
+    return recs
+
+
 def _first_batch_questions(cfg):
     from sdag_tpu_torch.utils.parsing import load_from_csv
     return load_from_csv(cfg.CSV_INPUT_PATH).questions[
@@ -1516,6 +1922,7 @@ def main() -> int:
     from sdag_tpu_torch import _build
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = nvidia_smi()
     log(f"[phase0] card: {card}")
     log(f"[phase0] torch {torch.__version__} cuda {torch.version.cuda}")
@@ -1533,6 +1940,7 @@ def main() -> int:
     details["phase5"] = k3 = phase5(dev)
     details["phase6"] = k4 = phase6(dev)
     details["phase7"] = p7 = phase7(dev)
+    details["phase8"] = p8 = phase8(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -1607,12 +2015,34 @@ def main() -> int:
                              if r["dtype"] == "int8"),
              **{key: by_name["f_ranker_path_int8"][key] for key in keys}),
     ]
+    # K6: a window round's products (M = batch 8 x (D + 1) = 40 rows, the
+    # speculative main paths of 8(b) and 8(e)), counted over those runs
+    for dt, dtype, step, run in (
+            ("bf16", "bfloat16", p8["k6_step_8b"]["M40"], p8["main_path"]),
+            ("f32", "float32", p8["k6_step_qa_ckpt"]["M40"], p8["qa_ckpt"])):
+        kernels.append(dict(
+            name=f"int8_matmul_{dt}", route="cuda",
+            source="sdag_tpu_torch/csrc/int8_matmul.cu",
+            replaces="sdag_tpu/models/llama.py:107",
+            launches=run["launches"].get(f"int8_matmul_{dt}", 0),
+            max_abs_err=max(r["max_abs_err"] for r in p8["k6"]
+                            if r["dtype"] == dtype),
+            **{key: step[key] for key in keys}))
+    main8 = p8["main_path"]
+    log(f"[summary] phase 8 int8 + int8 KV + speculation: decode "
+        f"{main8['decode_tok_s']:.1f} tok/s ({main8['ms_per_round']:.2f} ms "
+        f"a round, {main8['spec']['accepted_drafts_per_round']} accepted "
+        f"drafts a round), peak {main8['peak_mem_gib']:.2f} GiB; decode "
+        f"configurations {json.dumps(p8['decode_configs'])}; qa_ckpt "
+        f"accepted drafts a round "
+        f"{p8['qa_ckpt']['spec']['accepted_drafts_per_round']}")
     log(f"[summary] phase 4 prefill {p4['prefill_tok_s']:.1f} tok/s, "
         f"decode {p4['decode_tok_s']:.1f} tok/s "
         f"({p4['decode_ms_per_step']:.2f} ms a step, "
         f"{p4['graph_captures']} graph captures, device busy "
         f"{p4['profile']['device_busy_share']}), peak "
         f"{p4['peak_mem_gib']:.2f} GiB on {card}")
+    log(f"[summary] phases 0-8 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -3,7 +3,7 @@
 checkout of the same package, on one GPU, within one run.
 
     git archive <earlier commit> | tar -x -C <dir>     # the earlier tree
-    python3 kernel_times.py --old <dir> [--only k3_f32,decode]
+    python3 kernel_times.py --old <dir> [--only k6,decode_int8]
 
 Both trees are timed at the same seeded shapes through the same public
 wrappers, in turns (old, new, new, old), each turn in a process of its own
@@ -40,7 +40,14 @@ that builds that tree's kernels with nvcc:
 * K2 ``bm25_topk_cuda``: 1,048,576 docs x 64 Zipf term slots with 32
   queries of 16 terms at k = 10 and k = 20, and 32 terms at k = 64; the
   main path's shape (the synthetic world's 384 docs, Lp = 128, 32 queries,
-  k = 5).
+  k = 5);
+* K6 ``int8_matmul_cuda`` at the 8B decode step's weight products (wq/wo,
+  wk/wv, gate/up, down, lm_head) at M = 8 and M = 40, device time a call;
+  a tree without K6 times those products as its decode step ran them
+  (bf16 ``x @ w``);
+* decode at llama3-8b of one 8 x 32 batch in the tree's configurations
+  (native, int8 weights, + int8 KV cache, + speculation with D = 4;
+  native alone in a tree without them).
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
@@ -214,7 +221,77 @@ def k2_times(c, dev, out):
     out["K2_path_384docs_Lp128_k5_graph"] = graph_ms(fn)
 
 
-FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1")
+# the 8B decode step's weight products: (name, out N, in K)
+PRODUCTS_8B = (("wq+wo", 4096, 4096), ("wk+wv", 1024, 4096),
+               ("gate+up", 14336, 4096), ("down", 4096, 14336),
+               ("lm_head", 128256, 4096))
+
+
+def k6_times(c, dev, out):
+    """K6 at the 8B decode step's products, M = 8 (a step's batch) and
+    M = 40 (a window of 8 x 5): device time a call from a replayed graph.
+    A tree without K6 (before int8 weights) runs the same products as its
+    decode step did: x @ w with the bf16 weight [in, out]."""
+    import torch
+    try:
+        from sdag_tpu_torch.ops import int8_matmul as Q
+    except ImportError:
+        Q = None
+    g = torch.Generator(device=dev)
+    g.manual_seed(8)
+    for M in (8, 40):
+        for name, n, k in PRODUCTS_8B:
+            x = torch.randn(M, k, generator=g, device=dev).to(torch.bfloat16)
+            if Q is not None:
+                w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                                  dtype=torch.int8)
+                s = torch.rand(n, generator=g, device=dev) * 2e-3
+                fn = lambda: Q.int8_matmul_cuda(x, w, s)  # noqa: E731
+            else:
+                w = torch.randn(k, n, generator=g, device=dev).to(
+                    torch.bfloat16)
+                fn = lambda: x @ w  # noqa: E731
+            out[f"K6_8b_{name}_M{M}_graph"] = graph_ms(fn)
+            del w
+    torch.cuda.empty_cache()
+
+
+def decode_int8_times(c, dev, out):
+    """Decode of one 8 x 32 batch at 8B in the tree's configurations
+    (chip_smoke ``decode_configs``: native, int8 weights, + int8 cache, +
+    speculation); a tree without them times native decode alone."""
+    import torch
+    if hasattr(c, "decode_configs"):
+        recs = c.decode_configs(dev)
+    else:
+        from sdag_tpu_torch.models.llama import (DecoderConfig,
+                                                 init_decoder_params)
+        from sdag_tpu_torch.models.tokenizer import load_tokenizer
+        from sdag_tpu_torch.sdag.generate import Generator
+        cfg = DecoderConfig.llama3_8b()
+        g = torch.Generator(device=dev)
+        g.manual_seed(3)
+        gen = Generator(init_decoder_params(g, cfg, device=dev), cfg,
+                        load_tokenizer(""), temperature=0.0, batch_bucket=8,
+                        device=dev)
+        _plans, plain = c._main_path_prompts(8)
+        gen.generate_ids(plain, max_new_tokens=32)
+        torch.cuda.synchronize(dev)
+        gen.stats.update(decode_tokens=0, decode_s=0.0, decode_steps=0)
+        for _ in range(2):
+            gen.generate_ids(plain, max_new_tokens=32)
+        st = gen.stats
+        recs = {"native": {"tok_s": st["decode_tokens"] / st["decode_s"],
+                           "ms_per_step": 1e3 * st["decode_s"]
+                           / st["decode_steps"]}}
+        del gen
+        torch.cuda.empty_cache()
+    for name, rec in recs.items():
+        out[f"decode_8b_B8_new32_{name}_tok_s"] = rec["tok_s"]
+        out[f"decode_8b_B8_new32_{name}_ms_per_step"] = rec["ms_per_step"]
+
+
+FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1", "k6", "decode_int8")
 
 
 def worker(tree: str, families) -> int:

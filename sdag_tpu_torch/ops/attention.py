@@ -21,7 +21,9 @@ CUDA-core FMA (K/V tiles staged by cp.async, two q heads of an even GQA
 group sharing each K/V tile).
 
 Decode keeps reference semantics: generated tokens attend the whole cache
-with plain causal attention; it is plain PyTorch (XLA in the JAX package).
+with plain causal attention; it is plain PyTorch (XLA in the JAX package),
+over a native or an int8 cache (per-slot scales folded into the scores and
+the probabilities), one token or a speculative verification window a row.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Optional
 import torch
 
 from sdag_tpu_torch import _build
+from sdag_tpu_torch.ops.topk import quantize_last_axis_int8
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -508,12 +511,92 @@ def decode_scores(q, k_cache):
     (same shapes): on CUDA a bf16 cache is contracted as it is with f32
     out; elsewhere both operands go to f32 first."""
     B, H, Dh = q.shape
-    hkv, S = k_cache.shape[1], k_cache.shape[2]
-    rep = H // hkv
-    qg = q.reshape(B * hkv, rep, Dh)
-    kt = k_cache.reshape(B * hkv, S, Dh).transpose(1, 2)
-    if q.device.type == "cuda" and k_cache.dtype != torch.float32:
-        scores = torch.bmm(qg, kt, out_dtype=torch.float32)
+    hkv = k_cache.shape[1]
+    return _group_bmm(q.reshape(B, hkv, H // hkv, Dh),
+                      k_cache.transpose(-1, -2)) * Dh ** -0.5
+
+
+def _group_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[B, G, R, X] @ [B, G, X, Y] -> [B, G, R, Y] f32 products: on CUDA a
+    bf16 pair contracts as it is with f32 out (no f32 copy of a cache);
+    elsewhere both operands go to f32 first."""
+    B, G, R, X = a.shape
+    a3, b3 = a.reshape(B * G, R, X), b.reshape(B * G, X, b.shape[-1])
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        out = torch.bmm(a3, b3, out_dtype=torch.float32)
     else:
-        scores = torch.bmm(qg.float(), kt.float())
-    return (scores * Dh ** -0.5).reshape(B, hkv, rep, S)
+        out = torch.bmm(a3.float(), b3.float())
+    return out.reshape(B, G, R, -1)
+
+
+def _int8_attention(q, k_t, v_t, k_scale, v_scale, cache_mask):
+    """``masked_decode_attention_int8`` with the int8 K/V already cast to
+    q's dtype (exact): k_t/v_t [B, Hkv, S, Dh], scales [B, Hkv, S], mask
+    [B, S]; f32 products, the k scale times the scores, the v scale folded
+    into the probabilities.  Returns [B, H, Dh] f32."""
+    B, H, Dh = q.shape
+    hkv = k_t.shape[1]
+    qg = q.reshape(B, hkv, H // hkv, Dh)
+    scores = _group_bmm(qg, k_t.transpose(-1, -2))
+    scores = scores * k_scale[:, :, None, :] * Dh ** -0.5
+    scores = scores.masked_fill(~cache_mask[:, None, None, :],
+                                DEFAULT_MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1) * v_scale[:, :, None, :]
+    return _group_bmm(probs.to(q.dtype), v_t).reshape(B, H, Dh)
+
+
+def masked_decode_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
+                                 cache_mask):
+    """``masked_decode_attention`` over an int8 cache (the JAX
+    ``masked_decode_attention_int8``): k_i8/v_i8 int8 [B, Hkv, S, Dh],
+    k_scale/v_scale f32 [B, Hkv, S] (absmax over Dh per slot).  The int8
+    values are cast to q's dtype (a copy in q's dtype, not f32), the k
+    scale multiplies the f32 scores, the v scale folds into the
+    probabilities before the value product; output in q's dtype."""
+    return _int8_attention(q, k_i8.to(q.dtype), v_i8.to(q.dtype), k_scale,
+                           v_scale, cache_mask).to(q.dtype)
+
+
+# A verification window attends row by row through the single-token
+# attention, on the same shapes as a decode step: a step and a window row
+# that see the same cache give the same bits on the card (one batched
+# product over the window's G rows would take other cuBLAS kernels, and
+# greedy speculation would then drift from plain greedy decode).  The
+# window reads the cache G times; the mask may cover a prefix of the
+# cache's slots, and only that prefix is attended.
+
+def masked_decode_window_attention(q, k_cache, v_cache, cache_mask):
+    """Multi-token decode attention for speculative verification windows
+    (the JAX ``masked_decode_window_attention``).
+
+    q: [B, H, G, Dh]; caches [B, Hkv, S, Dh]; cache_mask [B, G, S'] (S' <=
+    S), per window row the valid slots (history plus the window's causal
+    prefix); the first S' slots are attended.  Output in the cache
+    dtype."""
+    G, S = q.shape[2], cache_mask.shape[-1]
+    k = k_cache[:, :, :S].contiguous()
+    v = v_cache[:, :, :S].contiguous()
+    return torch.stack([
+        masked_decode_attention(q[:, :, g].contiguous(), k, v,
+                                cache_mask[:, g]) for g in range(G)], dim=2)
+
+
+def masked_decode_window_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
+                                        cache_mask):
+    """:func:`masked_decode_window_attention` over an int8 cache, with the
+    scale folding of :func:`masked_decode_attention_int8` (the int8 K/V
+    cast to q's dtype once for the window's rows)."""
+    G, S = q.shape[2], cache_mask.shape[-1]
+    k_t, v_t = k_i8[:, :, :S].to(q.dtype), v_i8[:, :, :S].to(q.dtype)
+    k_s, v_s = k_scale[:, :, :S], v_scale[:, :, :S]
+    return torch.stack([
+        _int8_attention(q[:, :, g].contiguous(), k_t, v_t, k_s, v_s,
+                        cache_mask[:, g]) for g in range(G)],
+        dim=2).to(q.dtype)
+
+
+def quantize_kv_heads_int8(x: torch.Tensor):
+    """Per-slot symmetric int8 over the head dim: x [..., S, Dh] -> (int8
+    values, f32 scales [..., S]); the retrieval index's rule
+    (``ops/topk.py`` ``quantize_last_axis_int8``)."""
+    return quantize_last_axis_int8(x)

@@ -6,6 +6,8 @@ after top-p truncation.  A draw inverts the categorical CDF at one uniform
 number per row, taken from a ``torch.Generator`` or handed in (a decode
 step captured in a CUDA graph reads uniforms drawn outside it); draws
 follow the same distribution as the JAX sampler, not the same bits.
+Speculative sampling's pair (``draft_accept_probs``, ``sample_excluding``)
+takes its uniforms the same way.
 """
 
 from __future__ import annotations
@@ -92,3 +94,49 @@ def sample_tokens(generator: Optional[torch.Generator],
                                   presorted=_ordered_topk(logits, kk))
     choice = _categorical(uniform, vals)
     return torch.gather(idx, -1, choice[..., None])[..., 0].to(torch.int32)
+
+
+def draft_accept_probs(logits: torch.Tensor, drafts: torch.Tensor,
+                       temperature: float, top_p: float = 1.0,
+                       nucleus_topk: int = 64) -> torch.Tensor:
+    """P(draft token) under ``sample_tokens``' distribution, per position.
+
+    logits [..., V]; drafts [...] token ids.  Speculative sampling accepts
+    a deterministic (prob-1) draft with probability p(draft), which keeps
+    the output distribution that of ``sample_tokens`` step by step.  With
+    top_p < 1 the probability is renormalised over the bounded nucleus; a
+    draft outside it has probability 0."""
+    logits = logits / temperature
+    drafts = drafts.long()[..., None]
+    if top_p >= 1.0:
+        logz = torch.logsumexp(logits, dim=-1)
+        return torch.exp(torch.gather(logits, -1, drafts)[..., 0] - logz)
+    kk = min(nucleus_topk, logits.shape[-1])
+    vals, idx = _nucleus_vals_idx(logits, top_p, kk)
+    logz = torch.logsumexp(vals, dim=-1)
+    hit = torch.where(idx == drafts, vals, torch.full_like(vals,
+                                                           float("-inf")))
+    return torch.exp(hit.amax(-1) - logz)
+
+
+def sample_excluding(uniform: torch.Tensor, logits: torch.Tensor,
+                     excl: torch.Tensor, temperature: float,
+                     top_p: float = 1.0,
+                     nucleus_topk: int = 64) -> torch.Tensor:
+    """Draw like ``sample_tokens`` with token ``excl[b]`` removed (excl ==
+    -1 keeps every token of that row): the residual draw of speculative
+    sampling with a prob-1 draft, where max(p - delta_d, 0) renormalised
+    is p restricted to x != d.  logits [B, V]; uniform [B] in [0, 1): the
+    CDF of the renormalised distribution is inverted there."""
+    logits = logits / temperature
+    excl = excl.long()[:, None]
+    ninf = float("-inf")
+    if top_p >= 1.0:
+        col = torch.arange(logits.shape[-1], device=logits.device)
+        masked = logits.masked_fill(col[None, :] == excl, ninf)
+        return _categorical(uniform, masked).to(torch.int32)
+    kk = min(nucleus_topk, logits.shape[-1])
+    vals, idx = _nucleus_vals_idx(logits, top_p, kk)
+    vals = vals.masked_fill(idx == excl, ninf)
+    choice = _categorical(uniform, vals)
+    return torch.gather(idx, -1, choice[:, None])[:, 0].to(torch.int32)

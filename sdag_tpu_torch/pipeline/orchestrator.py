@@ -511,5 +511,13 @@ def run_experiment(cfg: Config,
         print(f"[run] saved {base}.csv / .json")
         all_metrics[key] = metrics
 
+    gen = res.generator
+    if getattr(gen, "spec_total_row_rounds", 0):
+        acc = gen.spec_total_tokens / gen.spec_total_row_rounds - 1.0
+        print(f"[spec] verification rounds: {gen.spec_total_rounds}, "
+              f"emitted tokens: {gen.spec_total_tokens}, measured "
+              f"accepted drafts/round: {acc:.3f} "
+              f"(G={cfg.SPECULATIVE_DRAFT_LEN})")
+
     timer.report()
     return all_metrics

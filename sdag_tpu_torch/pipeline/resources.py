@@ -4,7 +4,8 @@ indexes.
 Counterpart of ``sdag_tpu/pipeline/resources.py`` for the settings this
 port serves: sparse, dense and hybrid retrieval, knn neighbor windows, the
 centroid selection strategies, no defense, a native checkpoint or random
-weights at a named architecture, one device.  Every other setting raises
+weights at a named architecture, int8 weights (quantized at load), the
+int8 KV cache, speculative decoding, one device.  Every other setting raises
 NotImplementedError naming the ROADMAP item that will serve it.
 
 The E5 encoder is built only when a setting calls it (dense or hybrid
@@ -26,7 +27,8 @@ from sdag_tpu_torch.config import Config
 from sdag_tpu_torch.datamodels import Resources
 from sdag_tpu_torch.models.e5 import (E5Encoder, EncoderConfig,
                                       init_encoder_params)
-from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
+from sdag_tpu_torch.models.llama import (DecoderConfig, init_decoder_params,
+                                         quantize_decoder_params_int8)
 from sdag_tpu_torch.models.tokenizer import load_tokenizer
 from sdag_tpu_torch.retrieval.dense import (INDEX_DTYPES, DenseIndex,
                                             DenseRetriever)
@@ -66,15 +68,8 @@ def check_supported(cfg: Config) -> None:
         (bool(cfg.RANKER_CHECKPOINT),
          f"an HF RANKER_CHECKPOINT ({cfg.RANKER_CHECKPOINT!r})",
          "hf_convert"),
-        (cfg.KV_CACHE_DTYPE != "native",
-         f"KV_CACHE_DTYPE={cfg.KV_CACHE_DTYPE!r}",
-         "int8 weights and int8 KV cache"),
-        (cfg.LLM_WEIGHTS_DTYPE != "native",
-         f"LLM_WEIGHTS_DTYPE={cfg.LLM_WEIGHTS_DTYPE!r}",
-         "int8 weights and int8 KV cache"),
-        (cfg.SPECULATIVE_DRAFT_LEN > 0,
-         f"SPECULATIVE_DRAFT_LEN={cfg.SPECULATIVE_DRAFT_LEN}",
-         "speculative decoding"),
+        # int8 weights with MESH_DATA > 1 raise here too, until the mesh
+        # item decides how the int8 tree is sharded
         (cfg.MESH_MODEL > 1 or cfg.MESH_DATA > 1,
          f"MESH_MODEL={cfg.MESH_MODEL}, MESH_DATA={cfg.MESH_DATA}",
          "TP/DP on torch.distributed"),
@@ -116,9 +111,17 @@ def build_generator(cfg: Config, device="cuda") -> Generator:
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.SEED + 1)
         params = init_decoder_params(gen, dec_cfg, device=dev)
+    if cfg.LLM_WEIGHTS_DTYPE == "int8":
+        # weight-only int8 serving, quantized once at load, each float
+        # matrix freed as it goes (the forwards dispatch on leaf type)
+        params = quantize_decoder_params_int8(params, consume=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     return Generator(params, dec_cfg, tok, temperature=cfg.TEMPERATURE,
                      top_p=cfg.TOP_P, seed=cfg.SEED,
-                     batch_bucket=cfg.LLM_BATCH_SIZE, device=dev)
+                     batch_bucket=cfg.LLM_BATCH_SIZE,
+                     kv_cache_dtype=cfg.KV_CACHE_DTYPE,
+                     speculative_draft=cfg.SPECULATIVE_DRAFT_LEN, device=dev)
 
 
 def needs_encoder(cfg: Config) -> bool:

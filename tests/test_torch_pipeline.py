@@ -1,8 +1,10 @@
 """The port's main path end to end on the CPU against the JAX package, with
 the committed trained checkpoint (the configs of test_trained_qa_model):
-identical per-query answers CSV, clean ACC >= 0.5, ASR > 0 under attack;
-settings outside the port's slices raise NotImplementedError, the ranker
-path's settings no longer do."""
+identical per-query answers CSV, clean ACC >= 0.5, ASR > 0 under attack,
+and the same with int8 weights, the int8 KV cache and speculative
+decoding at once; settings outside the port's slices raise
+NotImplementedError, the ranker path's and the decode slice's settings no
+longer do."""
 
 import csv
 import os
@@ -112,13 +114,26 @@ def test_settings_of_the_ranker_path_are_served(key, value):
     check_supported(Config())         # the default config (dense) too
 
 
+@pytest.mark.parametrize("settings", [
+    {"KV_CACHE_DTYPE": "int8"},
+    {"LLM_WEIGHTS_DTYPE": "int8"},
+    {"SPECULATIVE_DRAFT_LEN": 1},
+    {"SPECULATIVE_DRAFT_LEN": 15},
+    {"LLM_WEIGHTS_DTYPE": "int8", "KV_CACHE_DTYPE": "int8",
+     "SPECULATIVE_DRAFT_LEN": 4},
+])
+def test_settings_of_the_decode_slice_are_served(settings):
+    cfg = Config()
+    cfg.RETRIEVER_BACKEND = "sparse"
+    for key, value in settings.items():
+        setattr(cfg, key, value)
+    check_supported(cfg)
+
+
 @pytest.mark.parametrize("key,value", [
     ("DEFENSE_BACKEND", "ragdefender"),
     ("DEFENSE_BACKEND", "discern_and_answer"),
     ("RANKER_CHECKPOINT", REPO),      # an HF ranker waits for hf_convert
-    ("KV_CACHE_DTYPE", "int8"),
-    ("LLM_WEIGHTS_DTYPE", "int8"),
-    ("SPECULATIVE_DRAFT_LEN", 4),
     ("MESH_MODEL", 2),
     ("MESH_DATA", 2),
     ("LLM_CHECKPOINT", REPO),     # a directory that is not a native ckpt
@@ -129,3 +144,43 @@ def test_settings_outside_the_slice_raise(key, value):
     setattr(cfg, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_supported(cfg)
+
+
+def test_int8_weights_with_a_data_mesh_still_raise():
+    """int8 weights with MESH_DATA > 1 raise through the mesh row until
+    the mesh item decides how the int8 tree shards."""
+    cfg = Config()
+    cfg.RETRIEVER_BACKEND = "sparse"
+    cfg.LLM_WEIGHTS_DTYPE = "int8"
+    cfg.MESH_DATA = 2
+    with pytest.raises(NotImplementedError, match="MESH_DATA=2"):
+        check_supported(cfg)
+
+
+def test_run_with_int8_weights_int8_cache_and_speculation_equals_jax(
+        tmp_path, world, capsys):
+    """run_experiment with LLM_WEIGHTS_DTYPE and KV_CACHE_DTYPE = int8 and
+    SPECULATIVE_DRAFT_LEN = 4 writes the JAX package's answers CSV and
+    reports its verification rounds; clean ACC stays >= 0.5."""
+    from sdag_tpu.config import Config as JaxConfig
+    from sdag_tpu.pipeline.orchestrator import run_experiment as jax_run
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    cfgs = []
+    for sub, cls in (("port", Config), ("jax", JaxConfig)):
+        cfg = _cfg(tmp_path / sub, world, cls, attack=False)
+        cfg.LLM_WEIGHTS_DTYPE = "int8"
+        cfg.KV_CACHE_DTYPE = "int8"
+        cfg.SPECULATIVE_DRAFT_LEN = 4
+        cfgs.append(cfg)
+    m = run_experiment(cfgs[0], device="cpu")[(5, 0)]["answer_match_stats"]
+    assert "[spec] verification rounds" in capsys.readouterr().out
+    jax_run(cfgs[1])
+    name = "results_top_k=5_attacker_pos=0.csv"
+    port_rows = _rows(tmp_path / "port" / "out" / name)
+    jax_rows = _rows(tmp_path / "jax" / "out" / name)
+    assert len(port_rows) == len(jax_rows) == 24
+    for p, j in zip(port_rows, jax_rows):
+        assert p == j
+    assert m["iso"]["ground_truth_match_rate"] >= 0.5
+    assert m["no_iso"]["ground_truth_match_rate"] >= 0.5
