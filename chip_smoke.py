@@ -17,8 +17,10 @@ Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          and 8 (the bf16 body shares K/V tiles between two q heads of a
          group), and the main paths' ISO/NO-ISO shapes over
          real synthetic-world prompts: llama3-8b heads in bf16 (the
-         tensor-core body) and qa_ckpt's heads in f32 (the CUDA-core
-         body).  Valid rows that see a key are compared: max abs error
+         tensor-core body), qa_ckpt's heads in f32 (the CUDA-core
+         body), and the HF 8B checkpoint's heads (Hq 32, Hkv 8, Dh 128)
+         in f32 over the prompts of phase 9's byte-level BPE tokenizer.
+         Valid rows that see a key are compared: max abs error
          <= 2e-2 for bf16, <= 1e-4 for f32, and each row's max abs error
          over its RMS <= 5e-2 / 1e-3; at each ISO main-path shape a
          planted one-tile fault must fail these checks (also at the group
@@ -102,9 +104,11 @@ Phase 8  int8 weights, the int8 KV cache and speculative decoding: (a) K6
          against int8_matmul_reference at every weight product of the 8B
          decode step (M = 8, a step's batch, and M = 40, a verification
          window of 8 x 5) in bf16 and of qa_ckpt's (d 192, tied unembed)
-         in f32: each row's max abs error <= 1e-2 (bf16) / 1e-5 (f32) of
-         its max |y|; one output column's scale doubled and one 64-wide
-         `in` chunk skipped must fail that check; device times of K6, the
+         in f32, and of the 8B step again in f32 (an HF checkpoint loads
+         float32): each row's max abs error <= 1e-2 (bf16) / 1e-5 (f32)
+         of its max |y|; one output column's scale doubled and one
+         64-wide `in` chunk skipped must fail that check (per
+         configuration); device times of K6, the
          plain version and the bf16 (f32) torch.matmul it replaces
          (torch._weight_int8pack_mm beside it where this torch has it for
          CUDA), summed over a step's products; (b) run_experiment on the
@@ -121,6 +125,30 @@ Phase 8  int8 weights, the int8 KV cache and speculative decoding: (a) K6
          speculation (K6's f32 body): clean ACC iso >= 0.5, accepted
          drafts a round.
 
+Phase 9  HF checkpoints from local files, written here without any HF
+         library into a temporary directory outside the repo (removed when
+         the phase ends; under 40 GB free fails): (a) Llama-3.1-8B's full width
+         and depth (vocab 128256, d 4096, 32 layers, 32/8 heads, d_ff
+         14336, llama3 RoPE scaling, untied), random bf16 tensors drawn on
+         the card from per-tensor seeds, 4 safetensors shards + index,
+         config.json, and a Llama-3-style tokenizer (byte-level BPE of 400
+         merges learned here from the world's text, specials at
+         128000-128255, a chat template); (b) run_experiment with
+         LLM_CHECKPOINT on it, sparse (scan), ISO and NO-ISO, greedy,
+         batch 8, 24 queries x 32 new tokens (the cut: queries and new
+         tokens, never width or depth), counts zeroed before: the loaded
+         tree is float32 and equals every written tensor cast and
+         transposed, bit for bit; every eval prompt's chat string comes
+         back from decode(encode(.)) and its special tokens map to their
+         ids; K1-f32 launched layers x ISO+NO-ISO batches, K2 launched;
+         write and load GB/s, prefill and decode tok/s, ms a step, peak
+         memory; (c) an e5-large-v2-width BERT (f32, WordPiece vocab.txt)
+         as RANKER_CHECKPOINT beside qa_ckpt_v4, hybrid exact search on a
+         float32 index: the tree bit-equal, K3-f32 launched layers x
+         encode batches (no bf16 body), K4-f32 launched, dense hits equal
+         to the plain version's, fused (K3) embeddings within 1e-4 of the
+         unfused ones; K3-f32 and K4-f32 timed at this path's shapes.
+
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
 result.  The last two stdout lines are the kernels JSON and
@@ -132,8 +160,10 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -342,9 +372,10 @@ def _k1_case(name, q, k, v, doc_id, nbr, sul, vl, q_offset=None,
     return rec
 
 
-def _main_path_prompts(n=8):
+def _main_path_prompts(n=8, tok=None):
     """ISO plans as the main path builds them: 5 retrieved fact docs plus
-    one injected malicious doc, byte tokenizer (llama3-8b random init)."""
+    one injected malicious doc; the byte tokenizer (llama3-8b random init)
+    unless ``tok`` is given."""
     from sdag_tpu_torch.models.tokenizer import load_tokenizer
     from sdag_tpu_torch.sdag.spans import build_plain_chat_ids, \
         build_rag_prompt_plan
@@ -353,7 +384,7 @@ def _main_path_prompts(n=8):
                                                load_world, malicious_doc)
     world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
                                     "world.json"))
-    tok = load_tokenizer("")
+    tok = tok or load_tokenizer("")
     facts = world.facts_for(world.eval_entities)[:n]
     others = world.facts_for(world.train_entities)
     plans, plain = [], []
@@ -452,29 +483,40 @@ def phase1(dev):
     # (e)-(h): the main paths' shapes over real prompt layouts (batch 8,
     # ISO plans padded to 128 / the NO-ISO causal prompts): llama3-8b heads
     # in bf16 (phase 4, the tensor-core body) and qa_ckpt's heads in f32
-    # (phase 3, the CUDA-core body)
-    plans, plain = _main_path_prompts(8)
-    B = len(plans)
-    lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
-    metas = [p.metadata(pad_to=lp) for p in plans]
-    lpn = -(-max(len(x) for x in plain) // 128) * 128
-    for iso, noiso, heads, dh, dtype in (
-            ("e_llama3_8b_iso", "f_llama3_8b_noiso", (32, 8, 8), 128,
-             torch.bfloat16),
-            ("g_qa_ckpt_iso", "h_qa_ckpt_noiso", (6, 6, 6), 32,
-             torch.float32)):
-        q, k, v = (rnd(B, h, lp, dh, dtype=dtype) for h in heads)
-        recs.append(_k1_case(
-            iso, q, k, v, t32(np.stack([m[0] for m in metas])),
-            t32(np.stack([m[1] for m in metas])), t32([m[2] for m in metas]),
-            t32([len(p.input_ids) for p in plans]), timed=True,
-            plant_fault=True))
-        q, k, v = (rnd(B, h, lpn, dh, dtype=dtype) for h in heads)
-        recs.append(_k1_case(
-            noiso, q, k, v,
-            t32(np.full((B, lpn), -1)), t32(np.zeros((B, lpn))),
-            t32([0] * B), t32([len(x) for x in plain]), timed=True))
-        del q, k, v
+    # (phase 3, the CUDA-core body); (l)-(m): the HF 8B checkpoint's heads
+    # in f32 (an HF checkpoint loads float32: phase 9, the CUDA-core body
+    # at Dh 128) over its prompts, through the byte-level BPE tokenizer
+    # phase 9 writes
+    from sdag_tpu_torch.models.hf_tokenizer import HFTokenizer
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tok_") as tmp:
+        write_llama_tokenizer(tmp, _world_texts())
+        hf_tok = HFTokenizer.from_dir(tmp)
+    for tok, cases in (
+            (None, (("e_llama3_8b_iso", "f_llama3_8b_noiso", (32, 8, 8),
+                     128, torch.bfloat16),
+                    ("g_qa_ckpt_iso", "h_qa_ckpt_noiso", (6, 6, 6), 32,
+                     torch.float32))),
+            (hf_tok, (("l_hf_8b_f32_iso", "m_hf_8b_f32_noiso", (32, 8, 8),
+                       128, torch.float32),))):
+        plans, plain = _main_path_prompts(8, tok=tok)
+        B = len(plans)
+        lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
+        metas = [p.metadata(pad_to=lp) for p in plans]
+        lpn = -(-max(len(x) for x in plain) // 128) * 128
+        for iso, noiso, heads, dh, dtype in cases:
+            q, k, v = (rnd(B, h, lp, dh, dtype=dtype) for h in heads)
+            recs.append(_k1_case(
+                iso, q, k, v, t32(np.stack([m[0] for m in metas])),
+                t32(np.stack([m[1] for m in metas])),
+                t32([m[2] for m in metas]),
+                t32([len(p.input_ids) for p in plans]), timed=True,
+                plant_fault=True))
+            q, k, v = (rnd(B, h, lpn, dh, dtype=dtype) for h in heads)
+            recs.append(_k1_case(
+                noiso, q, k, v,
+                t32(np.full((B, lpn), -1)), t32(np.zeros((B, lpn))),
+                t32([0] * B), t32([len(x) for x in plain]), timed=True))
+            del q, k, v
     torch.cuda.empty_cache()
     return recs
 
@@ -880,7 +922,8 @@ def _profile_window(gen, dev, new_tokens=16):
     kernel.  Reports device time as null when the profiler sees none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    _plans, plain = _main_path_prompts(gen.batch_bucket or 8)
+    _plans, plain = _main_path_prompts(gen.batch_bucket or 8,
+                                       tok=gen.tokenizer)
     gen.generate_ids(plain, max_new_tokens=new_tokens)   # warm: captures
     torch.cuda.synchronize(dev)
     captures = gen.stats["graph_captures"]
@@ -1686,21 +1729,25 @@ def _k6_step(recs, cfg, M, dtype):
 def _k6_cases(dev):
     """(a) K6 at every decode product shape of the 8B step (M = 8, a
     step's batch, and M = 40, a window of batch 8 x (D + 1) = 5) in bf16,
-    and of qa_ckpt's (d 192, d_ff 512, tied unembed 512 x 192) in f32; the
-    planted faults at one shape of each body."""
+    of qa_ckpt's (d 192, d_ff 512, tied unembed 512 x 192) in f32, and of
+    the 8B step again in f32 (an HF 8B checkpoint loads float32, so its
+    int8 tree runs K6's f32 body); the planted faults at one shape of each
+    configuration."""
     import torch
     from sdag_tpu_torch.models.llama import DecoderConfig
     from sdag_tpu_torch.models.native_ckpt import load_config
     g = torch.Generator(device=dev)
     g.manual_seed(8)
     recs = []
-    for cfg, dtype in ((DecoderConfig.llama3_8b(), torch.bfloat16),
-                       (load_config(os.path.join(REPO, "experiments", "data",
-                                                 "qa_ckpt")), torch.float32)):
+    for tag, cfg, dtype in (
+            ("8b", DecoderConfig.llama3_8b(), torch.bfloat16),
+            ("qa_ckpt", load_config(os.path.join(REPO, "experiments", "data",
+                                                 "qa_ckpt")), torch.float32),
+            ("8b_f32", DecoderConfig.llama3_8b(), torch.float32)):
         for M in (8, 40):
             for i, (name, n, k, _count) in enumerate(k6_products(cfg)):
-                recs.append(_k6_case(f"{name}_M{M}", M, n, k, dtype, g, dev,
-                                     plant=(M == 8 and i == 0)))
+                recs.append(_k6_case(f"{tag}_{name}_M{M}", M, n, k, dtype, g,
+                                     dev, plant=(M == 8 and i == 0)))
         torch.cuda.empty_cache()
     return recs
 
@@ -1891,8 +1938,12 @@ def phase8(dev):
                                       "qa_ckpt"))
     recs["k6_step_qa_ckpt"] = {
         f"M{M}": _k6_step(recs["k6"], qa_cfg, M, "float32") for M in (8, 40)}
+    recs["k6_step_8b_f32"] = {
+        f"M{M}": _k6_step(recs["k6"], DecoderConfig.llama3_8b(), M,
+                          "float32") for M in (8, 40)}
     log(f"[phase8] K6 a step {json.dumps(recs['k6_step_8b'])} "
-        f"{json.dumps(recs['k6_step_qa_ckpt'])}")
+        f"{json.dumps(recs['k6_step_qa_ckpt'])} "
+        f"{json.dumps(recs['k6_step_8b_f32'])}")
     recs["main_path"], res = _p8_main_path(dev)
     recs["equality"] = _p8_equality(res.generator, dev)
     del res
@@ -1900,6 +1951,672 @@ def phase8(dev):
     recs["decode_configs"] = decode_configs(dev)
     recs["qa_ckpt"] = _p8_qa_ckpt(dev)
     return recs
+
+
+# ---------------------------------------------------------------- phase 9
+# HF checkpoints are written here without any library: the tokenizer files
+# (a byte-level BPE learned in plain Python, a BERT WordPiece vocab), the
+# safetensors shards (sdag_tpu_torch.models.safetensors_io) and config.json.
+
+# Llama 3's pre-tokenizer regex (the Split pattern of its tokenizer.json)
+LLAMA3_PATTERN = (r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+"
+                  r"|\p{N}{1,3}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+"
+                  r"|\s+(?!\S)|\s+")
+# Llama 3.1's special tokens, ids 128000-128255
+LLAMA3_SPECIALS = (["<|begin_of_text|>", "<|end_of_text|>",
+                    "<|reserved_special_token_0|>",
+                    "<|reserved_special_token_1|>",
+                    "<|finetune_right_pad_id|>",
+                    "<|reserved_special_token_2|>", "<|start_header_id|>",
+                    "<|end_header_id|>", "<|eom_id|>", "<|eot_id|>",
+                    "<|python_tag|>"]
+                   + [f"<|reserved_special_token_{i}|>"
+                      for i in range(3, 248)])
+LLAMA3_FIRST_SPECIAL = 128000
+# a Llama-3.1-style chat template: the system block with its dates, then
+# the turns, each trimmed, then the assistant header
+LLAMA3_CHAT_TEMPLATE = (
+    "{{- bos_token }}\n"
+    "{%- if not date_string is defined %}\n"
+    "    {%- set date_string = \"26 Jul 2024\" %}\n"
+    "{%- endif %}\n"
+    "{%- if messages[0]['role'] == 'system' %}\n"
+    "    {%- set system_message = messages[0]['content'] | trim %}\n"
+    "    {%- set messages = messages[1:] %}\n"
+    "{%- else %}\n"
+    "    {%- set system_message = \"\" %}\n"
+    "{%- endif %}\n"
+    "{{- \"<|start_header_id|>system<|end_header_id|>\\n\\n\" }}\n"
+    "{{- \"Cutting Knowledge Date: December 2023\\n\" }}\n"
+    "{{- \"Today Date: \" + date_string + \"\\n\\n\" }}\n"
+    "{{- system_message }}\n"
+    "{{- \"<|eot_id|>\" }}\n"
+    "{%- for message in messages %}\n"
+    "    {%- if message['role'] not in ['user', 'assistant'] %}\n"
+    "        {{- raise_exception('Unknown role: ' + message['role']) }}\n"
+    "    {%- endif %}\n"
+    "    {{- '<|start_header_id|>' + message['role'] + "
+    "'<|end_header_id|>\\n\\n' + message['content'] | trim + "
+    "'<|eot_id|>' }}\n"
+    "{%- endfor %}\n"
+    "{%- if add_generation_prompt %}\n"
+    "    {{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}\n"
+    "{%- endif %}\n")
+HF_MIN_FREE_BYTES = 40e9
+
+
+def _world_texts(world_name="qa_ckpt"):
+    """The phase's prompt text: every corpus doc, question and malicious
+    doc of the synthetic world, and the RAG prompts' fixed text."""
+    from sdag_tpu_torch.utils import prompts
+    from sdag_tpu_torch.utils.synth_qa import (fact_doc, fact_query,
+                                               load_world, malicious_doc)
+    world = load_world(os.path.join(REPO, "experiments", "data", world_name,
+                                    "world.json"))
+    facts = world.facts_for(world.eval_entities) + world.facts_for(
+        world.train_entities)
+    texts = [prompts.SYSTEM_PROMPT_RAG, prompts.USER_RAG_PROMPT]
+    for f in facts:
+        texts += [fact_doc(f), fact_query(f), malicious_doc(f, "bodiku")]
+    return texts
+
+
+def train_byte_bpe(texts, n_merges):
+    """Byte-level BPE learned in plain Python: pieces by Llama 3's
+    pre-tokenizer, then the most frequent adjacent pair merged, n_merges
+    times (ties broken by the pair).  Returns (vocab {token: id}, merges
+    [(a, b)]), the 256 byte tokens first."""
+    import re
+    from collections import Counter
+    from sdag_tpu_torch.models.hf_tokenizer import (bytes_to_unicode,
+                                                    translate_regex)
+    b2u = bytes_to_unicode()
+    split = re.compile(translate_regex(LLAMA3_PATTERN))
+    words = Counter()
+    for t in texts:
+        for piece in split.findall(t):
+            words[tuple(b2u[b] for b in piece.encode("utf-8"))] += 1
+    vocab = {b2u[b]: b for b in range(256)}
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for w, c in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] += c
+        if not pairs:
+            break
+        a, b = max(pairs, key=lambda p: (pairs[p], p))
+        merges.append((a, b))
+        vocab.setdefault(a + b, len(vocab))
+        merged = Counter()
+        for w, c in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and w[i] == a and w[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        words = merged
+    return vocab, merges
+
+
+def write_llama_tokenizer(path, texts, n_merges=400):
+    """tokenizer.json and tokenizer_config.json of a Llama-3-style
+    tokenizer: byte-level BPE (merges learned from ``texts``), Llama 3's
+    pre-tokenizer, a vocab of 128000 BPE tokens (the learned ones, then
+    unreachable fillers), the special tokens at 128000-128255, BOS by the
+    post-processor, ``<|eot_id|>`` as EOS, cleanup of tokenization spaces
+    on, a Llama-3-style chat template."""
+    vocab, merges = train_byte_bpe(texts, n_merges)
+    # the tokenizers library numbers added tokens from the BPE vocab's
+    # size: fill it to 128000 with tokens no text reaches (a character
+    # outside the byte-level alphabet), as Llama 3's 128000 BPE tokens
+    for i in range(len(vocab), LLAMA3_FIRST_SPECIAL):
+        vocab[f"\u2603{i}"] = i
+    added = [{"id": LLAMA3_FIRST_SPECIAL + i, "content": t,
+              "single_word": False, "lstrip": False, "rstrip": False,
+              "normalized": False, "special": True}
+             for i, t in enumerate(LLAMA3_SPECIALS)]
+    bos = LLAMA3_SPECIALS[0]
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": added, "normalizer": None,
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": LLAMA3_PATTERN},
+             "behavior": "Isolated", "invert": False},
+            {"type": "ByteLevel", "add_prefix_space": False,
+             "trim_offsets": True, "use_regex": False}]},
+        "post_processor": {"type": "Sequence", "processors": [
+            {"type": "ByteLevel", "add_prefix_space": True,
+             "trim_offsets": False, "use_regex": True},
+            {"type": "TemplateProcessing",
+             "single": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                        {"Sequence": {"id": "A", "type_id": 0}}],
+             "pair": [{"SpecialToken": {"id": bos, "type_id": 0}},
+                      {"Sequence": {"id": "A", "type_id": 0}},
+                      {"SpecialToken": {"id": bos, "type_id": 1}},
+                      {"Sequence": {"id": "B", "type_id": 1}}],
+             "special_tokens": {bos: {"id": bos,
+                                      "ids": [LLAMA3_FIRST_SPECIAL],
+                                      "tokens": [bos]}}}]},
+        "decoder": {"type": "ByteLevel", "add_prefix_space": True,
+                    "trim_offsets": True, "use_regex": True},
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": None,
+                  "end_of_word_suffix": None, "fuse_unk": False,
+                  "byte_fallback": False, "ignore_merges": True,
+                  "vocab": vocab, "merges": [f"{a} {b}" for a, b in merges]},
+    }
+    config = {"bos_token": bos, "eos_token": "<|eot_id|>",
+              "clean_up_tokenization_spaces": True,
+              "model_input_names": ["input_ids", "attention_mask"],
+              "model_max_length": 131072,
+              "tokenizer_class": "PreTrainedTokenizerFast",
+              "chat_template": LLAMA3_CHAT_TEMPLATE}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(spec, fh, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump(config, fh, ensure_ascii=False, indent=1)
+    return len(vocab), len(merges)
+
+
+def write_bert_vocab(path, texts, vocab_size=30522):
+    """A BERT WordPiece ``vocab.txt`` of exactly ``vocab_size`` lines
+    (BERT's layout: [PAD] 0, [unused*], [UNK] 100, [CLS] 101, [SEP] 102,
+    [MASK] 103; then every lowercased character alone and as a ``##``
+    continuation, then the words of ``texts`` by frequency, then
+    [unused*] to fill) and its tokenizer_config.json."""
+    import re
+    import unicodedata
+    from collections import Counter
+    lines = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    words, chars = Counter(), set()
+    for t in texts:
+        t = "".join(c for c in unicodedata.normalize("NFD", t.lower())
+                    if unicodedata.category(c) != "Mn")
+        for w in re.findall(r"\w+|[^\w\s]", t):
+            words[w] += 1
+            chars.update(w)
+    for c in sorted(chars):
+        lines += [c, "##" + c]
+    lines += [w for w, _ in words.most_common() if len(w) > 1]
+    lines = list(dict.fromkeys(lines))[:vocab_size]
+    lines += [f"[unused{i}]" for i in range(99, 99 + vocab_size - len(lines))]
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(path, "tokenizer_config.json"), "w",
+              encoding="utf-8") as fh:
+        json.dump({"do_lower_case": True, "model_max_length": 512,
+                   "tokenizer_class": "BertTokenizer"}, fh)
+    return len(lines)
+
+
+def llama_hf_specs(cfg):
+    """(HF tensor name, [out, in] shape, std or None for a norm gain) of a
+    LlamaForCausalLM at ``cfg``."""
+    d, hd, ff, V = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.vocab_size
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    specs = [("model.embed_tokens.weight", (V, d), d ** -0.5)]
+    for i in range(cfg.n_layers):
+        p = f"model.layers.{i}."
+        specs += [(p + "self_attn.q_proj.weight", (q, d), d ** -0.5),
+                  (p + "self_attn.k_proj.weight", (kv, d), d ** -0.5),
+                  (p + "self_attn.v_proj.weight", (kv, d), d ** -0.5),
+                  (p + "self_attn.o_proj.weight", (d, q), q ** -0.5),
+                  (p + "mlp.gate_proj.weight", (ff, d), d ** -0.5),
+                  (p + "mlp.up_proj.weight", (ff, d), d ** -0.5),
+                  (p + "mlp.down_proj.weight", (d, ff), ff ** -0.5),
+                  (p + "input_layernorm.weight", (d,), None),
+                  (p + "post_attention_layernorm.weight", (d,), None)]
+    specs += [("model.norm.weight", (d,), None)]
+    if not cfg.tie_embeddings:
+        specs += [("lm_head.weight", (V, d), d ** -0.5)]
+    return specs
+
+
+def bert_hf_specs(cfg):
+    """The same for a BertModel (``std`` 0.02 for biases and LayerNorm
+    shifts)."""
+    d, ff = cfg.d_model, cfg.d_ff
+    e = "embeddings."
+    specs = [(e + "word_embeddings.weight", (cfg.vocab_size, d), 0.02),
+             (e + "position_embeddings.weight", (cfg.max_position, d), 0.02),
+             (e + "token_type_embeddings.weight", (2, d), 0.02),
+             (e + "LayerNorm.weight", (d,), None),
+             (e + "LayerNorm.bias", (d,), 0.02)]
+    for i in range(cfg.n_layers):
+        p = f"encoder.layer.{i}."
+        for m in ("attention.self.query", "attention.self.key",
+                  "attention.self.value", "attention.output.dense"):
+            specs += [(p + m + ".weight", (d, d), d ** -0.5),
+                      (p + m + ".bias", (d,), 0.02)]
+        specs += [(p + "attention.output.LayerNorm.weight", (d,), None),
+                  (p + "attention.output.LayerNorm.bias", (d,), 0.02),
+                  (p + "intermediate.dense.weight", (ff, d), d ** -0.5),
+                  (p + "intermediate.dense.bias", (ff,), 0.02),
+                  (p + "output.dense.weight", (d, ff), ff ** -0.5),
+                  (p + "output.dense.bias", (d,), 0.02),
+                  (p + "output.LayerNorm.weight", (d,), None),
+                  (p + "output.LayerNorm.bias", (d,), 0.02)]
+    return specs
+
+
+def _draw(seed, shape, std, dtype, dev):
+    """A tensor drawn on the card from its own seed: normal * std, or
+    1 + 0.1 normal for a gain."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    t = torch.randn(shape, generator=g, device=dev, dtype=dtype)
+    return t.mul_(0.1).add_(1.0) if std is None else t.mul_(std)
+
+
+def write_hf_checkpoint(path, specs, dtype, dev, shards, seed):
+    """Random weights in HF names and [out, in] layout, tensor i drawn
+    from seed + i, written by save_safetensors as ``shards`` files with an
+    index (one file: model.safetensors).  Returns (bytes, seconds)."""
+    import torch
+    from sdag_tpu_torch.models.safetensors_io import save_safetensors
+    esize = torch.finfo(dtype).bits // 8
+    total = sum(math.prod(shape) for _n, shape, _s in specs) * esize
+    groups, acc = [[] for _ in range(shards)], 0
+    for i, spec in enumerate(specs):
+        n = math.prod(spec[1]) * esize
+        groups[min(shards - 1, acc * shards // total)].append((i, spec))
+        acc += n
+    os.makedirs(path, exist_ok=True)
+    t0 = time.perf_counter()
+    weight_map, written = {}, 0
+    for j, group in enumerate(groups):
+        fname = ("model.safetensors" if shards == 1 else
+                 f"model-{j + 1:05d}-of-{shards:05d}.safetensors")
+        tensors = {name: _draw(seed + i, shape, std, dtype, dev)
+                   for i, (name, shape, std) in group}
+        written += save_safetensors(tensors, os.path.join(path, fname),
+                                    metadata={"format": "pt"})
+        weight_map.update({name: fname for name in tensors})
+        del tensors
+        torch.cuda.empty_cache()
+    if shards > 1:
+        with open(os.path.join(path, "model.safetensors.index.json"),
+                  "w") as fh:
+            json.dump({"metadata": {"total_size": total},
+                       "weight_map": weight_map}, fh, indent=1)
+    return written, time.perf_counter() - t0
+
+
+def _tree_leaf(params, name, llama):
+    """The converted tree's leaf of an HF tensor, and whether the
+    converter transposes it."""
+    parts = name.split(".")
+    if llama:
+        top = {"model.embed_tokens.weight": ("embed", False),
+               "model.norm.weight": ("final_norm", False),
+               "lm_head.weight": ("lm_head", True)}
+        if name in top:
+            key, tr = top[name]
+            return params[key], tr
+        layer = params["layers"][int(parts[2])]
+        sub = {"self_attn.q_proj": ("attn", "wq"),
+               "self_attn.k_proj": ("attn", "wk"),
+               "self_attn.v_proj": ("attn", "wv"),
+               "self_attn.o_proj": ("attn", "wo"),
+               "mlp.gate_proj": ("mlp", "gate"), "mlp.up_proj": ("mlp", "up"),
+               "mlp.down_proj": ("mlp", "down")}
+        mod = ".".join(parts[3:5])
+        if mod in sub:
+            a, b = sub[mod]
+            return layer[a][b], True
+        return layer["ln1" if parts[3] == "input_layernorm" else "ln2"], False
+    e = {"embeddings.word_embeddings.weight": "word_emb",
+         "embeddings.position_embeddings.weight": "pos_emb",
+         "embeddings.token_type_embeddings.weight": "type_emb"}
+    if name in e:
+        return params[e[name]], False
+    if parts[0] == "embeddings":
+        return params["emb_ln"]["w" if parts[-1] == "weight" else "b"], False
+    layer = params["layers"][int(parts[2])]
+    wb = "w" if parts[-1] == "weight" else "b"
+    rest = ".".join(parts[3:-1])
+    if rest.endswith("LayerNorm"):
+        ln = "ln1" if rest.startswith("attention") else "ln2"
+        return layer[ln][wb], False
+    attn = {"attention.self.query": "q", "attention.self.key": "k",
+            "attention.self.value": "v", "attention.output.dense": "o"}
+    if rest in attn:
+        return layer["attn"][wb + attn[rest]], wb == "w"
+    mlp = {"intermediate.dense": "1", "output.dense": "2"}
+    return layer["mlp"][wb + mlp[rest]], wb == "w"
+
+
+def _tree_bit_equal(params, specs, dtype, dev, seed, llama):
+    """Every leaf equals the written tensor (regenerated from its seed)
+    cast to float32 and transposed where the converter transposes, bit
+    for bit.  Returns the names that differ."""
+    import torch
+    bad = []
+    for i, (name, shape, std) in enumerate(specs):
+        want = _draw(seed + i, shape, std, dtype, dev).float()
+        leaf, tr = _tree_leaf(params, name, llama)
+        if tr:
+            want = want.t()
+        if leaf.dtype != torch.float32 or not torch.equal(leaf, want):
+            bad.append(name)
+        del want
+    return bad
+
+
+def _p9_tokenizer_checks(tok):
+    """Every eval fact's NO-ISO chat string (system prompt, the question
+    and six docs) comes back from decode(encode(.)) with cleanup off; each
+    special token's text maps to its id, BOS first."""
+    from sdag_tpu_torch.utils import prompts
+    from sdag_tpu_torch.utils.synth_qa import (fact_doc, fact_query,
+                                               load_world, malicious_doc)
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    facts = world.facts_for(world.eval_entities)
+    others = world.facts_for(world.train_entities)
+    bad_round, bad_special, n, toks = [], [], 0, 0
+    for i, f in enumerate(facts):
+        docs = [malicious_doc(f, "bodiku"), fact_doc(f)] + [
+            fact_doc(g) for g in others[4 * i:4 * i + 4]]
+        user = prompts.USER_RAG_PROMPT.format(
+            query=fact_query(f), docs_text=prompts.render_docs_text(docs))
+        chat = tok.apply_chat_template(
+            [{"role": "system", "content": prompts.SYSTEM_PROMPT_RAG},
+             {"role": "user", "content": user}], tokenize=False,
+            add_generation_prompt=True)
+        ids = tok.encode(chat, add_special_tokens=False)
+        n += 1
+        toks += len(ids)
+        if tok.decode(ids, clean_up_tokenization_spaces=False) != chat:
+            bad_round.append(i)
+        for j, sp in enumerate(LLAMA3_SPECIALS):
+            if chat.count(sp) != ids.count(LLAMA3_FIRST_SPECIAL + j):
+                bad_special.append((i, sp))
+        if ids[0] != LLAMA3_FIRST_SPECIAL:
+            bad_special.append((i, "first id"))
+    return {"prompts": n, "mean_tokens": toks / n, "round_trip_failures":
+            bad_round, "special_failures": bad_special[:10]}
+
+
+def _p9_llama(dev, root):
+    """(a) write the 8B checkpoint, (b) run the main path on it."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.llama import DecoderConfig, prefill
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    cfg8 = DecoderConfig.llama3_8b()
+    ckpt = os.path.join(root, "llama3_8b_hf")
+    specs = llama_hf_specs(cfg8)
+    seed = 900
+    nbytes, write_s = write_hf_checkpoint(ckpt, specs, torch.bfloat16, dev,
+                                          shards=4, seed=seed)
+    write_llama_tokenizer(ckpt, _world_texts())
+    hf_config = {
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg8.vocab_size, "hidden_size": cfg8.d_model,
+        "intermediate_size": cfg8.d_ff,
+        "num_hidden_layers": cfg8.n_layers,
+        "num_attention_heads": cfg8.n_heads,
+        "num_key_value_heads": cfg8.n_kv_heads, "head_dim": cfg8.head_dim,
+        "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+        "rope_theta": cfg8.rope_theta,
+        "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0,
+                         "high_freq_factor": 4.0,
+                         "original_max_position_embeddings": 8192,
+                         "rope_type": "llama3"},
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        "bos_token_id": 128000, "eos_token_id": [128001, 128008, 128009],
+        "hidden_act": "silu", "attention_bias": False, "mlp_bias": False}
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump(hf_config, fh, indent=1)
+    log(f"[phase9] wrote the 8B checkpoint: {nbytes / 1e9:.3f} GB in 4 "
+        f"shards, {write_s:.2f} s = {nbytes / 1e9 / write_s:.3f} GB/s "
+        "(drawn on the card, copied to the host, written)")
+
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    cfg, facts = _synth_cfg(os.path.join(root, "run_8b"), world,
+                            world.eval_entities[:4], 1, world.seed + 3, 1,
+                            LLM_CHECKPOINT=ckpt, MAX_GEN_TOKENS_RAG=32,
+                            BM25_ENGINE="scan")
+    n = len(facts)
+    if n < 16:
+        raise AssertionError(f"phase 9 needs >= 16 queries, got {n}")
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = init_resources(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    gen = res.generator
+    tok_rec = _p9_tokenizer_checks(gen.tokenizer)
+    bad = _tree_bit_equal(gen.params, specs, torch.bfloat16, dev, seed,
+                          llama=True)
+    t1 = time.perf_counter()
+    metrics = run_experiment(cfg, resources=res, device=dev)
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    batches = sum(math.ceil(min(cfg.BATCH_SIZE_EMBED_Q, n - i)
+                            / cfg.LLM_BATCH_SIZE)
+                  for i in range(0, n, cfg.BATCH_SIZE_EMBED_Q))
+    need_k1 = gen.cfg.n_layers * 2 * batches
+    st = gen.stats
+    ids = torch.tensor([[128000, 2, 3] + [65] * 125], dtype=torch.int32,
+                       device=dev)
+    logits, _ = prefill(gen.params, gen.cfg, ids, with_cache=False,
+                        logits_last_only=True)
+    base = cfg.OUTPUT_CSV_BASE + "_top_k=5_attacker_pos=1"
+    rec = {"queries": n, "cut": "24 queries, 32 new tokens (width and "
+           "depth are Llama-3.1-8B's)",
+           "checkpoint_gb": nbytes / 1e9, "write_s": write_s,
+           "write_gb_s": nbytes / 1e9 / write_s,
+           "load_s": load_s, "load_gb_s": nbytes / 1e9 / load_s,
+           "tree_dtype": str(gen.cfg.dtype), "tree_mismatches": bad[:10],
+           "tokenizer": tok_rec, "launches": launches,
+           "k1_launches_needed": need_k1, "run_s": run_s,
+           "prefill_tokens": st["prefill_tokens"],
+           "prefill_s": st["prefill_s"],
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "decode_steps": st["decode_steps"],
+           "decode_ms_per_step": 1e3 * st["decode_s"] / st["decode_steps"],
+           "graph_captures": st["graph_captures"],
+           "peak_mem_gib": peak / 2 ** 30,
+           "acc_iso": metrics[(5, 1)]["answer_match_stats"]["iso"][
+               "ground_truth_match_rate"],
+           "outputs_written": all(os.path.isfile(base + ext)
+                                  for ext in (".csv", ".json")),
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "logits_shape": list(logits.shape)}
+    rec["profile"] = _profile_window(gen, dev)
+    log(f"[phase9] 8B HF {json.dumps(rec)}")
+    del res, gen, logits
+    _free_cuda()
+    if bad:
+        raise AssertionError(f"phase 9: {len(bad)} tensors of the loaded "
+                             f"8B tree differ from the written ones: "
+                             f"{bad[:5]}")
+    if rec["tree_dtype"] != "torch.float32":
+        raise AssertionError(f"phase 9: the HF tree is {rec['tree_dtype']},"
+                             " not float32")
+    if tok_rec["round_trip_failures"] or tok_rec["special_failures"]:
+        raise AssertionError(f"phase 9: tokenizer checks failed: {tok_rec}")
+    if launches.get("sdag_prefill_f32", 0) < need_k1:
+        raise AssertionError(
+            f"phase 9: K1-f32 launched {launches.get('sdag_prefill_f32', 0)}"
+            f" < {need_k1}")
+    if launches.get("bm25_scan_topk", 0) < 1:
+        raise AssertionError("phase 9: K2 never launched")
+    if not rec["outputs_written"] or not rec["logits_finite"] or \
+            rec["logits_shape"] != [1, 1, cfg8.vocab_size]:
+        raise AssertionError(f"phase 9: bad outputs {rec}")
+    return rec
+
+
+def _free_cuda():
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _p9_ranker(dev, root):
+    """(c) an e5-large-v2-width BERT checkpoint (f32, as intfloat ships
+    it) with a WordPiece vocab, through hybrid exact search on a float32
+    index beside qa_ckpt_v4."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.e5 import E5Encoder, EncoderConfig
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import (init_resources,
+                                                   load_corpus_jsonl)
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ecfg = dataclasses.replace(EncoderConfig.e5_large_v2(),
+                               dtype=torch.float32)
+    ckpt = os.path.join(root, "e5_large_v2_hf")
+    specs = bert_hf_specs(ecfg)
+    seed = 5000
+    nbytes, write_s = write_hf_checkpoint(ckpt, specs, torch.float32, dev,
+                                          shards=1, seed=seed)
+    n_vocab = write_bert_vocab(ckpt, _world_texts("qa_ckpt_v4"),
+                               ecfg.vocab_size)
+    with open(os.path.join(ckpt, "config.json"), "w") as fh:
+        json.dump({"architectures": ["BertModel"], "model_type": "bert",
+                   "vocab_size": ecfg.vocab_size,
+                   "hidden_size": ecfg.d_model,
+                   "num_hidden_layers": ecfg.n_layers,
+                   "num_attention_heads": ecfg.n_heads,
+                   "intermediate_size": ecfg.d_ff, "hidden_act": "gelu",
+                   "max_position_embeddings": ecfg.max_position,
+                   "type_vocab_size": 2, "layer_norm_eps": 1e-12,
+                   "torch_dtype": "float32"}, fh, indent=1)
+    ckpt_v4 = os.path.join(REPO, "experiments", "data", "qa_ckpt_v4")
+    world = load_world(os.path.join(ckpt_v4, "world.json"))
+    cfg, facts = _synth_cfg(
+        os.path.join(root, "run_ranker"), world, world.eval_entities[:4], 1,
+        world.seed + 1, 1, LLM_CHECKPOINT=ckpt_v4, RANKER_CHECKPOINT=ckpt,
+        DENSE_INDEX_PATH="", RETRIEVER_BACKEND="sparse_and_dense",
+        DENSE_SEARCH_MODE="exact", DENSE_INDEX_DTYPE="float32",
+        MALICIOUS_DOC_SELECTION_STRATEGY="closest_to_centroid")
+    _free_cuda()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = init_resources(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    enc = res.ranker
+    metrics = run_experiment(cfg, resources=res, device=dev)
+    torch.cuda.synchronize(dev)
+    launches = dict(LAUNCHES)
+    need_k3 = enc.cfg.n_layers * enc.stats["batches"]
+    # the encoder holds the fused-QKV tree: split it back for the check
+    plain_tree = dict(enc.params, layers=[])
+    for layer in enc.params["layers"]:
+        a = layer["attn"]
+        wq, wk, wv = a["wqkv"].chunk(3, dim=1)
+        bq, bk, bv = a["bqkv"].chunk(3)
+        plain_tree["layers"].append(dict(layer, attn={
+            "wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv,
+            "wo": a["wo"], "bo": a["bo"]}))
+    bad = _tree_bit_equal(plain_tree, specs, torch.float32, dev, seed,
+                          llama=False)
+    ok, mism = _dense_hits_agree(res, cfg, _first_batch_questions(cfg))
+    texts, _ = load_corpus_jsonl(cfg.CORPUS_JSONL_PATH)
+    batch = texts[:32]
+    fused = enc.encode(batch, kind="passage", batch_size=32)
+    plain = E5Encoder(enc.params, enc.cfg, enc.tokenizer,
+                      model_name=cfg.RANKER_MODEL_NAME, fused=False,
+                      device=dev).encode(batch, kind="passage",
+                                         batch_size=32)
+    err = float(np.abs(fused - plain).max())
+    # K3-f32 and K4-f32 timed at this path's shapes: the first passage
+    # batch through the WordPiece tokenizer (random q/k/v), the float32
+    # index against the first batch's query embeddings
+    ids, mask = enc._tokenize(enc._prefix(batch, "passage"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    qkv = torch.randn(*ids.shape, 3 * ecfg.d_model, generator=g, device=dev)
+    vl = torch.from_numpy(mask.sum(1).astype(np.int32)).to(dev)
+    k3 = _k3_case("hf_ranker_batch_f32", qkv, vl, ecfg.n_heads, timed=True)
+    index = res.dense_index
+    qe = torch.from_numpy(np.ascontiguousarray(enc.encode(
+        _first_batch_questions(cfg), kind="query"))).to(dev)
+    k4 = _k4_case("hf_ranker_f32", qe, index.embeddings, max(cfg.TOP_K),
+                  index.valid_n)
+    del qkv
+    m = metrics[(5, 1)]["answer_match_stats"]
+    out = cfg.OUTPUT_CSV_BASE + "_top_k=5_attacker_pos=1"
+    rec = {"queries": len(facts), "checkpoint_gb": nbytes / 1e9,
+           "write_s": write_s, "vocab_lines": n_vocab,
+           "init_s": init_s, "load_gb_s": nbytes / 1e9 / init_s,
+           "tokenizer": type(enc.tokenizer).__name__,
+           "cls_sep": [enc.tokenizer.cls_token_id,
+                       enc.tokenizer.sep_token_id],
+           "encoder": {"layers": enc.cfg.n_layers, "d_model":
+                       enc.cfg.d_model, "dtype": str(enc.cfg.dtype),
+                       "fused": enc.fused, "batches": enc.stats["batches"],
+                       "tokens": enc.stats["tokens"],
+                       "seconds": enc.stats["seconds"]},
+           "launches": launches, "k3_f32_launches_needed": need_k3,
+           "tree_mismatches": bad[:10], "dense_hits_agree": ok,
+           "dense_index_mismatches": mism,
+           "fused_vs_plain_max_abs_err": err, "tol": F32_TOL,
+           "k3_f32": k3, "k4_f32": k4,
+           "acc_iso": m["iso"]["ground_truth_match_rate"],
+           "outputs_written": all(os.path.isfile(out + ext)
+                                  for ext in (".csv", ".json"))}
+    log(f"[phase9] e5-large-v2 HF ranker {json.dumps(rec)}")
+    del res, enc, plain_tree
+    _free_cuda()
+    if bad:
+        raise AssertionError(f"phase 9: {len(bad)} ranker tensors differ "
+                             f"from the written ones: {bad[:5]}")
+    if launches.get("encoder_attention_f32", 0) != need_k3 or not need_k3 \
+            or launches.get("encoder_attention_bf16", 0):
+        raise AssertionError(f"phase 9 ranker: K3 launches {launches}, "
+                             f"need {need_k3} of the f32 body")
+    if not launches.get("topk_matmul_f32", 0):
+        raise AssertionError("phase 9 ranker: K4-f32 never launched")
+    if rec["cls_sep"] != [101, 102]:
+        raise AssertionError(f"phase 9 ranker: [CLS]/[SEP] ids "
+                             f"{rec['cls_sep']}")
+    if not ok or not err <= F32_TOL or not rec["outputs_written"]:
+        raise AssertionError(f"phase 9 ranker: {rec}")
+    return rec
+
+
+def phase9(dev):
+    """The checkpoints go to a temporary directory outside the repo,
+    removed when the phase ends, pass or fail."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as root:
+        free = shutil.disk_usage(root).free / 1e9
+        log(f"[phase9] {free:.1f} GB free under {root}")
+        if free * 1e9 < HF_MIN_FREE_BYTES:
+            raise AssertionError(
+                f"phase 9: {free:.1f} GB free under {root}, under the "
+                f"{HF_MIN_FREE_BYTES / 1e9:.0f} GB the 8B checkpoint (16.1 "
+                "GB) and the ranker (1.3 GB) need; the model is not cut")
+        return {"free_gb": free, "llama3_8b": _p9_llama(dev, root),
+                "e5_large_v2": _p9_ranker(dev, root)}
 
 
 def _first_batch_questions(cfg):
@@ -1941,6 +2658,9 @@ def main() -> int:
     details["phase6"] = k4 = phase6(dev)
     details["phase7"] = p7 = phase7(dev)
     details["phase8"] = p8 = phase8(dev)
+    # the earlier phases' trees are gone before 32 GB of f32 loads
+    _free_cuda()
+    details["phase9"] = p9 = phase9(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -2042,7 +2762,20 @@ def main() -> int:
         f"{p4['graph_captures']} graph captures, device busy "
         f"{p4['profile']['device_busy_share']}), peak "
         f"{p4['peak_mem_gib']:.2f} GiB on {card}")
-    log(f"[summary] phases 0-8 in {time.perf_counter() - t_start:.1f} s")
+    h8, hr = p9["llama3_8b"], p9["e5_large_v2"]
+    log(f"[summary] phase 9 HF Llama-3.1-8B-width checkpoint (f32 tree): "
+        f"wrote {h8['checkpoint_gb']:.2f} GB at {h8['write_gb_s']:.2f} GB/s, "
+        f"loaded at {h8['load_gb_s']:.2f} GB/s ({h8['load_s']:.1f} s); "
+        f"prefill {h8['prefill_tok_s']:.1f} tok/s, decode "
+        f"{h8['decode_tok_s']:.1f} tok/s ({h8['decode_ms_per_step']:.2f} ms "
+        f"a step), peak {h8['peak_mem_gib']:.2f} GiB; K1-f32 "
+        f"{h8['launches'].get('sdag_prefill_f32', 0)}, K2 "
+        f"{h8['launches'].get('bm25_scan_topk', 0)} launches; HF ranker: "
+        f"K3-f32 {hr['launches'].get('encoder_attention_f32', 0)}, K4-f32 "
+        f"{hr['launches'].get('topk_matmul_f32', 0)} launches, encoder "
+        f"{hr['encoder']['tokens'] / hr['encoder']['seconds']:.1f} tok/s; "
+        f"on {card}")
+    log(f"[summary] phases 0-9 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
 """Tokenization.
 
-``load_tokenizer`` prefers a local HuggingFace tokenizer (this environment
-has no network egress, so only local checkpoint dirs work); otherwise it
-falls back to a deterministic byte-level tokenizer with a Llama-3-style chat
-template, which is what the tests and the random-weight model scale use.
+``load_tokenizer`` reads a checkpoint dir's own tokenizer: the word
+tokenizer of a native trained checkpoint, or the HF tokenizer files of an
+HF checkpoint (``models/hf_tokenizer.py``, read without ``transformers``;
+only local dirs: nothing is downloaded).
+Without a dir, or for a dir with no tokenizer files, it falls back to a
+deterministic byte-level tokenizer with a Llama-3-style chat template,
+which is what the tests and the random-weight model scale use.
 
 Unlike the reference — which recovers document token spans by substring
 search plus re-tokenizing every prefix (``SDAG.py:277-302``) — prompts here
@@ -16,6 +19,9 @@ from __future__ import annotations
 import os
 import re
 from typing import Dict, List, Sequence
+
+from sdag_tpu_torch.models.hf_tokenizer import (TOKENIZER_FILE, VOCAB_FILE,
+                                                HFTokenizer)
 
 _SPECIALS = [
     "<|pad|>",
@@ -210,8 +216,11 @@ class WordTokenizer(ByteTokenizer):
 
 
 def load_tokenizer(name_or_path: str = ""):
-    """Word tokenizer if the dir carries one (native trained checkpoints),
-    else local HF tokenizer if a checkpoint dir exists; byte fallback else."""
+    """Word tokenizer if the dir carries one (native trained checkpoints);
+    an HF tokenizer if the dir has ``tokenizer.json`` or ``vocab.txt`` (a
+    dir whose files cannot be read raises: the JAX package falls back to
+    bytes when ``transformers`` fails, which would run an HF model on the
+    wrong ids); byte fallback else."""
     if name_or_path and os.path.isfile(
             os.path.join(name_or_path, WORD_TOKENIZER_FILE)):
         return WordTokenizer.load(name_or_path)
@@ -219,13 +228,8 @@ def load_tokenizer(name_or_path: str = ""):
             os.path.join(name_or_path, "native_decoder.json")):
         # native trained checkpoint without a word tokenizer: byte
         return ByteTokenizer()
-    if name_or_path and os.path.isdir(name_or_path):
-        try:
-            from transformers import AutoTokenizer
-            tok = AutoTokenizer.from_pretrained(name_or_path)
-            if tok.pad_token is None:
-                tok.pad_token = tok.eos_token
-            return tok
-        except Exception as e:  # noqa: BLE001
-            print(f"[tokenizer] HF load failed ({e}); using byte fallback")
+    if name_or_path and any(
+            os.path.isfile(os.path.join(name_or_path, f))
+            for f in (TOKENIZER_FILE, VOCAB_FILE)):
+        return HFTokenizer.from_dir(name_or_path)
     return ByteTokenizer()

@@ -3,10 +3,12 @@ indexes.
 
 Counterpart of ``sdag_tpu/pipeline/resources.py`` for the settings this
 port serves: sparse, dense and hybrid retrieval, knn neighbor windows, the
-centroid selection strategies, no defense, a native checkpoint or random
-weights at a named architecture, int8 weights (quantized at load), the
-int8 KV cache, speculative decoding, one device.  Every other setting raises
-NotImplementedError naming the ROADMAP item that will serve it.
+centroid selection strategies, no defense, a native checkpoint, a local HF
+checkpoint (``LLM_CHECKPOINT`` / ``RANKER_CHECKPOINT``, converted to
+float32 as in the JAX package) or random weights at a named architecture,
+int8 weights (quantized at load), the int8 KV cache, speculative decoding,
+one device.  Every other setting raises NotImplementedError naming the
+ROADMAP item that will serve it.
 
 The E5 encoder is built only when a setting calls it (dense or hybrid
 retrieval, ``DOC_NEIGHBORS_K > 0``, a centroid selection strategy); the
@@ -27,6 +29,8 @@ from sdag_tpu_torch.config import Config
 from sdag_tpu_torch.datamodels import Resources
 from sdag_tpu_torch.models.e5 import (E5Encoder, EncoderConfig,
                                       init_encoder_params)
+from sdag_tpu_torch.models.hf_convert import (load_decoder_checkpoint,
+                                              load_encoder_checkpoint)
 from sdag_tpu_torch.models.llama import (DecoderConfig, init_decoder_params,
                                          quantize_decoder_params_int8)
 from sdag_tpu_torch.models.tokenizer import load_tokenizer
@@ -61,21 +65,14 @@ def _decoder_config(arch: str) -> DecoderConfig:
 def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for settings outside this port's slice,
     naming the ROADMAP (Queue A) item that will serve each."""
-    from sdag_tpu_torch.models.native_ckpt import is_native_checkpoint
     unsupported = [
         (cfg.DEFENSE_BACKEND != "none",
          f"DEFENSE_BACKEND={cfg.DEFENSE_BACKEND!r}", "defenses"),
-        (bool(cfg.RANKER_CHECKPOINT),
-         f"an HF RANKER_CHECKPOINT ({cfg.RANKER_CHECKPOINT!r})",
-         "hf_convert"),
         # int8 weights with MESH_DATA > 1 raise here too, until the mesh
         # item decides how the int8 tree is sharded
         (cfg.MESH_MODEL > 1 or cfg.MESH_DATA > 1,
          f"MESH_MODEL={cfg.MESH_MODEL}, MESH_DATA={cfg.MESH_DATA}",
          "TP/DP on torch.distributed"),
-        (bool(cfg.LLM_CHECKPOINT)
-         and not is_native_checkpoint(cfg.LLM_CHECKPOINT),
-         f"an HF LLM_CHECKPOINT ({cfg.LLM_CHECKPOINT!r})", "hf_convert"),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -105,6 +102,12 @@ def build_generator(cfg: Config, device="cuda") -> Generator:
     if is_native_checkpoint(cfg.LLM_CHECKPOINT):
         tok = load_tokenizer(cfg.LLM_CHECKPOINT)
         params, dec_cfg = load_decoder(cfg.LLM_CHECKPOINT, device=dev)
+    elif cfg.LLM_CHECKPOINT:
+        # an HF dir: float32 tree (as the JAX package), read one tensor at
+        # a time; the shard mappings are closed when this returns
+        tok = load_tokenizer(cfg.LLM_CHECKPOINT)
+        params, dec_cfg = load_decoder_checkpoint(cfg.LLM_CHECKPOINT,
+                                                  device=dev)
     else:
         tok = load_tokenizer("")
         dec_cfg = _decoder_config(cfg.LLM_ARCH)
@@ -132,15 +135,20 @@ def needs_encoder(cfg: Config) -> bool:
 
 
 def build_encoder(cfg: Config, device="cuda") -> E5Encoder:
-    """Random weights at ``RANKER_ARCH`` from ``cfg.SEED`` (an HF ranker
-    checkpoint waits for hf_convert and raises)."""
+    """The HF ranker checkpoint ``RANKER_CHECKPOINT`` (float32, with its
+    own tokenizer), else random weights at ``RANKER_ARCH`` from
+    ``cfg.SEED``."""
     check_supported(cfg)
     dev = resolve_device(device)
-    enc_cfg = _encoder_config(cfg.RANKER_ARCH)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(cfg.SEED)
-    params = init_encoder_params(gen, enc_cfg, device=dev)
-    return E5Encoder(params, enc_cfg, load_tokenizer(""),
+    if cfg.RANKER_CHECKPOINT:
+        params, enc_cfg = load_encoder_checkpoint(cfg.RANKER_CHECKPOINT,
+                                                  device=dev)
+    else:
+        enc_cfg = _encoder_config(cfg.RANKER_ARCH)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(cfg.SEED)
+        params = init_encoder_params(gen, enc_cfg, device=dev)
+    return E5Encoder(params, enc_cfg, load_tokenizer(cfg.RANKER_CHECKPOINT),
                      model_name=cfg.RANKER_MODEL_NAME, device=dev)
 
 

@@ -1,4 +1,5 @@
-"""The PyTorch port imports neither jax nor the JAX package, and its entry
+"""The PyTorch port imports neither jax nor the JAX package, nor the HF
+libraries (transformers, tokenizers, safetensors, regex), and its entry
 points refuse to run without CUDA unless asked for the CPU."""
 
 import ast
@@ -25,26 +26,31 @@ def _port_modules():
     return sorted(mods)
 
 
+# the JAX side, and the HF libraries the port reads its files without
+BLOCKED = ("jax", "jaxlib", "sdag_tpu", "transformers", "tokenizers",
+           "safetensors", "regex")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib") or top == "sdag_tpu"
+    return name.split(".")[0] in BLOCKED
 
 
-_BLOCKER = r"""
+_BLOCK = r"""
 import importlib.abc, sys
+BLOCKED = %r
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        top = name.split(".")[0]
-        if top in ("jax", "jaxlib") or name == "sdag_tpu" \
-                or name.startswith("sdag_tpu."):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, Block())
+""" % (BLOCKED,)
+
+_BLOCKER = _BLOCK + r"""
 import importlib
 for mod in sys.argv[1:]:
     importlib.import_module(mod)
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")
-       or m == "sdag_tpu" or m.startswith("sdag_tpu.")]
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("imported", len(sys.argv) - 1)
 """
@@ -67,13 +73,53 @@ def test_every_port_module_imports_with_jax_and_sdag_tpu_blocked():
     assert f"imported {len(mods)}" in out.stdout
 
 
+def test_hf_dirs_read_and_render_with_the_hf_libraries_blocked(tmp_path):
+    """The HF checkpoint path at run time: chip_smoke writes a Llama-3-style
+    tokenizer and a tiny sharded checkpoint without any library; the port
+    reads both, encodes, decodes and renders the chat template (jinja2 is
+    allowed) with jax, the JAX package and the HF libraries blocked."""
+    script = _BLOCK + r"""
+import json, os, sys, torch
+import chip_smoke
+from sdag_tpu_torch.models.hf_convert import load_decoder_checkpoint
+from sdag_tpu_torch.models.llama import DecoderConfig
+from sdag_tpu_torch.models.tokenizer import load_tokenizer
+d = sys.argv[1]
+chip_smoke.write_llama_tokenizer(d, ["Hello there, world!"], n_merges=20)
+cfg = DecoderConfig.tiny()
+chip_smoke.write_hf_checkpoint(d, chip_smoke.llama_hf_specs(cfg),
+                               torch.bfloat16, "cpu", shards=2, seed=3)
+json.dump({"vocab_size": cfg.vocab_size, "hidden_size": cfg.d_model,
+           "num_hidden_layers": cfg.n_layers,
+           "num_attention_heads": cfg.n_heads,
+           "num_key_value_heads": cfg.n_kv_heads,
+           "intermediate_size": cfg.d_ff, "tie_word_embeddings": True},
+          open(os.path.join(d, "config.json"), "w"))
+params, _ = load_decoder_checkpoint(d, device="cpu")
+assert not chip_smoke._tree_bit_equal(params, chip_smoke.llama_hf_specs(cfg),
+                                      torch.bfloat16, "cpu", 3, llama=True)
+tok = load_tokenizer(d)
+chat = tok.apply_chat_template([{"role": "user", "content": "Hello!"}])
+ids = tok.encode(chat, add_special_tokens=False)
+assert ids[0] == 128000 and tok.decode(ids) == chat, (ids, chat)
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not bad, bad
+print("read", len(ids))
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert "read" in out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(r, f) for r, _d, fs in os.walk(PKG) for f in fs
      if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_static_import_of_jax_or_sdag_tpu(path):
     """Imports inside functions (never executed by the import test) are
-    checked statically."""
+    checked statically, the HF libraries' too."""
     with open(path, encoding="utf-8") as fh:
         tree = ast.parse(fh.read())
     for node in ast.walk(tree):
@@ -176,11 +222,27 @@ def _entry_cli(tmp_path):
     main([str(path)])
 
 
+def _entry_load_decoder_checkpoint(tmp_path):
+    from sdag_tpu_torch.models.hf_convert import load_decoder_checkpoint
+    load_decoder_checkpoint(str(tmp_path))
+
+
+def _entry_load_encoder_checkpoint(tmp_path):
+    from sdag_tpu_torch.models.hf_convert import load_encoder_checkpoint
+    load_encoder_checkpoint(str(tmp_path))
+
+
+def _entry_open_checkpoint(tmp_path):
+    from sdag_tpu_torch.models.safetensors_io import open_checkpoint
+    open_checkpoint(str(tmp_path))
+
+
 @pytest.mark.parametrize("entry", [
     _entry_run_experiment, _entry_init_resources, _entry_build_generator,
     _entry_generator, _entry_bm25_index, _entry_cli, _entry_build_encoder,
     _entry_e5_encoder, _entry_init_encoder_params, _entry_dense_index,
-    _entry_run_experiment_dense],
+    _entry_run_experiment_dense, _entry_load_decoder_checkpoint,
+    _entry_load_encoder_checkpoint, _entry_open_checkpoint],
     ids=lambda f: f.__name__[len("_entry_"):])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():

@@ -2,9 +2,11 @@
 the committed trained checkpoint (the configs of test_trained_qa_model):
 identical per-query answers CSV, clean ACC >= 0.5, ASR > 0 under attack,
 and the same with int8 weights, the int8 KV cache and speculative
-decoding at once; settings outside the port's slices raise
-NotImplementedError, the ranker path's and the decode slice's settings no
-longer do."""
+decoding at once; tiny HF Llama and BERT checkpoint dirs (a generator
+with a byte-level BPE tokenizer; a ranker with a WordPiece vocab) write
+the JAX package's answers CSV too; settings outside the port's slices
+raise NotImplementedError, the ranker path's, the decode slice's and HF
+checkpoints no longer do."""
 
 import csv
 import os
@@ -133,10 +135,8 @@ def test_settings_of_the_decode_slice_are_served(settings):
 @pytest.mark.parametrize("key,value", [
     ("DEFENSE_BACKEND", "ragdefender"),
     ("DEFENSE_BACKEND", "discern_and_answer"),
-    ("RANKER_CHECKPOINT", REPO),      # an HF ranker waits for hf_convert
     ("MESH_MODEL", 2),
     ("MESH_DATA", 2),
-    ("LLM_CHECKPOINT", REPO),     # a directory that is not a native ckpt
 ])
 def test_settings_outside_the_slice_raise(key, value):
     cfg = Config()
@@ -144,6 +144,23 @@ def test_settings_outside_the_slice_raise(key, value):
     setattr(cfg, key, value)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         check_supported(cfg)
+
+
+@pytest.mark.parametrize("key,build", [
+    ("RANKER_CHECKPOINT", "build_encoder"),
+    ("LLM_CHECKPOINT", "build_generator"),   # a dir that is no native ckpt
+])
+def test_hf_checkpoint_settings_are_served(key, build):
+    """An HF ranker or generator dir passes check_supported; a dir without
+    config.json (the repo root) raises FileNotFoundError naming it at
+    load."""
+    from sdag_tpu_torch.pipeline import resources
+    cfg = Config()
+    cfg.RETRIEVER_BACKEND = "sparse"
+    setattr(cfg, key, REPO)
+    check_supported(cfg)
+    with pytest.raises(FileNotFoundError, match="config.json"):
+        getattr(resources, build)(cfg, device="cpu")
 
 
 def test_int8_weights_with_a_data_mesh_still_raise():
@@ -184,3 +201,92 @@ def test_run_with_int8_weights_int8_cache_and_speculation_equals_jax(
         assert p == j
     assert m["iso"]["ground_truth_match_rate"] >= 0.5
     assert m["no_iso"]["ground_truth_match_rate"] >= 0.5
+
+
+def _hf_llama_dir(path, world):
+    """A tiny Llama-class HF checkpoint (GQA, untied, llama3 RoPE scaling,
+    f32, sharded) with a byte-level BPE tokenizer trained on the world."""
+    from transformers import LlamaConfig, LlamaForCausalLM
+
+    import chip_smoke
+    from test_torch_hf_tokenizer import _llama_dir
+    _llama_dir(path, corpus=chip_smoke._world_texts(), vocab_size=1200)
+    hf_cfg = LlamaConfig(
+        vocab_size=1280, hidden_size=64, intermediate_size=128,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=2048, rope_theta=500000.0,
+        tie_word_embeddings=False,
+        rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                      "original_max_position_embeddings": 256})
+    torch.manual_seed(7)
+    model = LlamaForCausalLM(hf_cfg)
+    model.save_pretrained(str(path), safe_serialization=True,
+                          max_shard_size="300KB")
+    return str(path)
+
+
+def _hf_bert_dir(path):
+    """A tiny BERT HF checkpoint with a WordPiece vocab of the world's
+    qa_ckpt corpus words (vocab.txt only: transformers converts it)."""
+    from transformers import BertConfig, BertModel
+
+    import chip_smoke
+    n = chip_smoke.write_bert_vocab(str(path), chip_smoke._world_texts(),
+                                    vocab_size=1500)
+    hf_cfg = BertConfig(vocab_size=n, hidden_size=64, num_hidden_layers=2,
+                        num_attention_heads=4, intermediate_size=128,
+                        max_position_embeddings=128)
+    torch.manual_seed(11)
+    BertModel(hf_cfg).save_pretrained(str(path), safe_serialization=True)
+    return str(path)
+
+
+@pytest.mark.parametrize("which", ["llm", "ranker", "llm_int8_kv_spec",
+                                   "both_hybrid_knn"])
+def test_hf_checkpoint_run_answers_csv_equals_jax(tmp_path, world, which):
+    """run_experiment with an HF LLM_CHECKPOINT (sparse, ISO/NO-ISO,
+    greedy; also with int8 weights, the int8 KV cache and speculation), an
+    HF RANKER_CHECKPOINT beside the trained decoder (hybrid retrieval), or
+    both (hybrid, 2-NN windows) writes the JAX package's answers CSV, row
+    for row."""
+    pytest.importorskip("transformers")
+    from sdag_tpu.config import Config as JaxConfig
+    from sdag_tpu.pipeline.orchestrator import run_experiment as jax_run
+    from sdag_tpu_torch.models.hf_tokenizer import HFTokenizer
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    over = dict(MAX_GEN_TOKENS_RAG=12)
+    if which.startswith(("llm", "both")):
+        over["LLM_CHECKPOINT"] = _hf_llama_dir(tmp_path / "hf_llm", world)
+    if which.startswith(("ranker", "both")):
+        over.update(RANKER_CHECKPOINT=_hf_bert_dir(tmp_path / "hf_ranker"),
+                    RETRIEVER_BACKEND="sparse_and_dense",
+                    DENSE_INDEX_PATH="")
+    if which == "llm_int8_kv_spec":
+        over.update(LLM_WEIGHTS_DTYPE="int8", KV_CACHE_DTYPE="int8",
+                    SPECULATIVE_DRAFT_LEN=4)
+    if which == "both_hybrid_knn":
+        over["DOC_NEIGHBORS_K"] = 2
+    cfgs = []
+    for sub, cls in (("port", Config), ("jax", JaxConfig)):
+        cfg = _cfg(tmp_path / sub, world, cls, attack=False)
+        for key, val in over.items():
+            setattr(cfg, key, val)
+        cfgs.append(cfg)
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    res = init_resources(cfgs[0], device="cpu")
+    if "LLM_CHECKPOINT" in over:
+        assert isinstance(res.generator.tokenizer, HFTokenizer)
+    if "RANKER_CHECKPOINT" in over:
+        assert isinstance(res.ranker.tokenizer, HFTokenizer)
+    run_experiment(cfgs[0], resources=res, device="cpu")
+    jax_run(cfgs[1])
+    name = "results_top_k=5_attacker_pos=0.csv"
+    port_rows = _rows(tmp_path / "port" / "out" / name)
+    jax_rows = _rows(tmp_path / "jax" / "out" / name)
+    assert len(port_rows) == len(jax_rows) == 24
+    for p, j in zip(port_rows, jax_rows):
+        assert p == j
+    assert any(r["rag_answer_iso"] and r["rag_answer_noiso"]
+               for r in port_rows)
