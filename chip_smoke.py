@@ -1658,14 +1658,22 @@ def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
     esize = torch.finfo(dtype).bits // 8
     nbytes = N * K + 4 * N + esize * (M * K + M * N)
     ops = 2.0 * M * N * K
-    peak = PEAK_FLOPS["bfloat16" if dtype == torch.bfloat16 else "float32"]
-    bt, ot = nbytes / H100_BYTES_PER_S * 1e3, ops / peak * 1e3
+    bt = nbytes / H100_BYTES_PER_S * 1e3
+    if dtype == torch.bfloat16:
+        ot = ops / PEAK_FLOPS["bfloat16"] * 1e3
+    else:
+        # the f32 body's work: two TF32 products (split activations)
+        ot = 2 * ops / TF32_FLOPS * 1e3
     rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
            "M": M, "N": N, "K": K, "max_abs_err": err, "row_rel_err": row_err,
            "tol": tol, "bound_ms": max(bt, ot),
            "bound_by": "bytes" if bt >= ot else "operations",
            "plan": Q.k6_plan(N, K, torch.cuda.get_device_properties(
-               dev).multi_processor_count)}
+               dev).multi_processor_count, dtype)}
+    if dtype == torch.float32:
+        # the same product at the f32 FMA rate (the earlier FMA body's bound)
+        rec["bound_f32_fma_ms"] = max(
+            bt, ops / PEAK_FLOPS["float32"] * 1e3)
     if plant:
         col, k0 = N // 3, (K // 2) // 64 * 64
         s2 = s.clone()
@@ -1709,7 +1717,8 @@ def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
 def _k6_step(recs, cfg, M, dtype):
     """A decode step's (or window round's) K6 work at M rows: the sums of
     the cases' times and bounds, each weighted by its count a step."""
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+    keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
+        ("bound_f32_fma_ms",) if dtype == "float32" else ())
     tot = {k: 0.0 for k in keys}
     by = {(r["N"], r["K"], r["M"], r["dtype"]): r for r in recs}
     bytes_ms = ops_ms = 0.0
@@ -1734,22 +1743,63 @@ def _k6_cases(dev):
     int8 tree runs K6's f32 body); the planted faults at one shape of each
     configuration."""
     import torch
-    from sdag_tpu_torch.models.llama import DecoderConfig
-    from sdag_tpu_torch.models.native_ckpt import load_config
     g = torch.Generator(device=dev)
     g.manual_seed(8)
     recs = []
-    for tag, cfg, dtype in (
-            ("8b", DecoderConfig.llama3_8b(), torch.bfloat16),
-            ("qa_ckpt", load_config(os.path.join(REPO, "experiments", "data",
-                                                 "qa_ckpt")), torch.float32),
-            ("8b_f32", DecoderConfig.llama3_8b(), torch.float32)):
+    for tag, cfg, dtype in _k6_configs():
         for M in (8, 40):
             for i, (name, n, k, _count) in enumerate(k6_products(cfg)):
                 recs.append(_k6_case(f"{tag}_{name}_M{M}", M, n, k, dtype, g,
                                      dev, plant=(M == 8 and i == 0)))
         torch.cuda.empty_cache()
     return recs
+
+
+def _k6_configs():
+    """K6's configurations in phase 8(a): (tag, decoder config, dtype)."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.models.native_ckpt import load_config
+    return (("8b", DecoderConfig.llama3_8b(), torch.bfloat16),
+            ("qa_ckpt", load_config(os.path.join(REPO, "experiments", "data",
+                                                 "qa_ckpt")), torch.float32),
+            ("8b_f32", DecoderConfig.llama3_8b(), torch.float32))
+
+
+def _k6_rows_bit_equal(dev):
+    """K6's plan ignores the row count, so at every product of each
+    configuration the first rows of a 40-row product are the same bits as
+    those rows alone (8 rows, 1 row): a window row equals a decode
+    step's."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(81)
+    recs = [_k6_rows_bit_equal_at(tag, cfg, dtype, g, dev)
+            for tag, cfg, dtype in _k6_configs()]
+    torch.cuda.empty_cache()
+    return recs
+
+
+def _k6_rows_bit_equal_at(tag, cfg, dtype, g, dev):
+    import torch
+    from sdag_tpu_torch.ops import int8_matmul as Q
+    differing = {}
+    for name, n, k, _count in k6_products(cfg):
+        x = torch.randn(40, k, generator=g, device=dev).to(dtype)
+        w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+        y40 = Q.int8_matmul_cuda(x, w, s)
+        differing[name] = sum(
+            int((Q.int8_matmul_cuda(x[:m].contiguous(), w, s)
+                 != y40[:m]).sum()) for m in (8, 1))
+    rec = {"name": tag, "dtype": str(dtype).replace("torch.", ""),
+           "differing": differing}
+    log(f"[phase8] K6 rows bit-equal across row counts {json.dumps(rec)}")
+    if any(differing.values()):
+        raise AssertionError(f"phase 8 {tag}: K6 rows differ between row "
+                             f"counts: {differing}")
+    return rec
 
 
 def _spec_stats(gen):
@@ -1819,8 +1869,9 @@ def _p8_main_path(dev):
     return rec, res
 
 
-def _p8_equality(gen, dev):
-    """(c) one NO-ISO batch on the 8B int8 tree and int8 cache: graph
+def _p8_equality(gen, dev, kv_cache_dtype="int8", tag="phase 8"):
+    """(c) one NO-ISO batch on an int8 tree (8(c): the 8B tree and the
+    int8 cache; 9(d): the HF 8B tree in f32 and its native cache): graph
     equals eager, greedy and sampled, for plain decode and speculative
     rounds; greedy speculative tokens equal greedy plain tokens."""
     import torch
@@ -1829,19 +1880,19 @@ def _p8_equality(gen, dev):
     greedy = {}
     for name, draft in (("plain", 0), ("spec4", 4)):
         eng = Generator(gen.params, gen.cfg, gen.tokenizer, temperature=0.0,
-                        batch_bucket=8, kv_cache_dtype="int8",
+                        batch_bucket=8, kv_cache_dtype=kv_cache_dtype,
                         speculative_draft=draft, device=dev)
         rec[name], greedy[name] = _decode_graph_vs_eager(
-            eng, dev, tag=f"phase 8 {name}", kv_cache_dtype="int8",
+            eng, dev, tag=f"{tag} {name}", kv_cache_dtype=kv_cache_dtype,
             speculative_draft=draft)
     same = torch.equal(greedy["plain"][0], greedy["spec4"][0]) and \
         torch.equal(greedy["plain"][1], greedy["spec4"][1])
     rec["spec_equals_plain"] = {
         "equal": same, "tokens_differing": int(
             (greedy["plain"][0] != greedy["spec4"][0]).sum())}
-    log(f"[phase8] equality {json.dumps(rec)}")
+    log(f"[{tag}] equality {json.dumps(rec)}")
     if not same:
-        raise AssertionError(f"phase 8: greedy speculative tokens differ "
+        raise AssertionError(f"{tag}: greedy speculative tokens differ "
                              f"from plain decode's: {rec}")
     return rec
 
@@ -1930,7 +1981,7 @@ def phase8(dev):
     from sdag_tpu_torch.models.llama import DecoderConfig
     from sdag_tpu_torch.models.native_ckpt import load_config
     torch.cuda.empty_cache()
-    recs = {"k6": _k6_cases(dev)}
+    recs = {"k6": _k6_cases(dev), "k6_rows_bit_equal": _k6_rows_bit_equal(dev)}
     recs["k6_step_8b"] = {
         f"M{M}": _k6_step(recs["k6"], DecoderConfig.llama3_8b(), M,
                           "bfloat16") for M in (8, 40)}
@@ -2003,6 +2054,7 @@ LLAMA3_CHAT_TEMPLATE = (
     "    {{- '<|start_header_id|>assistant<|end_header_id|>\\n\\n' }}\n"
     "{%- endif %}\n")
 HF_MIN_FREE_BYTES = 40e9
+P9_LLAMA_DIR = "llama3_8b_hf"
 
 
 def _world_texts(world_name="qa_ckpt"):
@@ -2358,7 +2410,7 @@ def _p9_llama(dev, root):
     from sdag_tpu_torch.pipeline.resources import init_resources
     from sdag_tpu_torch.utils.synth_qa import load_world
     cfg8 = DecoderConfig.llama3_8b()
-    ckpt = os.path.join(root, "llama3_8b_hf")
+    ckpt = os.path.join(root, P9_LLAMA_DIR)
     specs = llama_hf_specs(cfg8)
     seed = 900
     nbytes, write_s = write_hf_checkpoint(ckpt, specs, torch.bfloat16, dev,
@@ -2467,6 +2519,82 @@ def _p9_llama(dev, root):
     if not rec["outputs_written"] or not rec["logits_finite"] or \
             rec["logits_shape"] != [1, 1, cfg8.vocab_size]:
         raise AssertionError(f"phase 9: bad outputs {rec}")
+    return rec
+
+
+def _p9_llama_int8(dev, root):
+    """(d) the 8B checkpoint of (a) served with int8 weights and
+    speculation (D = 4, a window of 8 x 5 = 40 rows): the float32 tree is
+    quantized on load, the activations stay float32, so every decode
+    product runs K6's f32 body; (b)'s 24 queries and 32 new tokens.
+    Counts zeroed before the run and read after."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    cfg, facts = _synth_cfg(os.path.join(root, "run_8b_int8"), world,
+                            world.eval_entities[:4], 1, world.seed + 3, 1,
+                            LLM_CHECKPOINT=os.path.join(root, P9_LLAMA_DIR),
+                            MAX_GEN_TOKENS_RAG=32, BM25_ENGINE="scan",
+                            LLM_WEIGHTS_DTYPE="int8", SPECULATIVE_DRAFT_LEN=4)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats(dev)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    res = init_resources(cfg, device=dev)
+    torch.cuda.synchronize(dev)
+    load_s = time.perf_counter() - t0
+    gen = res.generator
+    t1 = time.perf_counter()
+    run_experiment(cfg, resources=res, device=dev)
+    torch.cuda.synchronize(dev)
+    run_s = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    p = gen.params
+    mats = [p["embed"], p["lm_head"]] + [
+        leaf for layer in p["layers"] for part in ("attn", "mlp")
+        for leaf in layer[part].values()]
+    st = gen.stats
+    base = cfg.OUTPUT_CSV_BASE + "_top_k=5_attacker_pos=1"
+    rec = {"queries": len(facts), "cut": "24 queries, 32 new tokens (width "
+           "and depth are Llama-3.1-8B's)",
+           "load_and_quantize_s": load_s, "run_s": run_s,
+           "matrices": len(mats),
+           "matrices_int8": all(isinstance(m, dict)
+                                and m["w"].dtype == torch.int8 for m in mats),
+           "activation_dtype": str(gen.cfg.dtype), "launches": launches,
+           "prefill_tok_s": st["prefill_tokens"] / st["prefill_s"],
+           "decode_tokens": st["decode_tokens"], "decode_s": st["decode_s"],
+           "decode_tok_s": st["decode_tokens"] / st["decode_s"],
+           "rounds_run": st["decode_steps"],
+           "ms_per_round": 1e3 * st["decode_s"] / st["decode_steps"],
+           "graph_captures": st["graph_captures"], "spec": _spec_stats(gen),
+           "peak_mem_gib": peak / 2 ** 30,
+           "outputs_written": all(os.path.isfile(base + ext)
+                                  for ext in (".csv", ".json"))}
+    rec["profile"] = _profile_window(gen, dev)
+    log(f"[phase9] 8B HF int8 + speculation {json.dumps(rec)}")
+    rec["equality"] = _p8_equality(gen, dev, kv_cache_dtype="native",
+                                   tag="phase 9(d)")
+    del res, gen, p, mats
+    _free_cuda()
+    if not rec["matrices_int8"] or rec["activation_dtype"] != \
+            "torch.float32":
+        raise AssertionError(f"phase 9(d): the tree is not int8 matrices "
+                             f"with float32 activations: {rec}")
+    if launches.get("int8_matmul_f32", 0) < 225:
+        raise AssertionError(f"phase 9(d): K6-f32 launched "
+                             f"{launches.get('int8_matmul_f32', 0)} < 225 "
+                             "(one round's products)")
+    for key in ("sdag_prefill_f32", "bm25_scan_topk"):
+        if not launches.get(key, 0):
+            raise AssertionError(f"phase 9(d): {key} never launched")
+    if not rec["outputs_written"]:
+        raise AssertionError(f"phase 9(d): outputs missing: {rec}")
     return rec
 
 
@@ -2616,6 +2744,7 @@ def phase9(dev):
                 f"{HF_MIN_FREE_BYTES / 1e9:.0f} GB the 8B checkpoint (16.1 "
                 "GB) and the ranker (1.3 GB) need; the model is not cut")
         return {"free_gb": free, "llama3_8b": _p9_llama(dev, root),
+                "llama3_8b_int8": _p9_llama_int8(dev, root),
                 "e5_large_v2": _p9_ranker(dev, root)}
 
 
@@ -2775,6 +2904,14 @@ def main() -> int:
         f"{hr['launches'].get('topk_matmul_f32', 0)} launches, encoder "
         f"{hr['encoder']['tokens'] / hr['encoder']['seconds']:.1f} tok/s; "
         f"on {card}")
+    h8q = p9["llama3_8b_int8"]
+    log(f"[summary] phase 9(d) the HF 8B tree in int8 (f32 activations) + "
+        f"speculation: load and quantize {h8q['load_and_quantize_s']:.1f} s,"
+        f" prefill {h8q['prefill_tok_s']:.1f} tok/s, decode "
+        f"{h8q['decode_tok_s']:.1f} tok/s ({h8q['ms_per_round']:.2f} ms a "
+        f"round, {h8q['spec']['accepted_drafts_per_round']} accepted drafts "
+        f"a round), peak {h8q['peak_mem_gib']:.2f} GiB; K6-f32 "
+        f"{h8q['launches'].get('int8_matmul_f32', 0)} launches; on {card}")
     log(f"[summary] phases 0-9 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)

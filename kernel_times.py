@@ -44,7 +44,9 @@ that builds that tree's kernels with nvcc:
 * K6 ``int8_matmul_cuda`` at the 8B decode step's weight products (wq/wo,
   wk/wv, gate/up, down, lm_head) at M = 8 and M = 40, device time a call;
   a tree without K6 times those products as its decode step ran them
-  (bf16 ``x @ w``);
+  (bf16 ``x @ w``); then K6's f32 body at the 8B and qa_ckpt products,
+  M = 8 and 40, each call on a fresh copy of the weight (not L2-resident),
+  beside f32 ``torch.matmul``, and both summed over a step (round);
 * decode at llama3-8b of one 8 x 32 batch in the tree's configurations
   (native, int8 weights, + int8 KV cache, + speculation with D = 4;
   native alone in a tree without them).
@@ -254,6 +256,55 @@ def k6_times(c, dev, out):
             out[f"K6_8b_{name}_M{M}_graph"] = graph_ms(fn)
             del w
     torch.cuda.empty_cache()
+    if Q is not None:
+        k6_f32_times(c, dev, out, Q)
+
+
+def k6_f32_times(c, dev, out, Q):
+    """K6's f32 body at the 8B decode step's products and at qa_ckpt's,
+    M = 8 and M = 40, and f32 ``torch.matmul`` (the library call it
+    replaces) at the same shapes: device time a call from a replayed
+    graph whose calls cycle through copies of the weight (at least 128 MB
+    of them), so each call reads its weight from device memory, not L2,
+    as a decode step does; and each summed over a step (round) with the
+    products' counts (225 products at 8B)."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.models.native_ckpt import load_config
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+
+    def cycling(fn, copies):
+        turn = [0]
+
+        def call():
+            fn(copies[turn[0] % len(copies)])
+            turn[0] += 1
+        return call
+
+    for tag, cfg in (("8b", DecoderConfig.llama3_8b()),
+                     ("qa_ckpt", load_config(os.path.join(
+                         HERE, "experiments", "data", "qa_ckpt")))):
+        for M in (8, 40):
+            step = {"K6": 0.0, "lib": 0.0}
+            for name, n, k, count in c.k6_products(cfg):
+                x = torch.randn(M, k, generator=g, device=dev)
+                s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+                w = [torch.randint(-127, 128, (n, k), generator=g,
+                                   device=dev, dtype=torch.int8)
+                     for _ in range(min(32, -(-(128 << 20) // (n * k))))]
+                ms = graph_ms(cycling(
+                    lambda wi: Q.int8_matmul_cuda(x, wi, s), w))
+                wf = [wi.float() for wi in w[:max(1, len(w) // 4)]]
+                lib = graph_ms(cycling(lambda wi: x @ wi.T, wf))
+                del w, wf
+                out[f"K6_f32_{tag}_{name}_M{M}_graph"] = ms
+                out[f"lib_f32_matmul_{tag}_{name}_M{M}_graph"] = lib
+                step["K6"] += count * ms
+                step["lib"] += count * lib
+            out[f"K6_f32_{tag}_step_M{M}_graph"] = step["K6"]
+            out[f"lib_f32_matmul_{tag}_step_M{M}_graph"] = step["lib"]
+            torch.cuda.empty_cache()
 
 
 def decode_int8_times(c, dev, out):

@@ -17,7 +17,10 @@
 // speculative verification window of batch x (D + 1) tokens) the product
 // does at most 2 M operations per weight byte, below the ~295 at which the
 // tensor cores, not device memory, become the limit: it is bound by the
-// weight bytes, N K of them, read once.
+// weight bytes, N K of them, read once.  The f32 body's two TF32 products
+// do 4 M operations a weight byte against ~148 at the TF32 rate: bytes
+// bind up to M ~ 37, the tensor cores just above (2.4 against 2.3 ms over
+// an 8B window round at M = 40).
 //
 // bfloat16 body (the 8B model): mma.sync.m16n8k16 on the tensor cores,
 // f32 accumulators.  A warp owns 16 output channels (the A operand) and
@@ -42,10 +45,34 @@
 // on N and K alone, so a row's sums are the same bits at any M: a decode
 // step and a verification window row agree.
 //
-// float32 body (the trained qa_ckpt decoder, d=192): f32 FMA.  A warp
-// owns 4 channels x 8 activation rows (blockIdx.y walks row tiles); lane
-// l takes 16-byte weight chunks at k = 16 (l + 32 i), the 32 partial sums
-// meet by warp shuffles, lane i writes sum i.
+// float32 body (an HF checkpoint's tree is float32, so its int8 tree runs
+// it at 8B width; also the trained qa_ckpt decoder, d=192; an FMA body
+// before, which re-read the weights for every 8 rows): split TF32 on
+// mma.sync.m16n8k8, in the bf16 body's skeleton.  Every int8 value is exact
+// in TF32 (10 mantissa bits), so only the activation is split: x = hi +
+// lo, hi = x rounded to TF32 by the mask below, lo = x - hi (exact in
+// f32; the tensor core keeps its top 19 bits), and y = w.lo + w.hi, two
+// products a fragment, both exact, the residual ~2^-21 |x| a term.  A warp
+// owns 16 channels (A) and every activation row in n8 tiles (B, NT of
+// them), so a block reads each weight byte once for all M rows.  Within
+// a 64-wide k block, k step j (0..7) of thread group t takes the actual
+// columns 16 t + 2 j + {0, 1} as its logical columns {t, t + 4}: one
+// 16-byte weight load a row, four 16-byte activation loads a row tile.
+// Activation chunks of KC columns (256, or 128 above 8 row tiles, so
+// shared memory stays at 64 KB) go to shared memory by cp.async, 16-byte
+// chunk c of row r at c ^ (2 (c / 8 % 2) + r % 2): the eight lanes of one
+// 16-byte read phase (two rows, four thread groups) then hit all 32
+// banks.  The tensor core does not round to nearest when it accumulates:
+// one accumulator over K = 14336 drifted past the 1e-5 row-relative
+// limit on the H100.  So each 64-wide k block sums into a fresh fragment,
+// which is then added to the running sum in f32, rounding to nearest.
+// The k order (64-wide blocks, splits from the plan) depends on neither M
+// nor KC, so a row's sums are the same bits at any M.  K splits and the
+// split-order reduction as in the bf16 body, with a plan of its own: at
+// most one wave of two blocks an SM (the body's occupancy at 40 rows, 127
+// registers a thread), as a second, partial wave cost more time than
+// the extra split saved.  y = acc * s, the f32 formula's one rounding.
+// The weights convert by one byte permute and one subtract each.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,10 +85,14 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_ROWS = 128;        // 16 activation-row tiles of 8
-constexpr int F32_ROWS_PER_WARP = 4;
 constexpr int KC = 256;              // activation columns staged a chunk
 constexpr int XS = KC + 8;           // staged row stride: 16 bytes of pad
-constexpr int F32_M_TILE = 8;
+
+// the f32 body's activation columns staged a chunk (ops/int8_matmul.py
+// k6_geometry mirrors this; the entry point checks the two agree)
+__host__ __device__ constexpr int f32_kc(int nt) {
+  return nt <= 8 ? 256 : 128;
+}
 
 // Four int8 (the bytes of q) as float: byte b + 128 is an unsigned byte u,
 // and 2^23 + u is exact in the mantissa of 0x4B0000uu.
@@ -72,6 +103,18 @@ __device__ __forceinline__ void i8x4_to_f32(uint32_t q, float (&f)[4]) {
   f[1] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4441)) - magic;
   f[2] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4442)) - magic;
   f[3] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4443)) - magic;
+}
+
+// Four int8 as float: each byte under 0x4B0000 by one byte permute, then
+// the magic-number subtract (the bf16 body's i8x4_to_f32 with the OR
+// folded into the permute).
+__device__ __forceinline__ void i8x4_to_f32_prmt(uint32_t q, float (&f)[4]) {
+  const uint32_t u = q ^ 0x80808080u;
+  const float magic = 8388736.0f;    // 2^23 + 128
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - magic;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - magic;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - magic;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - magic;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
@@ -86,6 +129,29 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits), lo the exact
+// remainder (as csrc/encoder_attention.cu's K3-f32)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  const uint32_t h = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = h;
+  lo = __float_as_uint(x - __uint_as_float(h));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the f32 body's staged position of 16-byte chunk c of activation row r
+__device__ __forceinline__ int f32_chunk(int r, int c) {
+  return c ^ ((((c >> 3) & 1) << 1) | (r & 1));
 }
 
 __device__ __forceinline__ uint4 ldg16(const void* p) {
@@ -215,70 +281,162 @@ __global__ void int8_matmul_bf16_reduce(const float* __restrict__ part,
   y[i] = scale_bf16(acc, s[i % N]);
 }
 
+template <int NT>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_f32_kernel(const float* __restrict__ x,
                        const int8_t* __restrict__ w,
                        const float* __restrict__ s, float* __restrict__ y,
-                       int M, int K, int N) {
-  constexpr int R = F32_ROWS_PER_WARP, MT = F32_M_TILE;
+                       float* __restrict__ part, int M, int K, int N,
+                       int per) {
+  constexpr int KCF = f32_kc(NT), ROWS = NT * 8;
+  extern __shared__ uint4 smem[];
+  float* xs = reinterpret_cast<float*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int o0 = (blockIdx.x * WARPS + warp) * R;
-  const int m0 = blockIdx.y * MT;
-  float acc[R][MT];
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < MT; ++i) acc[r][i] = 0.f;
+  const int g = lane >> 2, t = lane & 3;
+  const int o0 = (blockIdx.x * (blockDim.x >> 5) + warp) * 16;
+  const int row_a = o0 + g, row_b = o0 + g + 8;
+  const bool ok_a = row_a < N, ok_b = row_b < N;
+  const int8_t* wa = w + (size_t)(ok_a ? row_a : 0) * K;
+  const int8_t* wb = w + (size_t)(ok_b ? row_b : 0) * K;
 
-  for (int k = lane * 16; k < K; k += 512) {
-    float wf[R][16];
+  const int kblocks = (K + 63) / 64;
+  const int kb0 = blockIdx.y * per;
+  const int kb1 = min(kblocks, kb0 + per);
+
+  float c[NT][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      uint4 q = make_uint4(0, 0, 0, 0);
-      if (o0 + r < N) q = ldg16(w + (size_t)(o0 + r) * K + k);
-      const uint32_t words[4] = {q.x, q.y, q.z, q.w};
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float f[4];
-        i8x4_to_f32(words[j], f);
+    for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
+
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int kc = kb0 * 64; kc < kb1 * 64; kc += KCF) {
+    const int kend = min(min(kc + KCF, kb1 * 64), K);
+    // the chunk's weight loads go out first, then the activation rows to
+    // shared memory by cp.async, all in flight together
+    uint4 qa[KCF / 64], qb[KCF / 64];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) wf[r][4 * j + e] = f[e];
-      }
+    for (int j = 0; j < KCF / 64; ++j) {
+      const int k = kc + 64 * j + 16 * t;
+      qa[j] = ok_a && k < kend ? ldg16(wa + k) : zero;
+      qb[j] = ok_b && k < kend ? ldg16(wb + k) : zero;
     }
+    for (int i = threadIdx.x; i < ROWS * (KCF / 4); i += blockDim.x) {
+      const int r = i / (KCF / 4), c4 = i % (KCF / 4);
+      const int k = kc + 4 * c4;
+      const bool ok = r < M && k < kend;
+      cp_async16(smem_u32(xs + r * KCF + 4 * f32_chunk(r, c4)),
+                 ok ? x + (size_t)r * K + k : x, ok ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
 #pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      if (m0 + i >= M) break;
-      const float* xr = x + (size_t)(m0 + i) * K + k;
-      float xv[16];
+    for (int j = 0; j < KCF / 64; ++j) {
+      if (kc + 64 * j >= kend) break;
+      // the 64-wide k block sums into a fresh fragment, then into c
+      float d[NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(xr) + j);
-        xv[4 * j] = v.x;
-        xv[4 * j + 1] = v.y;
-        xv[4 * j + 2] = v.z;
-        xv[4 * j + 3] = v.w;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) d[n][i] = 0.f;
+      const uint32_t wa_w[4] = {qa[j].x, qa[j].y, qa[j].z, qa[j].w};
+      const uint32_t wb_w[4] = {qb[j].x, qb[j].y, qb[j].z, qb[j].w};
+#pragma unroll
+      for (int st = 0; st < 4; ++st) {
+        // k steps 2 st and 2 st + 1: actual columns 16 t + 4 st + {0, 1}
+        // and + {2, 3}
+        float fa[4], fb[4];
+        i8x4_to_f32_prmt(wa_w[st], fa);
+        i8x4_to_f32_prmt(wb_w[st], fb);
+        const uint32_t a0[4] = {
+            __float_as_uint(fa[0]), __float_as_uint(fb[0]),
+            __float_as_uint(fa[1]), __float_as_uint(fb[1])};
+        const uint32_t a1[4] = {
+            __float_as_uint(fa[2]), __float_as_uint(fb[2]),
+            __float_as_uint(fa[3]), __float_as_uint(fb[3])};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int r = n * 8 + g;
+          const float4 v = *reinterpret_cast<const float4*>(
+              xs + r * KCF + 4 * f32_chunk(r, 16 * j + 4 * t + st));
+          uint32_t h0, l0, h1, l1, h2, l2, h3, l3;
+          split_tf32(v.x, h0, l0);
+          split_tf32(v.y, h1, l1);
+          split_tf32(v.z, h2, l2);
+          split_tf32(v.w, h3, l3);
+          mma_tf32(d[n], a0, l0, l1);
+          mma_tf32(d[n], a0, h0, h1);
+          mma_tf32(d[n], a1, l2, l3);
+          mma_tf32(d[n], a1, h2, h3);
+        }
       }
 #pragma unroll
-      for (int r = 0; r < R; ++r)
+      for (int n = 0; n < NT; ++n)
 #pragma unroll
-        for (int e = 0; e < 16; ++e) acc[r][i] = fmaf(xv[e], wf[r][e], acc[r][i]);
+        for (int i = 0; i < 4; ++i) c[n][i] += d[n][i];
+    }
+    __syncthreads();
+  }
+
+  // one split: scale and store; several: f32 partial sums, which
+  // int8_matmul_f32_reduce adds in split order
+  const float sa = ok_a ? s[row_a] : 0.f, sb = ok_b ? s[row_b] : 0.f;
+  float* pr = part + (size_t)blockIdx.y * M * N;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int m = n * 8 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mm = m + (i & 1);
+      const bool hi = i >= 2;
+      const int o = hi ? row_b : row_a;
+      if (mm >= M || !(hi ? ok_b : ok_a)) continue;
+      if (gridDim.y == 1)
+        y[(size_t)mm * N + o] = c[n][i] * (hi ? sb : sa);
+      else
+        pr[(size_t)mm * N + o] = c[n][i];
     }
   }
-  // every lane gets all R * MT sums; lane r * MT + i keeps (r, i)
-  float out = 0.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      float v = acc[r][i];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == r * MT + i) out = v;
-    }
-  const int r = lane / MT, i = lane % MT;
-  const int o = o0 + r, m = m0 + i;
-  if (o < N && m < M) y[(size_t)m * N + o] = out * s[o];
+}
+
+__global__ void int8_matmul_f32_reduce(const float* __restrict__ part,
+                                       const float* __restrict__ s,
+                                       float* __restrict__ y, int M, int N,
+                                       int splits) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * N) return;
+  float acc = part[i];
+  for (int sp = 1; sp < splits; ++sp) acc += part[(size_t)sp * M * N + i];
+  y[i] = acc * s[i % N];
+}
+
+template <int NT>
+int launch_f32(const void* x, const void* w, const void* s, void* y,
+               void* part, int M, int K, int N, int warps, int splits,
+               cudaStream_t stream) {
+  const int smem = NT * 8 * f32_kc(NT) * 4;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        int8_matmul_f32_kernel<NT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int per = ((K + 63) / 64 + splits - 1) / splits;
+  dim3 grid((N + 16 * warps - 1) / (16 * warps), splits);
+  int8_matmul_f32_kernel<NT><<<grid, warps * 32, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(s), static_cast<float*>(y),
+      static_cast<float*>(part), M, K, N, per);
+  if (splits > 1) {
+    const int total = M * N;
+    int8_matmul_f32_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
+        static_cast<const float*>(part), static_cast<const float*>(s),
+        static_cast<float*>(y), M, N, splits);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <int NT>
@@ -320,30 +478,30 @@ const char* kernel_error_string(int code) {
 
 // x [M, K] (dtype 0 = float32, 1 = bfloat16), w [N, K] int8, s [N] f32,
 // y [M, N] of x's type; all contiguous, 16-byte aligned, K % 16 == 0,
-// 1 <= M <= 128.  bf16 only: warps (4 or 8) 16-channel tiles a block and
-// splits of K across blocks (ops/int8_matmul.py k6_plan, from N and K
-// alone, so a row's sums do not depend on M); with splits > 1, part is f32
-// scratch [splits, M, N].  Returns 0, a CUDA error code or -1.
+// 1 <= M <= 128.  warps (4 or 8) 16-channel tiles a block and splits of K
+// across blocks (ops/int8_matmul.py k6_plan, from N and K alone, so a
+// row's sums do not depend on M); with splits > 1, part is f32 scratch
+// [splits, M, N].  kc: the activation columns staged a chunk, as
+// ops/int8_matmul.py k6_geometry gives it for M (256 for bf16, f32_kc
+// for f32).  Returns 0, a CUDA error code or -1.
 int int8_matmul(const void* x, const void* w, const void* s, void* y,
                 void* part, int M, int K, int N, int dtype, int warps,
-                int splits, void* stream) {
+                int splits, int kc, void* stream) {
   if (M < 1 || M > MAX_ROWS || K < 16 || K % 16 || N < 1) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    dim3 grid((N + WARPS * F32_ROWS_PER_WARP - 1) / (WARPS * F32_ROWS_PER_WARP),
-              (M + F32_M_TILE - 1) / F32_M_TILE);
-    int8_matmul_f32_kernel<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const int8_t*>(w),
-        static_cast<const float*>(s), static_cast<float*>(y), M, K, N);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 1 || (warps != 4 && warps != 8) || splits < 1 ||
-      (splits > 1 && part == nullptr))
+  if ((dtype != 0 && dtype != 1) || (warps != 4 && warps != 8) ||
+      splits < 1 || (splits > 1 && part == nullptr))
     return -1;
-  switch ((M + 7) / 8) {
-#define K6_CASE(nt) \
-  case nt:          \
-    return launch_bf16<nt>(x, w, s, y, part, M, K, N, warps, splits, st);
+  const int nt = (M + 7) / 8;
+  if (kc != (dtype == 0 ? f32_kc(nt) : KC)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (nt) {
+#define K6_CASE(nt)                                                         \
+  case nt:                                                                  \
+    return dtype == 0                                                       \
+               ? launch_f32<nt>(x, w, s, y, part, M, K, N, warps, splits,   \
+                                st)                                         \
+               : launch_bf16<nt>(x, w, s, y, part, M, K, N, warps, splits,  \
+                                 st);
     K6_CASE(1) K6_CASE(2) K6_CASE(3) K6_CASE(4) K6_CASE(5) K6_CASE(6)
     K6_CASE(7) K6_CASE(8) K6_CASE(9) K6_CASE(10) K6_CASE(11) K6_CASE(12)
     K6_CASE(13) K6_CASE(14) K6_CASE(15) K6_CASE(16)

@@ -7,9 +7,11 @@ unit's read so that device memory streams int8 bytes.  No plain PyTorch
 op does that (``x @ w.to(bf16)`` first writes a bf16 copy of the weight),
 so the decode-shaped products go to a hand-written kernel,
 ``csrc/int8_matmul.cu`` (K6): bf16 activations on the tensor cores
-(``mma.sync``), f32 activations on CUDA-core FMA.  Bound: the weight
-bytes (at <= 128 rows the product does <= 256 operations per weight byte,
-below the ~295 where the tensor cores would bind).
+(``mma.sync``), f32 activations too, as split TF32 (x = hi + lo, two
+exact TF32 products a fragment).  Bound: the weight bytes (at <= 128 rows
+the bf16 product does <= 256 operations per weight byte, below the ~295
+where the tensor cores would bind; the f32 product's two TF32 products
+reach the TF32 rate's ~148 near 37 rows).
 
 Weights are stored ``[out, in]`` (one output channel contiguous) with f32
 scales ``[out]``; the port's int8 tree (``models/llama.py``) holds them so.
@@ -21,7 +23,7 @@ product.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -46,24 +48,56 @@ def int8_matmul_reference(x: torch.Tensor, w: torch.Tensor,
     return acc.to(x.dtype) * s.to(x.dtype)
 
 
-def k6_plan(n_out: int, k_in: int, sm_count: int) -> Tuple[int, int]:
-    """K6's bf16 launch plan, from the weight's shape alone (so a row's
-    sums do not depend on the number of rows): (warps a block, each on 16
+def k6_plan(n_out: int, k_in: int, sm_count: int,
+            dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
+    """K6's launch plan, from the weight's shape alone (so a row's sums do
+    not depend on the number of rows): (warps a block, each on 16
     channels: 8, or 4 below 2048 channels; splits of K across blocks, each
-    at least one 256-wide chunk, enough for two blocks an SM)."""
+    at least one 256-wide chunk).  bf16: enough splits for two blocks an
+    SM; f32: as many as fit one wave of two blocks an SM (the f32 body's
+    occupancy at a window's 40 rows; a second, partial wave cost more
+    than the extra split saved)."""
     warps = 8 if n_out >= 2048 else 4
     blocks = -(-n_out // (16 * warps))
     kblocks = -(-k_in // 64)
-    splits = max(1, min(-(-2 * sm_count // blocks), kblocks // 4))
+    if dtype == torch.float32:
+        want = 2 * sm_count // blocks
+    else:
+        want = -(-2 * sm_count // blocks)
+    splits = max(1, min(want, kblocks // 4))
     per = -(-kblocks // splits)
     return warps, -(-kblocks // per)
+
+
+def k6_geometry(m_rows: int, n_out: int, k_in: int, dtype: torch.dtype,
+                sm_count: int) -> Dict[str, int]:
+    """K6's launch at ``m_rows`` rows: the plan (``k6_plan``: warps,
+    splits, ``per`` 64-wide k blocks a split, ``blocks`` of channels),
+    which fixes every sum's order, and what the row count only sizes: row
+    tiles of 8 (``nt``), activation columns staged a chunk (``kc``: 256;
+    the f32 body 128 above 8 row tiles) and the shared bytes they take
+    (bf16 rows padded by 16 bytes).  ``csrc/int8_matmul.cu`` refuses a
+    ``kc`` other than its own rule's."""
+    warps, splits = k6_plan(n_out, k_in, sm_count, dtype)
+    kblocks = -(-k_in // 64)
+    nt = -(-m_rows // 8)
+    if dtype == torch.float32:
+        kc = 256 if nt <= 8 else 128
+        smem = nt * 8 * kc * 4
+    else:
+        kc = 256
+        smem = nt * 8 * (kc + 8) * 2
+    return {"warps": warps, "splits": splits,
+            "per": -(-kblocks // splits),
+            "blocks": -(-n_out // (16 * warps)), "nt": nt, "kc": kc,
+            "smem_bytes": smem}
 
 
 def _k6_lib():
     lib = _build.load("int8_matmul")
     if lib.int8_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.int8_matmul.restype = i
     return lib
 
@@ -93,17 +127,17 @@ def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"int8_matmul_cuda: {M} rows (1..{K6_MAX_ROWS}) "
                          f"or K={K} (a multiple of 16) unsupported")
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    warps, splits = k6_plan(N, K, _build.sm_count(x.device))
+    geo = k6_geometry(M, N, K, x.dtype, _build.sm_count(x.device))
     part = None
-    if x.dtype == torch.bfloat16 and splits > 1:
-        part = torch.empty((splits, M, N), dtype=torch.float32,
+    if geo["splits"] > 1:
+        part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
                            device=x.device)
     lib = _k6_lib()
     ptr = lambda t: ctypes.c_void_p(  # noqa: E731
         None if t is None else t.data_ptr())
     rc = lib.int8_matmul(
         ptr(x), ptr(w), ptr(s), ptr(y), ptr(part), M, K, N,
-        _K6_DTYPES[x.dtype], warps, splits,
+        _K6_DTYPES[x.dtype], geo["warps"], geo["splits"], geo["kc"],
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, rc, "int8_matmul")
     _build.LAUNCHES[K6_BODIES[x.dtype]] += 1
