@@ -107,11 +107,15 @@ Phase 8  int8 weights, the int8 KV cache and speculative decoding: (a) K6
          in f32, and of the 8B step again in f32 (an HF checkpoint loads
          float32): each row's max abs error <= 1e-2 (bf16) / 1e-5 (f32)
          of its max |y|; one output column's scale doubled and one
-         64-wide `in` chunk skipped must fail that check (per
-         configuration); device times of K6, the
-         plain version and the bf16 (f32) torch.matmul it replaces
-         (torch._weight_int8pack_mm beside it where this torch has it for
-         CUDA), summed over a step's products; (b) run_experiment on the
+         64-wide `in` chunk skipped (at M = 8), and the last 64-wide
+         chunk, in the last split, skipped (at M = 40) must fail that
+         check (per configuration); the bf16 body's plan (warps, splits
+         = blocks a cluster, ring) and ptxas registers and spills per 8B
+         product; device times of K6, the plain version and the bf16
+         (f32) torch.matmul it replaces (torch._weight_int8pack_mm beside
+         it where this torch has it for CUDA), with the weights cold (the
+         calls cycle through 128 MB of weight copies) and warm (one
+         weight), summed over a step's products; (b) run_experiment on the
          8B path with LLM_WEIGHTS_DTYPE and KV_CACHE_DTYPE int8 and
          SPECULATIVE_DRAFT_LEN=4, 36 queries, 32 new tokens, counts
          zeroed before: K1, K2 and K6's bf16 body launched; decode tok/s,
@@ -1638,12 +1642,49 @@ def _k6_row_errors(y, ref):
     return float(d.max()), float(row.max())
 
 
-def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
+# a cold K6 timing cycles through copies of the weight, at least this many
+# bytes of them (the L2 holds 50 MB), as a decode step streams its weights
+K6_CYCLE_BYTES = 128 << 20
+# K6's planted faults: one output column's scale doubled; one 64-wide `in`
+# block zeroed in the middle of K, or in the last split (its last block)
+K6_FAULTS = ("scale_doubled", "chunk_skipped", "last_split_chunk_skipped")
+
+
+def _k6_fault(fault, w, s):
+    N, K = w.shape
+    if fault == "scale_doubled":
+        s = s.clone()
+        s[N // 3] *= 2
+        return w, s
+    k0 = ((K // 2) // 64 * 64 if fault == "chunk_skipped"
+          else (K - 1) // 64 * 64)
+    w = w.clone()
+    w[:, k0:k0 + 64] = 0
+    return w, s
+
+
+def _k6_copies(nbytes):
+    return min(32, -(-K6_CYCLE_BYTES // nbytes))
+
+
+def _cold_device_ms(fn, copies):
+    """device_ms of ``fn`` over weight ``copies`` in turn."""
+    turn = [0]
+
+    def call():
+        fn(copies[turn[0] % len(copies)])
+        turn[0] += 1
+    return device_ms(call, calls=max(10, len(copies)))
+
+
+def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=()):
     """K6 against int8_matmul_reference at one shape (random int8 weights,
-    scales ~ the int8 tree's); optionally the two planted faults (one
-    output column's scale doubled, one 64-wide `in` chunk skipped) must
-    fail the limit.  Times K6, the plain version and the bf16 (f32)
-    torch.matmul that K6 replaces as device time a call."""
+    scales ~ the int8 tree's); the planted faults named in ``plant`` (of
+    K6_FAULTS) must fail the limit.  Times K6, the plain version and the
+    bf16 (f32) torch.matmul that K6 replaces as device time a call: cold
+    (``ms``, ``library_ms``: the calls cycle through copies of the weight,
+    at least K6_CYCLE_BYTES of them) and warm (``warm_ms``,
+    ``library_warm_ms``: one weight, L2-resident below 50 MB)."""
     import torch
     from sdag_tpu_torch.ops import int8_matmul as Q
     tol = K6_F32_TOL if dtype == torch.float32 else K6_BF16_TOL
@@ -1675,28 +1716,29 @@ def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
         rec["bound_f32_fma_ms"] = max(
             bt, ops / PEAK_FLOPS["float32"] * 1e3)
     if plant:
-        col, k0 = N // 3, (K // 2) // 64 * 64
-        s2 = s.clone()
-        s2[col] *= 2
-        w2 = w.clone()
-        w2[:, k0:k0 + 64] = 0
-        faults = {}
-        for fault, (ww, ss) in (("scale_doubled", (w, s2)),
-                                ("chunk_skipped", (w2, s))):
-            faults[fault] = _k6_row_errors(Q.int8_matmul_cuda(x, ww, ss),
-                                           ref)[1]
+        faults = {f: _k6_row_errors(Q.int8_matmul_cuda(x, *_k6_fault(f, w, s)),
+                                    ref)[1] for f in plant}
         rec["planted_row_rel_err"] = faults
         if not all(v > tol for v in faults.values()):
             raise AssertionError(f"phase 8 {name}: a planted fault passed "
                                  f"the check: {faults}")
     if timed:
-        wl = w.to(dtype)
-        rec["ms"] = device_ms(lambda: Q.int8_matmul_cuda(x, w, s))
+        copies = [w] + [torch.randint(-127, 128, (N, K), generator=g,
+                                      device=dev, dtype=torch.int8)
+                        for _ in range(_k6_copies(N * K) - 1)]
+        lib_copies = [c.to(dtype) for c in
+                      copies[:_k6_copies(esize * N * K)]]
+        wl = lib_copies[0]
+        rec["ms"] = _cold_device_ms(lambda wi: Q.int8_matmul_cuda(x, wi, s),
+                                    copies)
+        rec["warm_ms"] = device_ms(lambda: Q.int8_matmul_cuda(x, w, s))
         rec["event_ms"] = cuda_ms(lambda: Q.int8_matmul_cuda(x, w, s),
                                   iters=20)
         rec["plain_ms"] = device_ms(lambda: Q.int8_matmul_reference(x, w, s),
                                     calls=3, replays=3)
-        rec["library_ms"] = device_ms(lambda: x @ wl.T)
+        rec["library_ms"] = _cold_device_ms(lambda wi: x @ wi.T, lib_copies)
+        rec["library_warm_ms"] = device_ms(lambda: x @ wl.T)
+        rec["weight_copies"] = [len(copies), len(lib_copies)]
         rec["int8pack_ms"] = None
         if dtype == torch.bfloat16 and hasattr(torch, "_weight_int8pack_mm"):
             try:
@@ -1706,7 +1748,7 @@ def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
                     lambda: torch._weight_int8pack_mm(x, w, sb))
             except (RuntimeError, NotImplementedError) as exc:
                 rec["int8pack_error"] = str(exc).splitlines()[0][:120]
-        del wl
+        del wl, copies, lib_copies
     log(f"[phase8] K6 {json.dumps(rec)}")
     if not row_err <= tol:
         raise AssertionError(f"phase 8 {name}: K6 differs from its plain "
@@ -1717,7 +1759,8 @@ def _k6_case(name, M, N, K, dtype, g, dev, timed=True, plant=False):
 def _k6_step(recs, cfg, M, dtype):
     """A decode step's (or window round's) K6 work at M rows: the sums of
     the cases' times and bounds, each weighted by its count a step."""
-    keys = ("ms", "plain_ms", "bound_ms", "library_ms") + (
+    keys = ("ms", "warm_ms", "plain_ms", "bound_ms", "library_ms",
+            "library_warm_ms") + (
         ("bound_f32_fma_ms",) if dtype == "float32" else ())
     tot = {k: 0.0 for k in keys}
     by = {(r["N"], r["K"], r["M"], r["dtype"]): r for r in recs}
@@ -1749,9 +1792,43 @@ def _k6_cases(dev):
     for tag, cfg, dtype in _k6_configs():
         for M in (8, 40):
             for i, (name, n, k, _count) in enumerate(k6_products(cfg)):
+                plant = () if i else K6_FAULTS[:2] if M == 8 else K6_FAULTS[2:]
                 recs.append(_k6_case(f"{tag}_{name}_M{M}", M, n, k, dtype, g,
-                                     dev, plant=(M == 8 and i == 0)))
+                                     dev, plant=plant))
         torch.cuda.empty_cache()
+    return recs
+
+
+def _k6_bf16_plans(dev):
+    """K6's bf16 launch at every 8B product, M = 8 and 40 (k6_geometry:
+    warps, splits = blocks a cluster, chunk, stages, shared bytes) with
+    ptxas' registers and spill bytes of the instantiation it runs."""
+    import re
+    import torch
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.ops import int8_matmul as Q
+    with open(os.path.join(_build.BUILD, "int8_matmul.log")) as fh:
+        text = fh.read()
+    ptxas = {}
+    for entry in text.split("Compiling entry function '")[1:]:
+        m = re.match(r"\S*int8_matmul_bf16_kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        if m and regs and spill:
+            ptxas[int(m.group(1))] = {
+                "registers": int(regs.group(1)),
+                "spill_store_bytes": int(spill.group(1)),
+                "spill_load_bytes": int(spill.group(2))}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    recs = []
+    for name, n, k, _count in k6_products(DecoderConfig.llama3_8b()):
+        for M in (8, 40):
+            geo = Q.k6_geometry(M, n, k, torch.bfloat16, sms)
+            recs.append(dict(product=name, N=n, K=k, M=M, **geo,
+                             **ptxas.get(geo["nt"], {})))
+    log(f"[phase8] K6-bf16 plans {json.dumps(recs)}")
     return recs
 
 
@@ -1981,7 +2058,8 @@ def phase8(dev):
     from sdag_tpu_torch.models.llama import DecoderConfig
     from sdag_tpu_torch.models.native_ckpt import load_config
     torch.cuda.empty_cache()
-    recs = {"k6": _k6_cases(dev), "k6_rows_bit_equal": _k6_rows_bit_equal(dev)}
+    recs = {"k6_bf16_plans": _k6_bf16_plans(dev), "k6": _k6_cases(dev),
+            "k6_rows_bit_equal": _k6_rows_bit_equal(dev)}
     recs["k6_step_8b"] = {
         f"M{M}": _k6_step(recs["k6"], DecoderConfig.llama3_8b(), M,
                           "bfloat16") for M in (8, 40)}

@@ -41,12 +41,15 @@ that builds that tree's kernels with nvcc:
   queries of 16 terms at k = 10 and k = 20, and 32 terms at k = 64; the
   main path's shape (the synthetic world's 384 docs, Lp = 128, 32 queries,
   k = 5);
-* K6 ``int8_matmul_cuda`` at the 8B decode step's weight products (wq/wo,
-  wk/wv, gate/up, down, lm_head) at M = 8 and M = 40, device time a call;
-  a tree without K6 times those products as its decode step ran them
-  (bf16 ``x @ w``); then K6's f32 body at the 8B and qa_ckpt products,
-  M = 8 and 40, each call on a fresh copy of the weight (not L2-resident),
-  beside f32 ``torch.matmul``, and both summed over a step (round);
+* K6 ``int8_matmul_cuda`` (bf16 body) at the 8B decode step's weight
+  products (wq/wo, wk/wv, gate/up, down, lm_head) at M = 8 and M = 40,
+  beside bf16 ``torch.matmul``, device time a call with the weights cold
+  (calls cycling through at least 128 MB of weight copies) and warm (one
+  weight), and summed over a step (round); device time by kernel of a
+  cold round at M = 40 (torch.profiler); the body's ptxas registers and
+  spills by row tiles; then K6's f32 body at the 8B and qa_ckpt products,
+  M = 8 and 40, cold, beside f32 ``torch.matmul``, and both summed over a
+  step (round) (``--only k6`` needs trees with K6);
 * decode at llama3-8b of one 8 x 32 batch in the tree's configurations
   (native, int8 weights, + int8 KV cache, + speculation with D = 4;
   native alone in a tree without them).
@@ -223,41 +226,130 @@ def k2_times(c, dev, out):
     out["K2_path_384docs_Lp128_k5_graph"] = graph_ms(fn)
 
 
-# the 8B decode step's weight products: (name, out N, in K)
-PRODUCTS_8B = (("wq+wo", 4096, 4096), ("wk+wv", 1024, 4096),
-               ("gate+up", 14336, 4096), ("down", 4096, 14336),
-               ("lm_head", 128256, 4096))
+# a cold timing cycles through copies of the weight, at least this many
+# bytes of them (the L2 holds 50 MB), as a decode step streams its weights
+WEIGHT_CYCLE_BYTES = 128 << 20
+
+
+def _copies(nbytes: int) -> int:
+    return min(32, -(-WEIGHT_CYCLE_BYTES // nbytes))
+
+
+def _cycling(fn, copies):
+    """A call that runs ``fn`` on the next of ``copies`` each time."""
+    turn = [0]
+
+    def call():
+        fn(copies[turn[0] % len(copies)])
+        turn[0] += 1
+    return call
+
+
+def _cold_ms(fn, copies) -> float:
+    """Device time a call of ``fn`` over ``copies`` in turn, every copy
+    captured at least once."""
+    return graph_ms(_cycling(fn, copies), calls=max(20, len(copies)))
+
+
+def _kernel_ms(fn, calls: int) -> dict:
+    """Device ms by kernel name of ``calls`` calls of ``fn`` under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        key = e.key.replace("(anonymous namespace)::", "")
+        name = key.replace("void ", "").split("(")[0].split("::")[-1]
+        if us > 0:
+            ms[name] = ms.get(name, 0.0) + us / 1e3
+    return ms
+
+
+def bf16_ptxas(log_path: str) -> dict:
+    """ptxas' [registers, spill store bytes, spill load bytes] of each
+    instantiation of K6's bf16 body, by its row tiles, from the build log."""
+    import re
+    if not os.path.isfile(log_path):
+        return {}
+    with open(log_path) as fh:
+        text = fh.read()
+    rec = {}
+    for entry in text.split("Compiling entry function '")[1:]:
+        m = re.match(r"\S*int8_matmul_bf16_kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+        if m and regs and spill:
+            rec[m.group(1)] = [int(regs.group(1)), int(spill.group(1)),
+                               int(spill.group(2))]
+    return rec
 
 
 def k6_times(c, dev, out):
-    """K6 at the 8B decode step's products, M = 8 (a step's batch) and
-    M = 40 (a window of 8 x 5): device time a call from a replayed graph.
-    A tree without K6 (before int8 weights) runs the same products as its
-    decode step did: x @ w with the bf16 weight [in, out]."""
+    """K6's bf16 body at the 8B decode step's products (c.k6_products),
+    M = 8 (a step's batch) and M = 40 (a window of 8 x 5), beside bf16
+    ``torch.matmul`` (``x @ w.T`` over a bf16 copy of the weight, the
+    library call K6 replaces): device time a call from a replayed graph,
+    cold (``*_graph``: the calls cycle through copies of the weight, at
+    least 128 MB of them, so each reads its weight from device memory, as
+    a decode step does) and warm (``*_warm``: one weight, L2-resident
+    below 50 MB), each also summed over a step (round) with the products'
+    counts (225 products at 8B); device ms by kernel of one cold round at
+    M = 40 under torch.profiler (``K6_8b_round_M40_kernels``); ptxas'
+    registers and spills of the bf16 body by row tiles
+    (``K6_bf16_ptxas``).  Then the f32 body (``k6_f32_times``)."""
     import torch
-    try:
-        from sdag_tpu_torch.ops import int8_matmul as Q
-    except ImportError:
-        Q = None
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.ops import int8_matmul as Q
     g = torch.Generator(device=dev)
     g.manual_seed(8)
     for M in (8, 40):
-        for name, n, k in PRODUCTS_8B:
+        step = {}
+        kernels = {}
+        for name, n, k, count in c.k6_products(DecoderConfig.llama3_8b()):
             x = torch.randn(M, k, generator=g, device=dev).to(torch.bfloat16)
-            if Q is not None:
-                w = torch.randint(-127, 128, (n, k), generator=g, device=dev,
-                                  dtype=torch.int8)
-                s = torch.rand(n, generator=g, device=dev) * 2e-3
-                fn = lambda: Q.int8_matmul_cuda(x, w, s)  # noqa: E731
-            else:
-                w = torch.randn(k, n, generator=g, device=dev).to(
-                    torch.bfloat16)
-                fn = lambda: x @ w  # noqa: E731
-            out[f"K6_8b_{name}_M{M}_graph"] = graph_ms(fn)
-            del w
-    torch.cuda.empty_cache()
-    if Q is not None:
-        k6_f32_times(c, dev, out, Q)
+            s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
+            w = [torch.randint(-127, 128, (n, k), generator=g, device=dev,
+                               dtype=torch.int8)
+                 for _ in range(_copies(n * k))]
+            wl = [wi.to(torch.bfloat16) for wi in w[:_copies(2 * n * k)]]
+            k6 = lambda wi: Q.int8_matmul_cuda(x, wi, s)  # noqa: E731
+            lib = lambda wi: x @ wi.T  # noqa: E731
+            times = {
+                f"K6_8b_{name}_M{M}_graph": _cold_ms(k6, w),
+                f"lib_bf16_matmul_8b_{name}_M{M}_graph": _cold_ms(lib, wl),
+                f"K6_8b_{name}_M{M}_warm": graph_ms(lambda: k6(w[0])),
+                f"lib_bf16_matmul_8b_{name}_M{M}_warm":
+                    graph_ms(lambda: lib(wl[0]))}
+            out.update(times)
+            for key, ms in times.items():
+                key = key.replace(f"_{name}_", "_step_")
+                step[key] = step.get(key, 0.0) + count * ms
+            if M == 40:
+                for kname, ms in _kernel_ms(_cycling(k6, w), count).items():
+                    kernels[kname] = kernels.get(kname, 0.0) + ms
+            del w, wl
+            torch.cuda.empty_cache()
+        out.update(step)
+        if kernels:
+            out["K6_8b_round_M40_kernels"] = kernels
+    out["K6_bf16_ptxas"] = bf16_ptxas(
+        os.path.join(_build.BUILD, "int8_matmul.log"))
+    k6_f32_times(c, dev, out, Q)
 
 
 def k6_f32_times(c, dev, out, Q):
@@ -273,15 +365,6 @@ def k6_f32_times(c, dev, out, Q):
     from sdag_tpu_torch.models.native_ckpt import load_config
     g = torch.Generator(device=dev)
     g.manual_seed(10)
-
-    def cycling(fn, copies):
-        turn = [0]
-
-        def call():
-            fn(copies[turn[0] % len(copies)])
-            turn[0] += 1
-        return call
-
     for tag, cfg in (("8b", DecoderConfig.llama3_8b()),
                      ("qa_ckpt", load_config(os.path.join(
                          HERE, "experiments", "data", "qa_ckpt")))):
@@ -292,11 +375,11 @@ def k6_f32_times(c, dev, out, Q):
                 s = torch.rand(n, generator=g, device=dev) * 2e-3 + 1e-4
                 w = [torch.randint(-127, 128, (n, k), generator=g,
                                    device=dev, dtype=torch.int8)
-                     for _ in range(min(32, -(-(128 << 20) // (n * k))))]
-                ms = graph_ms(cycling(
+                     for _ in range(_copies(n * k))]
+                ms = graph_ms(_cycling(
                     lambda wi: Q.int8_matmul_cuda(x, wi, s), w))
                 wf = [wi.float() for wi in w[:max(1, len(w) // 4)]]
-                lib = graph_ms(cycling(lambda wi: x @ wi.T, wf))
+                lib = graph_ms(_cycling(lambda wi: x @ wi.T, wf))
                 del w, wf
                 out[f"K6_f32_{tag}_{name}_M{M}_graph"] = ms
                 out[f"lib_f32_matmul_{tag}_{name}_M{M}_graph"] = lib

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (topk_matmul.cu, sdag_prefill.cu): mbarriers, TMA loads (cp.async.bulk
-// with a tensor map), shared-memory matrix descriptors and the wgmma
+// (topk_matmul.cu, sdag_prefill.cu, int8_matmul.cu): mbarriers, TMA loads
+// (cp.async.bulk with a tensor map), cluster barriers and distributed
+// shared-memory reads, shared-memory matrix descriptors and the wgmma
 // forms the kernels issue.  Plain inline PTX; no library product.
 //
 // A kernel built on these is warp-specialised: one producer thread keeps a
@@ -140,6 +141,32 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// ---- thread block clusters -------------------------------------------------
+// Every thread of every block of the cluster arrives; the wait returns once
+// all have.  release / acquire: shared-memory writes before the barrier are
+// visible to the cluster's reads after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 16 bytes at shared address `addr` of block `rank` of this cluster
+// (distributed shared memory)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr,
+                                                uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
 }
 
 // cuTensorMapEncodeTiled, looked up by name in libcuda (which the CUDA

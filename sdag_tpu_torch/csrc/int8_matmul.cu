@@ -39,9 +39,11 @@
 // of bank conflicts), and every warp reads them there -- any K fits, and
 // the activations cross L2 once per block, not once per warp (double-
 // buffering the chunks timed slower: 198 registers a thread).  Small N
-// splits K across blocks (blockIdx.y) to fill the card; the splits' f32
-// partial sums are added in split order by a second kernel, which also
-// rounds and scales.  The plan (warps, splits) depends
+// splits K across blocks (blockIdx.y) to fill one wave of the card; the
+// splits of a channel tile are one thread block cluster, and their f32
+// partial sums are added in split order through distributed shared
+// memory, then rounded and scaled, in the same launch (no partial sums
+// in device memory, no second kernel).  The plan (warps, splits) depends
 // on N and K alone, so a row's sums are the same bits at any M: a decode
 // step and a verification window row agree.
 //
@@ -87,6 +89,7 @@ constexpr int THREADS = WARPS * 32;
 constexpr int MAX_ROWS = 128;        // 16 activation-row tiles of 8
 constexpr int KC = 256;              // activation columns staged a chunk
 constexpr int XS = KC + 8;           // staged row stride: 16 bytes of pad
+constexpr int MAX_CLUSTER = 8;       // the portable thread block cluster
 
 // the f32 body's activation columns staged a chunk (ops/int8_matmul.py
 // k6_geometry mirrors this; the entry point checks the two agree)
@@ -165,14 +168,66 @@ __device__ __forceinline__ __nv_bfloat16 scale_bf16(float acc, float s) {
   return __float2bfloat16_rn(a * b);
 }
 
+// Several splits: the splits of one channel tile are one cluster, and
+// blockIdx.y, the split, is the block's rank in it.  Each block leaves its
+// f32 partial tile [M][C + 4] (C channels; the pad makes the stores free
+// of bank conflicts) in its own shared memory, where the loop's staging
+// space was (the loop's last __syncthreads ended every read of it); after
+// a cluster barrier, rank r sums its share of the tile's outputs over
+// ranks 0, 1, .., splits - 1 in that order (the k order of the splits),
+// rounds, scales and stores them; a last barrier keeps every block, and so
+// its shared memory, alive until all have read it.
+template <int NT>
+__device__ __forceinline__ void bf16_cluster_epilogue(
+    const float (&c)[NT][4], const float* __restrict__ s,
+    __nv_bfloat16* __restrict__ y, int M, int N) {
+  extern __shared__ uint4 smem[];
+  float* pt = reinterpret_cast<float*>(smem);
+  const int C = blockDim.x / 2, CP = C + 4;   // 16 channels a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int mm = n * 8 + 2 * t + (i & 1);
+      if (mm < M) pt[mm * CP + 16 * warp + g + (i >= 2 ? 8 : 0)] = c[n][i];
+    }
+  }
+  cluster_sync();
+  const int quads = C / 4, units = M * quads;
+  const int share = (units + gridDim.y - 1) / gridDim.y;
+  const int u1 = min(units, ((int)blockIdx.y + 1) * share);
+  const int o_blk = blockIdx.x * C;
+  const uint32_t base = smem_u32(pt);
+  for (int u = blockIdx.y * share + threadIdx.x; u < u1; u += blockDim.x) {
+    const int mm = u / quads, p = 4 * (u % quads);
+    const uint32_t addr = base + 4u * (mm * CP + p);
+    float4 acc = ld_cluster_f4(addr, 0);
+    for (int r = 1; r < (int)gridDim.y; ++r) {
+      const float4 v = ld_cluster_f4(addr, r);
+      acc.x += v.x;
+      acc.y += v.y;
+      acc.z += v.z;
+      acc.w += v.w;
+    }
+    const float a[4] = {acc.x, acc.y, acc.z, acc.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = o_blk + p + e;
+      if (o < N) y[(size_t)mm * N + o] = scale_bf16(a[e], s[o]);
+    }
+  }
+  cluster_sync();
+}
+
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                         const int8_t* __restrict__ w,
                         const float* __restrict__ s,
-                        __nv_bfloat16* __restrict__ y,
-                        float* __restrict__ part, int M, int K, int N,
-                        int per) {
+                        __nv_bfloat16* __restrict__ y, int M, int K,
+                        int N, int per) {
   extern __shared__ uint4 smem[];
   __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -249,36 +304,24 @@ int8_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     __syncthreads();
   }
 
-  // one split: round, scale, store; several: f32 partial sums, which
-  // int8_matmul_bf16_reduce adds in split order
+  // one split: round, scale, store
   const float sa = ok_a ? s[row_a] : 0.f, sb = ok_b ? s[row_b] : 0.f;
-  float* pr = part + (size_t)blockIdx.y * M * N;
+  if (gridDim.y == 1) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int m = n * 8 + 2 * t;
+    for (int n = 0; n < NT; ++n) {
+      const int m = n * 8 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int mm = m + (i & 1);
-      const bool hi = i >= 2;
-      const int o = hi ? row_b : row_a;
-      if (mm >= M || !(hi ? ok_b : ok_a)) continue;
-      if (gridDim.y == 1)
-        y[(size_t)mm * N + o] = scale_bf16(c[n][i], hi ? sb : sa);
-      else
-        pr[(size_t)mm * N + o] = c[n][i];
+      for (int i = 0; i < 4; ++i) {
+        const int mm = m + (i & 1);
+        const bool hi = i >= 2;
+        if (mm < M && (hi ? ok_b : ok_a))
+          y[(size_t)mm * N + (hi ? row_b : row_a)] =
+              scale_bf16(c[n][i], hi ? sb : sa);
+      }
     }
+    return;
   }
-}
-
-__global__ void int8_matmul_bf16_reduce(const float* __restrict__ part,
-                                        const float* __restrict__ s,
-                                        __nv_bfloat16* __restrict__ y, int M,
-                                        int N, int splits) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= M * N) return;
-  float acc = part[i];
-  for (int sp = 1; sp < splits; ++sp) acc += part[(size_t)sp * M * N + i];
-  y[i] = scale_bf16(acc, s[i % N]);
+  bf16_cluster_epilogue<NT>(c, s, y, M, N);
 }
 
 template <int NT>
@@ -440,9 +483,8 @@ int launch_f32(const void* x, const void* w, const void* s, void* y,
 }
 
 template <int NT>
-int launch_bf16(const void* x, const void* w, const void* s, void* y,
-                void* part, int M, int K, int N, int warps, int splits,
-                cudaStream_t stream) {
+int launch_bf16(const void* x, const void* w, const void* s, void* y, int M,
+                int K, int N, int warps, int splits, cudaStream_t stream) {
   const int smem = NT * 8 * XS * 2;
   static bool attr_set = false;
   if (!attr_set) {
@@ -453,17 +495,28 @@ int launch_bf16(const void* x, const void* w, const void* s, void* y,
     attr_set = true;
   }
   const int per = ((K + 63) / 64 + splits - 1) / splits;
-  dim3 grid((N + 16 * warps - 1) / (16 * warps), splits);
-  int8_matmul_bf16_kernel<NT><<<grid, warps * 32, smem, stream>>>(
+  // the splits of a channel tile form one cluster (1, splits, 1)
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + 16 * warps - 1) / (16 * warps), splits);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  void (*kernel)(const __nv_bfloat16*, const int8_t*, const float*,
+                 __nv_bfloat16*, int, int, int, int) =
+      int8_matmul_bf16_kernel<NT>;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kernel,
       static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y),
-      static_cast<float*>(part), M, K, N, per);
-  if (splits > 1) {
-    const int total = M * N;
-    int8_matmul_bf16_reduce<<<(total + 255) / 256, 256, 0, stream>>>(
-        static_cast<const float*>(part), static_cast<const float*>(s),
-        static_cast<__nv_bfloat16*>(y), M, N, splits);
-  }
+      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), M, K, N,
+      per);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -478,19 +531,25 @@ const char* kernel_error_string(int code) {
 
 // x [M, K] (dtype 0 = float32, 1 = bfloat16), w [N, K] int8, s [N] f32,
 // y [M, N] of x's type; all contiguous, 16-byte aligned, K % 16 == 0,
-// 1 <= M <= 128.  warps (4 or 8) 16-channel tiles a block and splits of K
-// across blocks (ops/int8_matmul.py k6_plan, from N and K alone, so a
-// row's sums do not depend on M); with splits > 1, part is f32 scratch
-// [splits, M, N].  kc: the activation columns staged a chunk, as
+// 1 <= M <= 128.  warps: 16-channel tiles a block (f32: 4 or 8; bf16: 1,
+// 2, 4 or 8) and splits of K across blocks (ops/int8_matmul.py k6_plan,
+// from N and K alone, so a row's sums do not depend on M).  f32 with
+// splits > 1: part is f32 scratch [splits, M, N]; bf16: splits <= 8 (one
+// cluster), part unused.  kc: the activation columns staged a chunk, as
 // ops/int8_matmul.py k6_geometry gives it for M (256 for bf16, f32_kc
 // for f32).  Returns 0, a CUDA error code or -1.
 int int8_matmul(const void* x, const void* w, const void* s, void* y,
                 void* part, int M, int K, int N, int dtype, int warps,
                 int splits, int kc, void* stream) {
-  if (M < 1 || M > MAX_ROWS || K < 16 || K % 16 || N < 1) return -1;
-  if ((dtype != 0 && dtype != 1) || (warps != 4 && warps != 8) ||
-      splits < 1 || (splits > 1 && part == nullptr))
+  if (M < 1 || M > MAX_ROWS || K < 16 || K % 16 || N < 1 || splits < 1)
     return -1;
+  if (dtype == 0 &&
+      ((warps != 4 && warps != 8) || (splits > 1 && part == nullptr)))
+    return -1;
+  if (dtype == 1 && ((warps != 1 && warps != 2 && warps != 4 && warps != 8) ||
+                     splits > MAX_CLUSTER))
+    return -1;
+  if (dtype != 0 && dtype != 1) return -1;
   const int nt = (M + 7) / 8;
   if (kc != (dtype == 0 ? f32_kc(nt) : KC)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -500,8 +559,7 @@ int int8_matmul(const void* x, const void* w, const void* s, void* y,
     return dtype == 0                                                       \
                ? launch_f32<nt>(x, w, s, y, part, M, K, N, warps, splits,   \
                                 st)                                         \
-               : launch_bf16<nt>(x, w, s, y, part, M, K, N, warps, splits,  \
-                                 st);
+               : launch_bf16<nt>(x, w, s, y, M, K, N, warps, splits, st);
     K6_CASE(1) K6_CASE(2) K6_CASE(3) K6_CASE(4) K6_CASE(5) K6_CASE(6)
     K6_CASE(7) K6_CASE(8) K6_CASE(9) K6_CASE(10) K6_CASE(11) K6_CASE(12)
     K6_CASE(13) K6_CASE(14) K6_CASE(15) K6_CASE(16)

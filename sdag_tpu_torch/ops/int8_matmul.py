@@ -34,6 +34,9 @@ from sdag_tpu_torch import _build
 # product with more rows (prefill) is compute-heavy enough for
 # torch.matmul over a dequantized copy
 K6_MAX_ROWS = 128
+# the bf16 body's splits of one channel tile form one thread block cluster,
+# at most the portable cluster size
+K6_MAX_CLUSTER = 8
 K6_BODIES = {torch.float32: "int8_matmul_f32",
              torch.bfloat16: "int8_matmul_bf16"}
 _K6_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -52,18 +55,23 @@ def k6_plan(n_out: int, k_in: int, sm_count: int,
             dtype: torch.dtype = torch.bfloat16) -> Tuple[int, int]:
     """K6's launch plan, from the weight's shape alone (so a row's sums do
     not depend on the number of rows): (warps a block, each on 16
-    channels: 8, or 4 below 2048 channels; splits of K across blocks, each
-    at least one 256-wide chunk).  bf16: enough splits for two blocks an
-    SM; f32: as many as fit one wave of two blocks an SM (the f32 body's
+    channels; splits of K across blocks, each at least one 256-wide
+    chunk).  Both bodies fill at most one wave of two blocks an SM (their
     occupancy at a window's 40 rows; a second, partial wave cost more
-    than the extra split saved)."""
+    than the extra split saved).  f32: 8 warps, or 4 below 2048 channels.
+    bf16: the splits of a channel tile reduce inside one thread block
+    cluster, so at most ``K6_MAX_CLUSTER``; where that many splits of 8
+    (4) warps leave an SM without a block, fewer warps a block."""
     warps = 8 if n_out >= 2048 else 4
-    blocks = -(-n_out // (16 * warps))
     kblocks = -(-k_in // 64)
-    if dtype == torch.float32:
-        want = 2 * sm_count // blocks
-    else:
-        want = -(-2 * sm_count // blocks)
+    most = max(1, min(K6_MAX_CLUSTER, kblocks // 4))
+    if dtype != torch.float32:
+        while warps > 1 and -(-n_out // (16 * warps)) * most < sm_count:
+            warps //= 2
+    blocks = -(-n_out // (16 * warps))
+    want = 2 * sm_count // blocks
+    if dtype != torch.float32:
+        want = min(want, K6_MAX_CLUSTER)
     splits = max(1, min(want, kblocks // 4))
     per = -(-kblocks // splits)
     return warps, -(-kblocks // per)
@@ -76,8 +84,10 @@ def k6_geometry(m_rows: int, n_out: int, k_in: int, dtype: torch.dtype,
     which fixes every sum's order, and what the row count only sizes: row
     tiles of 8 (``nt``), activation columns staged a chunk (``kc``: 256;
     the f32 body 128 above 8 row tiles) and the shared bytes they take
-    (bf16 rows padded by 16 bytes).  ``csrc/int8_matmul.cu`` refuses a
-    ``kc`` other than its own rule's."""
+    (bf16 rows padded by 16 bytes; the bf16 body's f32 partial tile,
+    ``M x (16 warps + 4)``, reuses them).  ``cluster``: blocks a thread
+    block cluster (the bf16 body's splits; 1 for f32).
+    ``csrc/int8_matmul.cu`` refuses a ``kc`` other than its own rule's."""
     warps, splits = k6_plan(n_out, k_in, sm_count, dtype)
     kblocks = -(-k_in // 64)
     nt = -(-m_rows // 8)
@@ -90,7 +100,8 @@ def k6_geometry(m_rows: int, n_out: int, k_in: int, dtype: torch.dtype,
     return {"warps": warps, "splits": splits,
             "per": -(-kblocks // splits),
             "blocks": -(-n_out // (16 * warps)), "nt": nt, "kc": kc,
-            "smem_bytes": smem}
+            "smem_bytes": smem,
+            "cluster": 1 if dtype == torch.float32 else splits}
 
 
 def _k6_lib():
@@ -129,7 +140,7 @@ def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     geo = k6_geometry(M, N, K, x.dtype, _build.sm_count(x.device))
     part = None
-    if geo["splits"] > 1:
+    if x.dtype == torch.float32 and geo["splits"] > 1:
         part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
                            device=x.device)
     lib = _k6_lib()

@@ -383,20 +383,31 @@ def test_generator_greedy_tokens_equal_jax(qa, weights, kv, mode):
 
 def test_k6_launch_plan_and_cpu_dispatch():
     """K6's bf16 plan at the 8B products: 8 warps a block (4 below 2048
-    channels), K split across blocks until every SM has two, each split at
-    least one 256-wide chunk, no split empty; the plan ignores the row
-    count.  On the CPU the wrapper is the plain version, the kernel's
-    entry refuses CPU tensors."""
-    from sdag_tpu_torch.ops.int8_matmul import int8_matmul_cuda, k6_plan
+    channels, fewer where the most splits would leave an SM without a
+    block), K split across blocks up to one wave of two blocks an SM and
+    at most 8 splits (one thread block cluster), each split at least one
+    256-wide chunk, no split empty; the plan ignores the row count.  On
+    the CPU the wrapper is the plain version, the kernel's entry refuses
+    CPU tensors."""
+    from sdag_tpu_torch.ops.int8_matmul import (K6_MAX_CLUSTER,
+                                                int8_matmul_cuda, k6_geometry,
+                                                k6_plan)
     shapes = ((1024, 4096), (4096, 4096), (14336, 4096), (4096, 14336),
               (128256, 4096), (512, 192))
     assert [k6_plan(n, k, 132) for n, k in shapes] == \
-        [(4, 16), (8, 8), (8, 3), (8, 9), (8, 1), (4, 1)]
+        [(2, 8), (8, 8), (8, 2), (8, 8), (8, 1), (1, 1)]
     for n, k in shapes:
         warps, splits = k6_plan(n, k, 132)
         kblocks = -(-k // 64)
         per = -(-kblocks // splits)
+        blocks = -(-n // (16 * warps))
         assert per >= min(4, kblocks) and (splits - 1) * per < kblocks
+        assert splits <= K6_MAX_CLUSTER == 8
+        assert blocks * splits <= 2 * 132 or splits == 1
+        for m in (1, 8, 40, 128):
+            geo = k6_geometry(m, n, k, torch.bfloat16, 132)
+            assert (geo["warps"], geo["splits"], geo["cluster"]) == \
+                (warps, splits, splits)
     x = torch.randn(3, 32)
     w = torch.randint(-127, 128, (16, 32), dtype=torch.int8)
     s = torch.rand(16)
