@@ -1801,8 +1801,9 @@ def _k6_cases(dev):
 
 def _k6_bf16_plans(dev):
     """K6's bf16 launch at every 8B product, M = 8 and 40 (k6_geometry:
-    warps, splits = blocks a cluster, chunk, stages, shared bytes) with
-    ptxas' registers and spill bytes of the instantiation it runs."""
+    warps, splits = blocks a cluster, chunk, stages, shared bytes), the
+    clusters of it the card holds at once, and ptxas' registers and spill
+    bytes of the instantiation it runs."""
     import re
     import torch
     from sdag_tpu_torch import _build
@@ -1827,6 +1828,7 @@ def _k6_bf16_plans(dev):
         for M in (8, 40):
             geo = Q.k6_geometry(M, n, k, torch.bfloat16, sms)
             recs.append(dict(product=name, N=n, K=k, M=M, **geo,
+                             max_active_clusters=Q.k6_bf16_clusters(geo),
                              **ptxas.get(geo["nt"], {})))
     log(f"[phase8] K6-bf16 plans {json.dumps(recs)}")
     return recs

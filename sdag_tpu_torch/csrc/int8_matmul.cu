@@ -23,34 +23,41 @@
 // an 8B window round at M = 40).
 //
 // bfloat16 body (the 8B model): mma.sync.m16n8k16 on the tensor cores,
-// f32 accumulators.  A warp owns 16 output channels (the A operand) and
-// every activation row, in tiles of 8 (the B operand; NT tiles, a template
-// argument, so the accumulators stay in registers: 4 NT floats a thread).
-// A 64-wide k block arrives as one 16-byte load a thread per weight row
-// (lanes with the same group read 64 contiguous bytes of a row).  The
-// contraction index is permuted so that both operands load contiguously:
-// in k step j of a block, logical columns {2t, 2t + 1, 2t + 8, 2t + 9} of
-// thread group t are the actual columns 16 t + 4 j + {0, 1, 2, 3}, for A
-// and B alike.  int8 -> bf16 is exact (a magic-number float subtract, then
-// a packed round).  A block of 4 or 8 warps walks its k range in chunks of
-// 256: each thread's weight loads for the chunk go out, the chunk's
-// activation rows go to shared memory by cp.async (no registers, all in
-// flight at once; rows padded by 16 bytes, so the fragment reads are free
-// of bank conflicts), and every warp reads them there -- any K fits, and
-// the activations cross L2 once per block, not once per warp (double-
-// buffering the chunks timed slower: 198 registers a thread).  Small N
-// splits K across blocks (blockIdx.y) to fill one wave of the card; the
+// f32 accumulators, warp-specialised.  A block is 1-8 consumer warps and
+// one producer warp.  A consumer warp owns 16 output channels (the A
+// operand) and every activation row, in tiles of 8 (the B operand; NT
+// tiles, a template argument, so the accumulators stay in registers: 4 NT
+// floats a thread).  One thread of the producer warp keeps a ring of 2-4
+// stages full; a stage is a 128-column chunk of the block's k range as
+// three TMA boxes (the block's weight rows x 128 bytes, then the
+// activation rows x 64 columns twice; 128-byte swizzle; rows past N or M
+// and columns past K arrive as zeros) completing on the stage's full
+// mbarrier.  Consumers wait on it, convert, multiply and arrive on the
+// stage's empty mbarrier: no block barrier in the k loop, so loads stay
+// in flight while warps convert and multiply.  (One cp.async.bulk a row
+// a chunk, 168 small copies a stage, ran far slower: bound by the copy
+// unit's issue rate.)  The contraction index is permuted so that both
+// operands load 16 bytes a thread: in k step j of a 64-wide block, the
+// logical columns {2t, 2t + 1, 2t + 8, 2t + 9} of thread group t are the
+// actual columns 16 t + 4 j + {0, 1, 2, 3}, for A and B alike; a warp's
+// A rows are permuted (row_of) so that every 16-byte read phase of the
+// swizzled tiles hits all 32 banks.  int8 -> bf16 is exact (a byte
+// permute and a magic-number float subtract, then a packed round).  Small
+// N splits K across blocks (blockIdx.y) to fill one wave of the card; the
 // splits of a channel tile are one thread block cluster, and their f32
 // partial sums are added in split order through distributed shared
 // memory, then rounded and scaled, in the same launch (no partial sums
-// in device memory, no second kernel).  The plan (warps, splits) depends
-// on N and K alone, so a row's sums are the same bits at any M: a decode
-// step and a verification window row agree.
+// in device memory, no second kernel).  Each fragment keeps one
+// accumulator summed along k in order, and the plan (warps, splits)
+// depends on N and K alone, so a row's sums are the same bits at any M:
+// a decode step and a verification window row agree.
 //
 // float32 body (an HF checkpoint's tree is float32, so its int8 tree runs
 // it at 8B width; also the trained qa_ckpt decoder, d=192; an FMA body
 // before, which re-read the weights for every 8 rows): split TF32 on
-// mma.sync.m16n8k8, in the bf16 body's skeleton.  Every int8 value is exact
+// mma.sync.m16n8k8: weights loaded to registers a chunk ahead of the
+// activations, staged by cp.async (the bf16 body's earlier skeleton).
+// Every int8 value is exact
 // in TF32 (10 mantissa bits), so only the activation is split: x = hi +
 // lo, hi = x rounded to TF32 by the mask below, lo = x - hi (exact in
 // f32; the tensor core keeps its top 19 bits), and y = w.lo + w.hi, two
@@ -60,7 +67,7 @@
 // a 64-wide k block, k step j (0..7) of thread group t takes the actual
 // columns 16 t + 2 j + {0, 1} as its logical columns {t, t + 4}: one
 // 16-byte weight load a row, four 16-byte activation loads a row tile.
-// Activation chunks of KC columns (256, or 128 above 8 row tiles, so
+// Activation chunks of f32_kc columns (256, or 128 above 8 row tiles, so
 // shared memory stays at 64 KB) go to shared memory by cp.async, 16-byte
 // chunk c of row r at c ^ (2 (c / 8 % 2) + r % 2): the eight lanes of one
 // 16-byte read phase (two rows, four thread groups) then hit all 32
@@ -69,11 +76,12 @@
 // limit on the H100.  So each 64-wide k block sums into a fresh fragment,
 // which is then added to the running sum in f32, rounding to nearest.
 // The k order (64-wide blocks, splits from the plan) depends on neither M
-// nor KC, so a row's sums are the same bits at any M.  K splits and the
-// split-order reduction as in the bf16 body, with a plan of its own: at
-// most one wave of two blocks an SM (the body's occupancy at 40 rows, 127
-// registers a thread), as a second, partial wave cost more time than
-// the extra split saved.  y = acc * s, the f32 formula's one rounding.
+// nor f32_kc, so a row's sums are the same bits at any M.  K splits as in
+// the bf16 body, added in split order by a second kernel
+// (int8_matmul_f32_reduce), with a plan of its own: at most one wave of
+// two blocks an SM (the body's occupancy at 40 rows, 127 registers a
+// thread), as a second, partial wave cost more time than the extra split
+// saved.  y = acc * s, the f32 formula's one rounding.
 // The weights convert by one byte permute and one subtract each.
 
 #include <cuda_bf16.h>
@@ -87,9 +95,35 @@ namespace {
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int MAX_ROWS = 128;        // 16 activation-row tiles of 8
-constexpr int KC = 256;              // activation columns staged a chunk
-constexpr int XS = KC + 8;           // staged row stride: 16 bytes of pad
 constexpr int MAX_CLUSTER = 8;       // the portable thread block cluster
+
+// the bf16 body's ring (ops/int8_matmul.py k6_geometry mirrors this; the
+// entry point checks the two agree): chunks of KB columns; a stage holds
+// three TMA boxes, 128-byte swizzled: the block's C weight rows x KB bytes,
+// then the activation rows x 64 columns twice; as many stages (2 to 4) as
+// leave two blocks an SM; the stages' full and empty mbarriers after them
+constexpr int KB = 128;
+constexpr int BF16_SMEM_2 = 114688;  // shared bytes a block, two an SM
+constexpr int BF16_THREADS = (WARPS + 1) * 32;   // + the producer warp
+
+__host__ __device__ constexpr int bf16_stage_bytes(int nt, int C) {
+  return C * KB + 2 * nt * 8 * 128;
+}
+__host__ __device__ constexpr int bf16_stages(int nt, int C) {
+  return (BF16_SMEM_2 - 64) / bf16_stage_bytes(nt, C) >= 4   ? 4
+         : (BF16_SMEM_2 - 64) / bf16_stage_bytes(nt, C) <= 2 ? 2
+                                                             : 3;
+}
+__host__ __device__ constexpr int bf16_smem_bytes(int nt, int C) {
+  return bf16_stages(nt, C) * bf16_stage_bytes(nt, C) + 64;
+}
+// A fragment row g of a warp reads weight row 16 warp + row_of(g) (and + 8):
+// rows 0 and 4, 1 and 5, .. share a shared-memory read phase, and the
+// 128-byte swizzle puts their 16-byte chunks in opposite halves of the
+// banks
+__device__ __forceinline__ int row_of(int g) {
+  return ((g & 1) << 2) | (g >> 1);
+}
 
 // the f32 body's activation columns staged a chunk (ops/int8_matmul.py
 // k6_geometry mirrors this; the entry point checks the two agree)
@@ -98,19 +132,8 @@ __host__ __device__ constexpr int f32_kc(int nt) {
 }
 
 // Four int8 (the bytes of q) as float: byte b + 128 is an unsigned byte u,
-// and 2^23 + u is exact in the mantissa of 0x4B0000uu.
-__device__ __forceinline__ void i8x4_to_f32(uint32_t q, float (&f)[4]) {
-  const uint32_t u = q ^ 0x80808080u;
-  const float magic = 8388736.0f;    // 2^23 + 128
-  f[0] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4440)) - magic;
-  f[1] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4441)) - magic;
-  f[2] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4442)) - magic;
-  f[3] = __uint_as_float(0x4B000000u | __byte_perm(u, 0, 0x4443)) - magic;
-}
-
-// Four int8 as float: each byte under 0x4B0000 by one byte permute, then
-// the magic-number subtract (the bf16 body's i8x4_to_f32 with the OR
-// folded into the permute).
+// and 2^23 + u is exact in the mantissa of 0x4B0000uu, put there by one
+// byte permute; then the magic-number subtract.
 __device__ __forceinline__ void i8x4_to_f32_prmt(uint32_t q, float (&f)[4]) {
   const uint32_t u = q ^ 0x80808080u;
   const float magic = 8388736.0f;    // 2^23 + 128
@@ -169,10 +192,10 @@ __device__ __forceinline__ __nv_bfloat16 scale_bf16(float acc, float s) {
 }
 
 // Several splits: the splits of one channel tile are one cluster, and
-// blockIdx.y, the split, is the block's rank in it.  Each block leaves its
-// f32 partial tile [M][C + 4] (C channels; the pad makes the stores free
-// of bank conflicts) in its own shared memory, where the loop's staging
-// space was (the loop's last __syncthreads ended every read of it); after
+// blockIdx.y, the split, is the block's rank in it.  Each block's consumer
+// warps leave its f32 partial tile [M][C + 4] (C channels; the pad makes
+// the stores free of bank conflicts) in its own shared memory, where the
+// ring was; after
 // a cluster barrier, rank r sums its share of the tile's outputs over
 // ranks 0, 1, .., splits - 1 in that order (the k order of the splits),
 // rounds, scales and stores them; a last barrier keeps every block, and so
@@ -180,18 +203,22 @@ __device__ __forceinline__ __nv_bfloat16 scale_bf16(float acc, float s) {
 template <int NT>
 __device__ __forceinline__ void bf16_cluster_epilogue(
     const float (&c)[NT][4], const float* __restrict__ s,
-    __nv_bfloat16* __restrict__ y, int M, int N) {
-  extern __shared__ uint4 smem[];
-  float* pt = reinterpret_cast<float*>(smem);
-  const int C = blockDim.x / 2, CP = C + 4;   // 16 channels a warp
+    __nv_bfloat16* __restrict__ y, int M, int N, int C, bool consumer) {
+  extern __shared__ __align__(1024) uint8_t ring[];
+  float* pt = reinterpret_cast<float*>(ring);
+  const int CP = C + 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
+  if (consumer) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
+    for (int n = 0; n < NT; ++n) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int mm = n * 8 + 2 * t + (i & 1);
-      if (mm < M) pt[mm * CP + 16 * warp + g + (i >= 2 ? 8 : 0)] = c[n][i];
+      for (int i = 0; i < 4; ++i) {
+        const int mm = n * 8 + 2 * t + (i & 1);
+        if (mm < M)
+          pt[mm * CP + 16 * warp + row_of(g) + (i >= 2 ? 8 : 0)] =
+              c[n][i];
+      }
     }
   }
   cluster_sync();
@@ -222,27 +249,37 @@ __device__ __forceinline__ void bf16_cluster_epilogue(
 }
 
 template <int NT>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const int8_t* __restrict__ w,
+__global__ void __launch_bounds__(BF16_THREADS, 2)
+int8_matmul_bf16_kernel(const __grid_constant__ CUtensorMap w_map,
+                        const __grid_constant__ CUtensorMap x_map,
                         const float* __restrict__ s,
                         __nv_bfloat16* __restrict__ y, int M, int K,
-                        int N, int per) {
-  extern __shared__ uint4 smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int o0 = (blockIdx.x * (blockDim.x >> 5) + warp) * 16;
-  const int row_a = o0 + g, row_b = o0 + g + 8;
-  const bool ok_a = row_a < N, ok_b = row_b < N;
-  const int8_t* wa = w + (size_t)(ok_a ? row_a : 0) * K;
-  const int8_t* wb = w + (size_t)(ok_b ? row_b : 0) * K;
+                        int N, int per, int stages) {
+  extern __shared__ __align__(1024) uint8_t ring[];
   constexpr int ROWS = NT * 8;
+  const int warps = blockDim.x / 32 - 1;          // consumer warps
+  const int C = 16 * warps;                       // channels a block
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int o_blk = blockIdx.x * C;
+  const int sbytes = bf16_stage_bytes(NT, C);
+  const uint32_t full0 = smem_u32(ring) + stages * sbytes;
+  const uint32_t empty0 = full0 + 32;
 
-  // this block's k range: `per` 64-wide blocks from split blockIdx.y
+  // this block's k range: `per` 64-wide blocks from split blockIdx.y, in
+  // chunks of KB columns (the last may be 64 wide)
   const int kblocks = (K + 63) / 64;
-  const int kb0 = blockIdx.y * per;
-  const int kb1 = min(kblocks, kb0 + per);
+  const int kbeg = blockIdx.y * per * 64;
+  const int kstop = min(kblocks, (int)(blockIdx.y + 1) * per) * 64;
+  const int chunks = (kstop - kbeg + KB - 1) / KB;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);
+      mbar_init(empty0 + 8 * i, warps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
   float c[NT][4];
 #pragma unroll
@@ -250,69 +287,86 @@ int8_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
     for (int i = 0; i < 4; ++i) c[n][i] = 0.f;
 
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int kc = kb0 * 64; kc < kb1 * 64; kc += KC) {
-    const int kend = min(min(kc + KC, kb1 * 64), K);
-    // the chunk's weight chunks go out first, then the activation rows'
-    // chunk to shared memory by cp.async (rows >= M and columns past the
-    // range zero-filled), all in flight together
-    uint4 qa[KC / 64], qb[KC / 64];
-#pragma unroll
-    for (int j = 0; j < KC / 64; ++j) {
-      const int k = kc + 64 * j + 16 * t;
-      qa[j] = ok_a && k < kend ? ldg16(wa + k) : zero;
-      qb[j] = ok_b && k < kend ? ldg16(wb + k) : zero;
-    }
-    for (int i = threadIdx.x; i < ROWS * (KC / 8); i += blockDim.x) {
-      const int r = i / (KC / 8), c8 = i % (KC / 8);
-      const int k = kc + 8 * c8;
-      const bool ok = r < M && k < kend;
-      cp_async16(smem_u32(xs + r * XS + 8 * c8),
-                 ok ? x + (size_t)r * K + k : x, ok ? 16 : 0);
-    }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < KC / 64; ++j) {
-      if (kc + 64 * j >= kend) break;
-      // A fragments of the k block's four k steps
-      uint32_t a[4][4];
-      const uint32_t wa_w[4] = {qa[j].x, qa[j].y, qa[j].z, qa[j].w};
-      const uint32_t wb_w[4] = {qb[j].x, qb[j].y, qb[j].z, qb[j].w};
-#pragma unroll
-      for (int st = 0; st < 4; ++st) {
-        float fa[4], fb[4];
-        i8x4_to_f32(wa_w[st], fa);
-        i8x4_to_f32(wb_w[st], fb);
-        a[st][0] = pack_bf16x2(fa[0], fa[1]);
-        a[st][1] = pack_bf16x2(fb[0], fb[1]);
-        a[st][2] = pack_bf16x2(fa[2], fa[3]);
-        a[st][3] = pack_bf16x2(fb[2], fb[3]);
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* xr = xs + (n * 8 + g) * XS + 64 * j + 16 * t;
-        const uint4 x0 = *reinterpret_cast<const uint4*>(xr);
-        const uint4 x1 = *reinterpret_cast<const uint4*>(xr + 8);
-        mma_bf16(c[n], a[0], x0.x, x0.y);
-        mma_bf16(c[n], a[1], x0.z, x0.w);
-        mma_bf16(c[n], a[2], x1.x, x1.y);
-        mma_bf16(c[n], a[3], x1.z, x1.w);
+  if (warp == warps) {
+    // producer: one thread keeps up to `stages` chunks in flight, three
+    // TMA boxes a chunk (rows past N or M and columns past K arrive as
+    // zeros; a chunk cut at the split's end loads 64 columns it skips)
+    if (lane == 0) {
+      for (int i = 0; i < chunks; ++i) {
+        const int st = i % stages, kc = kbeg + i * KB;
+        const uint32_t stage = smem_u32(ring) + st * sbytes;
+        const uint32_t bar = full0 + 8 * st;
+        mbar_wait(empty0 + 8 * st, ((i / stages) & 1) ^ 1);
+        mbar_arrive_expect_tx(bar, sbytes);
+        tma_load_2d(stage, &w_map, bar, kc, o_blk);
+        tma_load_2d(stage + C * KB, &x_map, bar, kc, 0);
+        tma_load_2d(stage + C * KB + ROWS * 128, &x_map, bar, kc + 64, 0);
       }
     }
-    __syncthreads();
+    __syncwarp();
+  } else {
+    // consumers: a warp owns 16 channels (A fragment rows g and g + 8:
+    // weight rows pa and pa + 8) and every activation row (NT tiles of 8,
+    // the B fragment); chunk c of a 128-byte row r lies at c ^ (r % 8)
+    const int g = lane >> 2, t = lane & 3;
+    const int pa = 16 * warp + row_of(g);
+    for (int i = 0; i < chunks; ++i) {
+      const int st = i % stages;
+      const int cols = min(KB, kstop - kbeg - i * KB);
+      const uint8_t* stage = ring + st * sbytes;
+      mbar_wait(full0 + 8 * st, (i / stages) & 1);
+#pragma unroll
+      for (int j = 0; j < KB / 64; ++j) {
+        if (64 * j >= cols) break;
+        const int ca = ((4 * j + t) ^ (pa & 7)) * 16;
+        const uint4 qa = *reinterpret_cast<const uint4*>(stage + pa * KB + ca);
+        const uint4 qb =
+            *reinterpret_cast<const uint4*>(stage + (pa + 8) * KB + ca);
+        // A fragments of the k block's four k steps
+        uint32_t a[4][4];
+        const uint32_t wa_w[4] = {qa.x, qa.y, qa.z, qa.w};
+        const uint32_t wb_w[4] = {qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          float fa[4], fb[4];
+          i8x4_to_f32_prmt(wa_w[ks], fa);
+          i8x4_to_f32_prmt(wb_w[ks], fb);
+          a[ks][0] = pack_bf16x2(fa[0], fa[1]);
+          a[ks][1] = pack_bf16x2(fb[0], fb[1]);
+          a[ks][2] = pack_bf16x2(fa[2], fa[3]);
+          a[ks][3] = pack_bf16x2(fb[2], fb[3]);
+        }
+        const uint8_t* xs = stage + C * KB + j * ROWS * 128;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint8_t* xr = xs + (n * 8 + g) * 128;
+          const uint4 x0 =
+              *reinterpret_cast<const uint4*>(xr + ((2 * t) ^ g) * 16);
+          const uint4 x1 =
+              *reinterpret_cast<const uint4*>(xr + ((2 * t + 1) ^ g) * 16);
+          mma_bf16(c[n], a[0], x0.x, x0.y);
+          mma_bf16(c[n], a[1], x0.z, x0.w);
+          mma_bf16(c[n], a[2], x1.x, x1.y);
+          mma_bf16(c[n], a[3], x1.z, x1.w);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * st);
+    }
   }
 
-  // one split: round, scale, store
-  const float sa = ok_a ? s[row_a] : 0.f, sb = ok_b ? s[row_b] : 0.f;
   if (gridDim.y == 1) {
+    // one split: round, scale, store
+    if (warp == warps) return;
+    const int g = lane >> 2, t = lane & 3;
+    const int row_a = o_blk + 16 * warp + row_of(g), row_b = row_a + 8;
+    const bool ok_a = row_a < N, ok_b = row_b < N;
+    const float sa = ok_a ? s[row_a] : 0.f, sb = ok_b ? s[row_b] : 0.f;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int m = n * 8 + 2 * t;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int mm = m + (i & 1);
+        const int mm = n * 8 + 2 * t + (i & 1);
         const bool hi = i >= 2;
         if (mm < M && (hi ? ok_b : ok_a))
           y[(size_t)mm * N + (hi ? row_b : row_a)] =
@@ -321,7 +375,10 @@ int8_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x,
     }
     return;
   }
-  bf16_cluster_epilogue<NT>(c, s, y, M, N);
+  // several splits: every chunk has been read, so the ring is free for
+  // the partial tile
+  __syncthreads();
+  bf16_cluster_epilogue<NT>(c, s, y, M, N, C, warp < warps);
 }
 
 template <int NT>
@@ -482,42 +539,80 @@ int launch_f32(const void* x, const void* w, const void* s, void* y,
   return (int)cudaGetLastError();
 }
 
+// The bf16 body's launch: grid (blocks, splits), the splits of a channel
+// tile one cluster (1, splits, 1); the body's dynamic shared-memory limit
+// raised to the ring's bytes where it is lower.
 template <int NT>
-int launch_bf16(const void* x, const void* w, const void* s, void* y, int M,
-                int K, int N, int warps, int splits, cudaStream_t stream) {
-  const int smem = NT * 8 * XS * 2;
-  static bool attr_set = false;
-  if (!attr_set) {
+cudaError_t bf16_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& cluster,
+                        int N, int warps, int splits) {
+  static int allowed = 0;
+  const int C = 16 * warps, smem = bf16_smem_bytes(NT, C);
+  if (smem > allowed) {
     cudaError_t e = cudaFuncSetAttribute(
         int8_matmul_bf16_kernel<NT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
+    if (e != cudaSuccess) return e;
+    allowed = smem;
   }
-  const int per = ((K + 63) / 64 + splits - 1) / splits;
-  // the splits of a channel tile form one cluster (1, splits, 1)
-  cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
   cluster.val.clusterDim.y = splits;
   cluster.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + 16 * warps - 1) / (16 * warps), splits);
-  cfg.blockDim = dim3(warps * 32);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3((N + C - 1) / C, splits);
+  cfg.blockDim = dim3((warps + 1) * 32);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = splits > 1 ? 1 : 0;
-  void (*kernel)(const __nv_bfloat16*, const int8_t*, const float*,
-                 __nv_bfloat16*, int, int, int, int) =
+  return cudaSuccess;
+}
+
+// TMA maps: w [N, K] int8 in boxes of C rows x KB bytes, x [M, K] bf16 in
+// boxes of 8 NT rows x 64 columns, both 128-byte swizzled
+template <int NT>
+int launch_bf16(const void* x, const void* w, const void* s, void* y, int M,
+                int K, int N, int warps, int splits, cudaStream_t stream) {
+  const int C = 16 * warps;
+  CUtensorMap w_map, x_map;
+  const uint64_t w_dims[2] = {(uint64_t)K, (uint64_t)N};
+  const uint64_t x_dims[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t w_stride[1] = {(uint64_t)K}, x_stride[1] = {2ull * K};
+  const uint32_t w_box[2] = {KB, (uint32_t)C}, x_box[2] = {64, NT * 8};
+  if (!make_tensor_map(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, w, w_dims,
+                       w_stride, w_box, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !make_tensor_map(&x_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x,
+                       x_dims, x_stride, x_box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return -2;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  cudaError_t e = bf16_config<NT>(cfg, cluster, N, warps, splits);
+  if (e != cudaSuccess) return (int)e;
+  cfg.stream = stream;
+  const int per = ((K + 63) / 64 + splits - 1) / splits;
+  void (*kernel)(const CUtensorMap, const CUtensorMap, const float*,
+                 __nv_bfloat16*, int, int, int, int, int) =
       int8_matmul_bf16_kernel<NT>;
-  cudaError_t e = cudaLaunchKernelEx(
-      &cfg, kernel,
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s), static_cast<__nv_bfloat16*>(y), M, K, N,
-      per);
+  e = cudaLaunchKernelEx(&cfg, kernel, w_map, x_map,
+                         static_cast<const float*>(s),
+                         static_cast<__nv_bfloat16*>(y), M, K, N, per,
+                         bf16_stages(NT, C));
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// clusters of the bf16 body's launch at NT row tiles the card holds at once
+template <int NT>
+int bf16_clusters(int warps, int splits) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster;
+  if (bf16_config<NT>(cfg, cluster, 16 * warps, warps, splits) != cudaSuccess)
+    return -1;
+  cfg.gridDim = dim3(1, splits);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(
+          &n, (const void*)int8_matmul_bf16_kernel<NT>, &cfg) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
@@ -526,6 +621,7 @@ extern "C" {
 
 const char* kernel_error_string(int code) {
   if (code == -1) return "unsupported shape, dtype or row-tile count";
+  if (code == -2) return "the driver refused a TMA tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 
@@ -535,12 +631,13 @@ const char* kernel_error_string(int code) {
 // 2, 4 or 8) and splits of K across blocks (ops/int8_matmul.py k6_plan,
 // from N and K alone, so a row's sums do not depend on M).  f32 with
 // splits > 1: part is f32 scratch [splits, M, N]; bf16: splits <= 8 (one
-// cluster), part unused.  kc: the activation columns staged a chunk, as
-// ops/int8_matmul.py k6_geometry gives it for M (256 for bf16, f32_kc
-// for f32).  Returns 0, a CUDA error code or -1.
+// cluster), part unused.  kc and stages as ops/int8_matmul.py
+// k6_geometry gives them for M: the columns staged a chunk (f32: f32_kc;
+// bf16: KB) and the ring's stages (f32: 1; bf16: bf16_stages).  Returns
+// 0, a CUDA error code or -1.
 int int8_matmul(const void* x, const void* w, const void* s, void* y,
                 void* part, int M, int K, int N, int dtype, int warps,
-                int splits, int kc, void* stream) {
+                int splits, int kc, int stages, void* stream) {
   if (M < 1 || M > MAX_ROWS || K < 16 || K % 16 || N < 1 || splits < 1)
     return -1;
   if (dtype == 0 &&
@@ -551,7 +648,9 @@ int int8_matmul(const void* x, const void* w, const void* s, void* y,
     return -1;
   if (dtype != 0 && dtype != 1) return -1;
   const int nt = (M + 7) / 8;
-  if (kc != (dtype == 0 ? f32_kc(nt) : KC)) return -1;
+  if (kc != (dtype == 0 ? f32_kc(nt) : KB) ||
+      stages != (dtype == 0 ? 1 : bf16_stages(nt, 16 * warps)))
+    return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (nt) {
 #define K6_CASE(nt)                                                         \
@@ -560,6 +659,23 @@ int int8_matmul(const void* x, const void* w, const void* s, void* y,
                ? launch_f32<nt>(x, w, s, y, part, M, K, N, warps, splits,   \
                                 st)                                         \
                : launch_bf16<nt>(x, w, s, y, M, K, N, warps, splits, st);
+    K6_CASE(1) K6_CASE(2) K6_CASE(3) K6_CASE(4) K6_CASE(5) K6_CASE(6)
+    K6_CASE(7) K6_CASE(8) K6_CASE(9) K6_CASE(10) K6_CASE(11) K6_CASE(12)
+    K6_CASE(13) K6_CASE(14) K6_CASE(15) K6_CASE(16)
+#undef K6_CASE
+  }
+  return -1;
+}
+
+// How many clusters of K6's bf16 launch (1 <= nt <= 16 row tiles, warps,
+// splits blocks a cluster) the card holds at once
+// (cudaOccupancyMaxActiveClusters; a split of 1 counts blocks); -1 if it
+// cannot tell.
+int int8_matmul_bf16_clusters(int nt, int warps, int splits) {
+  switch (nt) {
+#define K6_CASE(nt) \
+  case nt:          \
+    return bf16_clusters<nt>(warps, splits);
     K6_CASE(1) K6_CASE(2) K6_CASE(3) K6_CASE(4) K6_CASE(5) K6_CASE(6)
     K6_CASE(7) K6_CASE(8) K6_CASE(9) K6_CASE(10) K6_CASE(11) K6_CASE(12)
     K6_CASE(13) K6_CASE(14) K6_CASE(15) K6_CASE(16)

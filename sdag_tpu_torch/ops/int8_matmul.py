@@ -35,8 +35,12 @@ from sdag_tpu_torch import _build
 # torch.matmul over a dequantized copy
 K6_MAX_ROWS = 128
 # the bf16 body's splits of one channel tile form one thread block cluster,
-# at most the portable cluster size
+# at most the portable cluster size; its ring's chunk (columns) and the
+# shared bytes a block may take with two blocks an SM
+# (csrc/int8_matmul.cu mirrors these)
 K6_MAX_CLUSTER = 8
+K6_BF16_CHUNK = 128
+K6_BF16_SMEM_2 = 114688
 K6_BODIES = {torch.float32: "int8_matmul_f32",
              torch.bfloat16: "int8_matmul_bf16"}
 _K6_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,19 +63,20 @@ def k6_plan(n_out: int, k_in: int, sm_count: int,
     chunk).  Both bodies fill at most one wave of two blocks an SM (their
     occupancy at a window's 40 rows; a second, partial wave cost more
     than the extra split saved).  f32: 8 warps, or 4 below 2048 channels.
-    bf16: the splits of a channel tile reduce inside one thread block
-    cluster, so at most ``K6_MAX_CLUSTER``; where that many splits of 8
-    (4) warps leave an SM without a block, fewer warps a block."""
-    warps = 8 if n_out >= 2048 else 4
+    bf16: 4 warps, or 8 where 4-warp blocks would overfill a wave
+    unsplit; the splits of a channel tile reduce inside one thread block
+    cluster, so at most ``K6_MAX_CLUSTER``; where that many splits leave
+    an SM without a block, fewer warps a block."""
     kblocks = -(-k_in // 64)
-    most = max(1, min(K6_MAX_CLUSTER, kblocks // 4))
-    if dtype != torch.float32:
+    if dtype == torch.float32:
+        warps = 8 if n_out >= 2048 else 4
+        want = 2 * sm_count // -(-n_out // (16 * warps))
+    else:
+        warps = 8 if -(-n_out // 64) > 2 * sm_count else 4
+        most = max(1, min(K6_MAX_CLUSTER, kblocks // 4))
         while warps > 1 and -(-n_out // (16 * warps)) * most < sm_count:
             warps //= 2
-    blocks = -(-n_out // (16 * warps))
-    want = 2 * sm_count // blocks
-    if dtype != torch.float32:
-        want = min(want, K6_MAX_CLUSTER)
+        want = min(K6_MAX_CLUSTER, 2 * sm_count // -(-n_out // (16 * warps)))
     splits = max(1, min(want, kblocks // 4))
     per = -(-kblocks // splits)
     return warps, -(-kblocks // per)
@@ -80,27 +85,33 @@ def k6_plan(n_out: int, k_in: int, sm_count: int,
 def k6_geometry(m_rows: int, n_out: int, k_in: int, dtype: torch.dtype,
                 sm_count: int) -> Dict[str, int]:
     """K6's launch at ``m_rows`` rows: the plan (``k6_plan``: warps,
-    splits, ``per`` 64-wide k blocks a split, ``blocks`` of channels),
+    splits, ``per`` 64-wide k blocks a split, ``blocks`` of channels,
+    ``cluster``: blocks a thread block cluster, the bf16 body's splits),
     which fixes every sum's order, and what the row count only sizes: row
-    tiles of 8 (``nt``), activation columns staged a chunk (``kc``: 256;
-    the f32 body 128 above 8 row tiles) and the shared bytes they take
-    (bf16 rows padded by 16 bytes; the bf16 body's f32 partial tile,
-    ``M x (16 warps + 4)``, reuses them).  ``cluster``: blocks a thread
-    block cluster (the bf16 body's splits; 1 for f32).
-    ``csrc/int8_matmul.cu`` refuses a ``kc`` other than its own rule's."""
+    tiles of 8 (``nt``), columns staged a chunk (``kc``) and the shared
+    bytes they take.  f32: activation chunks of 256 columns, 128 above 8
+    row tiles.  bf16: a ring of ``stages`` chunks of 128 columns, each the
+    block's weight rows and the activation rows in 8 ``nt`` rows (TMA
+    boxes; rows past M arrive as zeros), as many stages (2 to 4) as leave
+    two blocks an SM, and the stages' mbarriers (64 bytes); the f32
+    partial tile of a split, ``M x (16 warps + 4)``, reuses the ring; the
+    block's ``threads`` include one producer warp.  ``csrc/int8_matmul.cu``
+    refuses a ``kc`` or ``stages`` other than its own rule's."""
     warps, splits = k6_plan(n_out, k_in, sm_count, dtype)
     kblocks = -(-k_in // 64)
     nt = -(-m_rows // 8)
     if dtype == torch.float32:
         kc = 256 if nt <= 8 else 128
-        smem = nt * 8 * kc * 4
+        stages, smem, threads = 1, nt * 8 * kc * 4, 32 * warps
     else:
-        kc = 256
-        smem = nt * 8 * (kc + 8) * 2
+        kc = K6_BF16_CHUNK
+        stage = 16 * warps * kc + nt * 8 * 2 * kc
+        stages = max(2, min(4, (K6_BF16_SMEM_2 - 64) // stage))
+        smem, threads = stages * stage + 64, 32 * warps + 32
     return {"warps": warps, "splits": splits,
             "per": -(-kblocks // splits),
             "blocks": -(-n_out // (16 * warps)), "nt": nt, "kc": kc,
-            "smem_bytes": smem,
+            "stages": stages, "smem_bytes": smem, "threads": threads,
             "cluster": 1 if dtype == torch.float32 else splits}
 
 
@@ -108,9 +119,20 @@ def _k6_lib():
     lib = _build.load("int8_matmul")
     if lib.int8_matmul.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.int8_matmul.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                    p]
         lib.int8_matmul.restype = i
+        lib.int8_matmul_bf16_clusters.argtypes = [i, i, i]
+        lib.int8_matmul_bf16_clusters.restype = i
     return lib
+
+
+def k6_bf16_clusters(geo: Dict[str, int]) -> int:
+    """How many clusters of the bf16 launch ``geo`` (``k6_geometry``) the
+    current card holds at once (cudaOccupancyMaxActiveClusters), -1 if it
+    cannot tell."""
+    return _k6_lib().int8_matmul_bf16_clusters(geo["nt"], geo["warps"],
+                                               geo["splits"])
 
 
 def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
@@ -149,6 +171,7 @@ def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     rc = lib.int8_matmul(
         ptr(x), ptr(w), ptr(s), ptr(y), ptr(part), M, K, N,
         _K6_DTYPES[x.dtype], geo["warps"], geo["splits"], geo["kc"],
+        geo["stages"],
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
     _build.check(lib, rc, "int8_matmul")
     _build.LAUNCHES[K6_BODIES[x.dtype]] += 1

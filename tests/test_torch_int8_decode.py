@@ -382,20 +382,20 @@ def test_generator_greedy_tokens_equal_jax(qa, weights, kv, mode):
 
 
 def test_k6_launch_plan_and_cpu_dispatch():
-    """K6's bf16 plan at the 8B products: 8 warps a block (4 below 2048
-    channels, fewer where the most splits would leave an SM without a
-    block), K split across blocks up to one wave of two blocks an SM and
-    at most 8 splits (one thread block cluster), each split at least one
-    256-wide chunk, no split empty; the plan ignores the row count.  On
-    the CPU the wrapper is the plain version, the kernel's entry refuses
-    CPU tensors."""
+    """K6's bf16 plan at the 8B products: 4 warps a block (8 where 4-warp
+    blocks would overfill a wave unsplit, fewer where the most splits
+    would leave an SM without a block), K split across blocks up to one
+    wave of two blocks an SM and at most 8 splits (one thread block
+    cluster), each split at least one 256-wide chunk, no split empty; the
+    plan ignores the row count.  On the CPU the wrapper is the plain
+    version, the kernel's entry refuses CPU tensors."""
     from sdag_tpu_torch.ops.int8_matmul import (K6_MAX_CLUSTER,
                                                 int8_matmul_cuda, k6_geometry,
                                                 k6_plan)
     shapes = ((1024, 4096), (4096, 4096), (14336, 4096), (4096, 14336),
               (128256, 4096), (512, 192))
     assert [k6_plan(n, k, 132) for n, k in shapes] == \
-        [(2, 8), (8, 8), (8, 2), (8, 8), (8, 1), (1, 1)]
+        [(2, 8), (4, 4), (4, 1), (4, 4), (8, 1), (1, 1)]
     for n, k in shapes:
         warps, splits = k6_plan(n, k, 132)
         kblocks = -(-k // 64)
