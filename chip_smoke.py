@@ -1799,29 +1799,39 @@ def _k6_cases(dev):
     return recs
 
 
-def _k6_bf16_plans(dev):
-    """K6's bf16 launch at every 8B product, M = 8 and 40 (k6_geometry:
-    warps, splits = blocks a cluster, chunk, stages, shared bytes), the
-    clusters of it the card holds at once, and ptxas' registers and spill
-    bytes of the instantiation it runs."""
+def k6_bf16_ptxas(build) -> dict:
+    """ptxas' registers and spill bytes of each instantiation of K6's bf16
+    body, by its row tiles, from build/int8_matmul.log."""
     import re
-    import torch
-    from sdag_tpu_torch import _build
-    from sdag_tpu_torch.models.llama import DecoderConfig
-    from sdag_tpu_torch.ops import int8_matmul as Q
-    with open(os.path.join(_build.BUILD, "int8_matmul.log")) as fh:
+    path = os.path.join(build.BUILD, "int8_matmul.log")
+    if not os.path.isfile(path):
+        return {}
+    with open(path) as fh:
         text = fh.read()
-    ptxas = {}
+    rec = {}
     for entry in text.split("Compiling entry function '")[1:]:
         m = re.match(r"\S*int8_matmul_bf16_kernelILi(\d+)E", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", entry)
         if m and regs and spill:
-            ptxas[int(m.group(1))] = {
+            rec[int(m.group(1))] = {
                 "registers": int(regs.group(1)),
                 "spill_store_bytes": int(spill.group(1)),
                 "spill_load_bytes": int(spill.group(2))}
+    return rec
+
+
+def _k6_bf16_plans(dev):
+    """K6's bf16 launch at every 8B product, M = 8 and 40 (k6_geometry:
+    warps, splits = blocks a cluster, chunk, stages, shared bytes), the
+    clusters of it the card holds at once, and ptxas' registers and spill
+    bytes of the instantiation it runs."""
+    import torch
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.ops import int8_matmul as Q
+    ptxas = k6_bf16_ptxas(_build)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     recs = []
     for name, n, k, _count in k6_products(DecoderConfig.llama3_8b()):

@@ -278,26 +278,6 @@ def _kernel_ms(fn, calls: int) -> dict:
     return ms
 
 
-def bf16_ptxas(log_path: str) -> dict:
-    """ptxas' [registers, spill store bytes, spill load bytes] of each
-    instantiation of K6's bf16 body, by its row tiles, from the build log."""
-    import re
-    if not os.path.isfile(log_path):
-        return {}
-    with open(log_path) as fh:
-        text = fh.read()
-    rec = {}
-    for entry in text.split("Compiling entry function '")[1:]:
-        m = re.match(r"\S*int8_matmul_bf16_kernelILi(\d+)E", entry)
-        regs = re.search(r"Used (\d+) registers", entry)
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", entry)
-        if m and regs and spill:
-            rec[m.group(1)] = [int(regs.group(1)), int(spill.group(1)),
-                               int(spill.group(2))]
-    return rec
-
-
 def k6_times(c, dev, out):
     """K6's bf16 body at the 8B decode step's products (c.k6_products),
     M = 8 (a step's batch) and M = 40 (a window of 8 x 5), beside bf16
@@ -309,8 +289,9 @@ def k6_times(c, dev, out):
     below 50 MB), each also summed over a step (round) with the products'
     counts (225 products at 8B); device ms by kernel of one cold round at
     M = 40 under torch.profiler (``K6_8b_round_M40_kernels``); ptxas'
-    registers and spills of the bf16 body by row tiles
-    (``K6_bf16_ptxas``).  Then the f32 body (``k6_f32_times``)."""
+    registers and spills of the bf16 body by row tiles (``K6_bf16_ptxas``,
+    where the tree's chip_smoke reads them).  Then the f32 body
+    (``k6_f32_times``)."""
     import torch
     from sdag_tpu_torch import _build
     from sdag_tpu_torch.models.llama import DecoderConfig
@@ -347,8 +328,8 @@ def k6_times(c, dev, out):
         out.update(step)
         if kernels:
             out["K6_8b_round_M40_kernels"] = kernels
-    out["K6_bf16_ptxas"] = bf16_ptxas(
-        os.path.join(_build.BUILD, "int8_matmul.log"))
+    if hasattr(c, "k6_bf16_ptxas"):
+        out["K6_bf16_ptxas"] = c.k6_bf16_ptxas(_build)
     k6_f32_times(c, dev, out, Q)
 
 

@@ -35,13 +35,13 @@
 // mbarrier.  Consumers wait on it, convert, multiply and arrive on the
 // stage's empty mbarrier: no block barrier in the k loop, so loads stay
 // in flight while warps convert and multiply.  (One cp.async.bulk a row
-// a chunk, 168 small copies a stage, ran far slower: bound by the copy
-// unit's issue rate.)  The contraction index is permuted so that both
-// operands load 16 bytes a thread: in k step j of a 64-wide block, the
-// logical columns {2t, 2t + 1, 2t + 8, 2t + 9} of thread group t are the
-// actual columns 16 t + 4 j + {0, 1, 2, 3}, for A and B alike; a warp's
-// A rows are permuted (row_of) so that every 16-byte read phase of the
-// swizzled tiles hits all 32 banks.  int8 -> bf16 is exact (a byte
+// a chunk, 168 small copies a stage, ran far slower: bound by the rate at
+// which the copy unit takes requests.)  The contraction index is permuted
+// so that both operands load 16 bytes a thread: in k step j of a 64-wide
+// block, the logical columns {2t, 2t + 1, 2t + 8, 2t + 9} of thread group
+// t are the actual columns 16 t + 4 j + {0, 1, 2, 3}, for A and B alike;
+// a warp's A rows are permuted (row_of) so that every 16-byte read phase
+// of the swizzled tiles hits all 32 banks.  int8 -> bf16 is exact (a byte
 // permute and a magic-number float subtract, then a packed round).  Small
 // N splits K across blocks (blockIdx.y) to fill one wave of the card; the
 // splits of a channel tile are one thread block cluster, and their f32
@@ -621,7 +621,7 @@ extern "C" {
 
 const char* kernel_error_string(int code) {
   if (code == -1) return "unsupported shape, dtype or row-tile count";
-  if (code == -2) return "the driver refused a TMA tensor map";
+  if (code == -2) return "cuTensorMapEncodeTiled refused a TMA tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -180,3 +180,28 @@ def test_dropping_the_last_split_misses_the_limit():
     w_rank[:, (geo["splits"] - 1) * geo["per"] * 64:] = 0
     assert _row_rel_err(_k6_bf16_emulated(x, w_block, s, N), ref) > TOL
     assert _row_rel_err(_k6_bf16_emulated(x, w_rank, s, N), ref) > TOL
+
+
+def test_chip_smoke_reads_bf16_ptxas_counts(tmp_path):
+    """chip_smoke.k6_bf16_ptxas (phase 8(a)'s plan log, kernel_times'
+    K6_bf16_ptxas) takes each bf16 instantiation's registers and spills
+    from nvcc's -Xptxas=-v log by its row tiles, and skips other bodies."""
+    body = "_ZN47_GLOBAL__N__0_int8_matmul_cu_23int8_matmul_bf16_kernelILi{}EEv"
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {st} bytes spill stores, {ld} bytes "
+        f"spill loads\nptxas info    : Used {regs} registers\n"
+        for name, regs, st, ld in (
+            (body.format(5), 77, 0, 0), (body.format(16), 96, 64, 32),
+            ("_ZN47_GLOBAL__N__0_int8_matmul_cu_22int8_matmul_f32_kernel"
+             "ILi5EEv", 127, 0, 0)))
+    (tmp_path / "int8_matmul.log").write_text(log)
+
+    class Build:
+        BUILD = str(tmp_path)
+    assert chip_smoke.k6_bf16_ptxas(Build) == {
+        5: {"registers": 77, "spill_store_bytes": 0, "spill_load_bytes": 0},
+        16: {"registers": 96, "spill_store_bytes": 64,
+             "spill_load_bytes": 32}}
+    Build.BUILD = str(tmp_path / "missing")
+    assert chip_smoke.k6_bf16_ptxas(Build) == {}
