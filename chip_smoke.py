@@ -153,6 +153,34 @@ Phase 9  HF checkpoints from local files, written here without any HF
          to the plain version's, fused (K3) embeddings within 1e-4 of the
          unfused ones; K3-f32 and K4-f32 timed at this path's shapes.
 
+Phase 10 the paper's defenses, the attack builder, the index builder and
+         the SDAG-effect grid: (a) DEFENSE_BACKEND=discern_and_answer at
+         llama3-8b width (random bf16 weights), 8 attacked queries (n_mal
+         2, rank 1, 16 new tokens), the local batched classifier: a
+         clean/perturbed label per classified (query, doc) in the labels
+         JSONL; a second run from that file calls no classifier and
+         launches exactly 32 x (the first run's classifier generate_ids
+         calls) fewer K1-bf16 kernels; (b) DEFENSE_BACKEND=ragdefender with
+         an e5-large-v2-width encoder (random bf16) beside qa_ckpt, 24
+         queries (n_mal 2, rank 1): K3-bf16 launched layers x batches; each
+         query's kept docs equal those of the same filter over the plain
+         path on the CPU (the same weights, computed in float32; each
+         distinct text encoded once), except queries with a
+         z-score or pair similarity within 1e-2 of its threshold (counted,
+         printed); (c) pipeline.build_index on the card over phase 7's
+         corpus: --bm25 equal to an in-process BM25Index.save (the npz
+         member by member), dense e5-large-v2 bf16 loaded with exact search
+         giving an in-process DenseIndex.from_texts' hits, both directories
+         served by run_experiment (K4-bf16, K2, K1-f32 launched); (d)
+         attack.poisoned_rag.main, local backend, llama3-8b width, 4
+         cached questions, greedy: 4 rows of the five attack-CSV columns,
+         read back by load_from_csv, a second call writes the same file;
+         (e) experiments/run_sdag_effect_torch.py run_grid on qa_ckpt,
+         n_mal 1, 2, 5 x positions 0, 1, 3 x 96 held-out queries: each
+         cell's answers and match flags against the committed JAX CPU
+         reference (experiments/results/sdag_effect_jax_cpu), at most 2
+         rows a cell differ (each printed).
+
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
 result.  The last two stdout lines are the kernels JSON and
@@ -2695,6 +2723,24 @@ def _free_cuda():
     torch.cuda.empty_cache()
 
 
+def _unfused_encoder_tree(params):
+    """An encoder tree with fused QKV (as E5Encoder holds it on CUDA) split
+    back into wq/wk/wv and their biases (views, no copies); a plain tree
+    as it is."""
+    plain = dict(params, layers=[])
+    for layer in params["layers"]:
+        a = layer["attn"]
+        if "wqkv" not in a:
+            plain["layers"].append(layer)
+            continue
+        wq, wk, wv = a["wqkv"].chunk(3, dim=1)
+        bq, bk, bv = a["bqkv"].chunk(3)
+        plain["layers"].append(dict(layer, attn={
+            "wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv,
+            "wo": a["wo"], "bo": a["bo"]}))
+    return plain
+
+
 def _p9_ranker(dev, root):
     """(c) an e5-large-v2-width BERT checkpoint (f32, as intfloat ships
     it) with a WordPiece vocab, through hybrid exact search on a float32
@@ -2747,14 +2793,7 @@ def _p9_ranker(dev, root):
     launches = dict(LAUNCHES)
     need_k3 = enc.cfg.n_layers * enc.stats["batches"]
     # the encoder holds the fused-QKV tree: split it back for the check
-    plain_tree = dict(enc.params, layers=[])
-    for layer in enc.params["layers"]:
-        a = layer["attn"]
-        wq, wk, wv = a["wqkv"].chunk(3, dim=1)
-        bq, bk, bv = a["bqkv"].chunk(3)
-        plain_tree["layers"].append(dict(layer, attn={
-            "wq": wq, "wk": wk, "wv": wv, "bq": bq, "bk": bk, "bv": bv,
-            "wo": a["wo"], "bo": a["bo"]}))
+    plain_tree = _unfused_encoder_tree(enc.params)
     bad = _tree_bit_equal(plain_tree, specs, torch.float32, dev, seed,
                           llama=False)
     ok, mism = _dense_hits_agree(res, cfg, _first_batch_questions(cfg))
@@ -2838,6 +2877,581 @@ def phase9(dev):
                 "e5_large_v2": _p9_ranker(dev, root)}
 
 
+# ------------------------------------------------------------- phase 10
+P10_DIR = os.path.join(OUT_DIR, "chip_smoke_phase10")
+SDAG_EFFECT_REF = os.path.join(REPO, "experiments", "results",
+                               "sdag_effect_jax_cpu")
+# 10(b): a doc whose keep decision differs between the card and the CPU
+# is exempt when its z-score or one of its pair similarities is this close
+# to the defense's threshold
+FILTER_MARGIN = 1e-2
+# 10(b): the most that the card's bf16 encoder (K3) may move a z-score or
+# a pair similarity from the plain f32 path on the CPU, about three times
+# the readings on an H100 (0.122-0.135 and 0.0015, PERF.md section 6)
+FILTER_Z_MAX_DIFF = 0.35
+FILTER_PAIR_MAX_DIFF = 5e-3
+# 10(e): rows of a 96-row cell that may differ from the JAX CPU reference
+# (greedy tokens flip only at near-ties of f32 logits)
+GRID_MAX_DIFF = 2
+
+
+def _experiment_module(name):
+    """A script of experiments/ (not a package) as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "experiments", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _outputs_written(cfg, pos=1):
+    base = cfg.OUTPUT_CSV_BASE + f"_top_k=5_attacker_pos={pos}"
+    return all(os.path.isfile(base + ext) for ext in (".csv", ".json"))
+
+
+def _p10_discern(dev):
+    """(a) Discern-and-Answer at llama3-8b width: 8 attacked queries, the
+    local batched classifier; then the same run from the saved labels."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.defenses.cache import load_discern_labels_jsonl
+    from sdag_tpu_torch.defenses.discern import _CLASSIFIER_SYSTEM
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    over = dict(LLM_ARCH="llama3-8b", MAX_MALICIOUS_DOCS_PER_QUERY=2,
+                MAX_GEN_TOKENS_RAG=16, BM25_ENGINE="scan", SAMPLE_SIZE=8,
+                DEFENSE_BACKEND="discern_and_answer",
+                DISCERN_LABELS_SAVE_SUFFIX="discern_labels.jsonl")
+    cfg, _ = _synth_cfg(os.path.join(P10_DIR, "discern"), world,
+                        world.eval_entities[:2], 2, world.seed + 5, 1,
+                        **over)
+    labels_path = f"{cfg.OUTPUT_CSV_BASE}_{cfg.DISCERN_LABELS_SAVE_SUFFIX}"
+    cfg2, _ = _synth_cfg(os.path.join(P10_DIR, "discern_cached"), world,
+                         world.eval_entities[:2], 2, world.seed + 5, 1,
+                         DISCERN_LABELS_LOAD_PATH=labels_path, **over)
+    _free_cuda()
+    t0 = time.perf_counter()
+    res = init_resources(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    gen = res.generator
+    tok = gen.tokenizer
+    plain_generate_ids = gen.generate_ids
+    counts = {}
+
+    def counted(ids, max_new_tokens=128):
+        """Classifier calls are the ones whose prompt carries the
+        classifier's system message."""
+        kind = ("classifier" if _CLASSIFIER_SYSTEM in tok.decode(
+            [int(t) for t in ids[0]]) else "other")
+        counts[kind + "_calls"] = counts.get(kind + "_calls", 0) + 1
+        counts[kind + "_prompts"] = counts.get(kind + "_prompts", 0) + len(ids)
+        counts[kind + "_prompt_tokens"] = (counts.get(kind + "_prompt_tokens",
+                                                      0)
+                                           + sum(len(x) for x in ids))
+        return plain_generate_ids(ids, max_new_tokens=max_new_tokens)
+
+    gen.generate_ids = counted
+    runs = {}
+    try:
+        for tag, c in (("classify", cfg), ("from_labels", cfg2)):
+            counts.clear()
+            LAUNCHES.clear()
+            captures = gen.stats["graph_captures"]
+            t0 = time.perf_counter()
+            m = run_experiment(c, resources=res, device=dev)[(5, 1)]
+            torch.cuda.synchronize(dev)
+            runs[tag] = {
+                "run_s": time.perf_counter() - t0,
+                "defense_s": m["phase_timings"]["defense"]["total_s"],
+                "calls": dict(counts), "launches": dict(LAUNCHES),
+                "graph_captures": gen.stats["graph_captures"] - captures,
+                "outputs_written": _outputs_written(c),
+                "asr_iso": m["answer_match_stats"]["iso"][
+                    "false_answer_match_rate"],
+                "asr_noiso": m["answer_match_stats"]["no_iso"][
+                    "false_answer_match_rate"]}
+    finally:
+        gen.generate_ids = plain_generate_ids
+    labels = load_discern_labels_jsonl(labels_path)
+    with open(labels_path, encoding="utf-8") as fh:
+        label_lines = [json.loads(line) for line in fh if line.strip()]
+    first, second = runs["classify"], runs["from_labels"]
+    n_layers = gen.cfg.n_layers
+    k1 = [r["launches"].get("sdag_prefill_bf16", 0) for r in (first, second)]
+    calls = first["calls"].get("classifier_calls", 0)
+    prompts = first["calls"].get("classifier_prompts", 0)
+    rec = {"init_s": init_s, "n_layers": n_layers, "runs": runs,
+           "labels": len(labels), "label_lines": len(label_lines),
+           "perturbed": sum(v == "perturbed" for v in labels.values()),
+           "clean": sum(v == "clean" for v in labels.values()),
+           "k1_saved": k1[0] - k1[1], "k1_saved_needed": n_layers * calls,
+           "classifier_prompts_s": prompts / first["defense_s"],
+           "classifier_prompt_tok_s":
+               first["calls"].get("classifier_prompt_tokens", 0)
+               / first["defense_s"]}
+    log(f"[phase10] (a) discern {json.dumps(rec)}")
+    del res, gen
+    _free_cuda()
+    if not calls or second["calls"].get("classifier_calls", 0):
+        raise AssertionError(f"phase 10(a): classifier calls {calls} in the "
+                             "first run, "
+                             f"{second['calls'].get('classifier_calls', 0)}"
+                             " from the labels file")
+    if len(label_lines) != prompts or len(labels) != prompts or any(
+            line.get("label") not in ("clean", "perturbed")
+            for line in label_lines):
+        raise AssertionError(f"phase 10(a): {len(label_lines)} label lines "
+                             f"({len(labels)} valid) for {prompts} "
+                             "classified (query, doc) pairs")
+    if rec["k1_saved"] != rec["k1_saved_needed"]:
+        raise AssertionError(f"phase 10(a): the label cache saved "
+                             f"{rec['k1_saved']} K1 launches, not "
+                             f"{n_layers} x {calls} classifier calls")
+    if not (first["outputs_written"] and second["outputs_written"]):
+        raise AssertionError("phase 10(a): CSV/JSON outputs missing")
+    return rec
+
+
+class _TextCacheEncoder:
+    """Embeddings text by text: a call's missing texts are encoded
+    together, the rest looked up.  A row's embedding does not depend on
+    the batch around it beyond rounding (padded keys are masked, pooling
+    is over the valid tokens), so the check encodes each distinct text
+    once."""
+
+    def __init__(self, enc):
+        self.enc, self.rows = enc, {}
+
+    def encode(self, texts, kind="passage", batch_size=32):
+        import numpy as np
+        missing = list(dict.fromkeys(t for t in texts
+                                     if (kind, t) not in self.rows))
+        if missing:
+            for t, e in zip(missing, self.enc.encode(
+                    missing, kind=kind, batch_size=batch_size)):
+                self.rows[(kind, t)] = e
+        return np.stack([self.rows[(kind, t)] for t in texts])
+
+
+def _near_threshold(defense, z, pair, i):
+    """Whether nonempty doc i's keep decision lies within FILTER_MARGIN of
+    a threshold: its z-score, or its similarity to another doc."""
+    import numpy as np
+    others = np.delete(pair[i], i)
+    return bool(abs(z[i] - defense.z_threshold) < FILTER_MARGIN
+                or (np.abs(others - defense.duplicate_sim)
+                    < FILTER_MARGIN).any())
+
+
+def _p10_ragdefender(dev):
+    """(b) RAGDefender at e5-large-v2 width (random bf16 weights) beside
+    qa_ckpt: the card's kept docs against the plain path on the CPU."""
+    import dataclasses
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.defenses import ragdefender as R
+    from sdag_tpu_torch.models.e5 import E5Encoder
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import init_resources
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    cfg, facts = _synth_cfg(os.path.join(P10_DIR, "ragdefender"), world,
+                            world.eval_entities[4:8], 2, world.seed + 6, 1,
+                            LLM_CHECKPOINT=ckpt, RANKER_ARCH="e5-large-v2",
+                            MAX_MALICIOUS_DOCS_PER_QUERY=2, SAMPLE_SIZE=24,
+                            DEFENSE_BACKEND="ragdefender")
+    _free_cuda()
+    res = init_resources(cfg, device=dev)
+    enc = res.ranker
+    calls = []
+    plain_defend = R.EmbeddingFilterDefense._defend
+
+    def recorded(self, query, docs):
+        kept = plain_defend(self, query, docs)
+        calls.append((query, list(docs), kept))
+        return kept
+
+    LAUNCHES.clear()
+    R.EmbeddingFilterDefense._defend = recorded
+    try:
+        t0 = time.perf_counter()
+        m = run_experiment(cfg, resources=res, device=dev)[(5, 1)]
+        torch.cuda.synchronize(dev)
+        run_s = time.perf_counter() - t0
+    finally:
+        R.EmbeddingFilterDefense._defend = plain_defend
+    launches = dict(LAUNCHES)
+    need_k3 = enc.cfg.n_layers * enc.stats["batches"]
+    enc_stats = dict(enc.stats)
+    # the same weights on the CPU, plain attention, in float32 (bf16
+    # products on the chip machine's CPU took 136 s for this check)
+    cpu_params = _tree_to(_unfused_encoder_tree(enc.params), "cpu",
+                          torch.float32)
+    cpu_enc = _TextCacheEncoder(E5Encoder(
+        cpu_params, dataclasses.replace(enc.cfg, dtype=torch.float32),
+        enc.tokenizer, model_name=cfg.RANKER_MODEL_NAME, fused=False,
+        device="cpu"))
+    card_enc = _TextCacheEncoder(enc)
+    card_f = R.EmbeddingFilterDefense(card_enc)
+    cpu_f = R.EmbeddingFilterDefense(cpu_enc)
+    n_mal = cfg.MAX_MALICIOUS_DOCS_PER_QUERY
+    mismatches, exempt = [], []
+    mal_dropped = corpus_dropped = n_corpus = near_docs = 0
+    z_err = pair_err = 0.0
+    t0 = time.perf_counter()
+    for e in (card_enc, cpu_enc):
+        e.encode(sorted({d for _, docs, _ in calls for d in docs
+                         if d and d.strip()}), kind="passage",
+                 batch_size=64)
+        e.encode(sorted({q for q, _, _ in calls}), kind="query",
+                 batch_size=64)
+    for query, docs, kept in calls:
+        kp = cpu_f._defend(query, docs)
+        card_s, cpu_s = card_f._scores(query, docs), cpu_f._scores(query,
+                                                                   docs)
+        near = set()
+        if card_s is not None:
+            (idx, zc, pc), (_, zp, pp) = card_s, cpu_s
+            z_err = max(z_err, float(abs(zc - zp).max()))
+            pair_err = max(pair_err, float(abs(pc - pp).max()))
+            near = {docs[idx[i]] for i in range(len(idx))
+                    if _near_threshold(card_f, zc, pc, i)
+                    or _near_threshold(cpu_f, zp, pp, i)}
+            near_docs += sum(d in near for d in docs)
+        if kept != kp:
+            differ = set(kept) ^ set(kp)
+            row = {"query": query, "card": kept, "cpu": kp,
+                   "differ": sorted(differ)}
+            (exempt if differ <= near else mismatches).append(row)
+        mal_dropped += sum(d not in kept for d in docs[:n_mal])
+        corpus_dropped += sum(d not in kept for d in docs[n_mal:])
+        n_corpus += len(docs) - n_mal
+    check_s = time.perf_counter() - t0
+    rec = {"queries": len(facts), "filter_calls": len(calls),
+           "run_s": run_s, "cpu_check_s": check_s,
+           "cpu_texts": len(cpu_enc.rows), "launches": launches,
+           "k3_launches_needed": need_k3, "encoder": enc_stats,
+           "encoder_tok_s": enc_stats["tokens"] / enc_stats["seconds"],
+           "malicious_dropped_share": mal_dropped / (n_mal * len(calls)),
+           "corpus_dropped_share": corpus_dropped / n_corpus,
+           "z_max_abs_diff": z_err, "pair_sim_max_abs_diff": pair_err,
+           "z_max_abs_diff_limit": FILTER_Z_MAX_DIFF,
+           "pair_sim_max_abs_diff_limit": FILTER_PAIR_MAX_DIFF,
+           "docs": sum(len(docs) for _, docs, _ in calls),
+           "near_threshold_docs": near_docs,
+           "kept_mismatches": mismatches,
+           "near_threshold_exempt_queries": exempt,
+           "outputs_written": _outputs_written(cfg),
+           "asr_iso": m["answer_match_stats"]["iso"][
+               "false_answer_match_rate"],
+           "asr_noiso": m["answer_match_stats"]["no_iso"][
+               "false_answer_match_rate"]}
+    log(f"[phase10] (b) ragdefender {json.dumps(rec)}")
+    log(f"[phase10] (b) {near_docs} of {rec['docs']} docs near a "
+        f"threshold; {len(exempt)} queries keep other docs on the card "
+        "only where the docs are near a threshold")
+    for e in exempt:
+        log(f"[phase10] (b) near the threshold, exempt: {json.dumps(e)}")
+    del res, enc, card_enc, cpu_enc, cpu_params
+    _free_cuda()
+    if launches.get("encoder_attention_bf16", 0) != need_k3 or not need_k3:
+        raise AssertionError(f"phase 10(b): K3 launches {launches}, need "
+                             f"{need_k3} of the bf16 body")
+    if len(calls) != len(facts) or mismatches:
+        raise AssertionError(
+            f"phase 10(b): {len(calls)} filter calls for {len(facts)} "
+            f"queries, {len(mismatches)} kept-doc mismatches against the "
+            f"CPU: {mismatches[:3]}")
+    if z_err > FILTER_Z_MAX_DIFF or pair_err > FILTER_PAIR_MAX_DIFF:
+        raise AssertionError(
+            f"phase 10(b): the card moves z-scores by {z_err} (at most "
+            f"{FILTER_Z_MAX_DIFF}) and pair similarities by {pair_err} (at "
+            f"most {FILTER_PAIR_MAX_DIFF}) from the CPU's")
+    if not rec["outputs_written"]:
+        raise AssertionError("phase 10(b): CSV/JSON outputs missing")
+    return rec
+
+
+def _tree_to(tree, device, dtype=None):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_to(v, device, dtype) for v in tree]
+    return tree.to(device=device, dtype=dtype)
+
+
+def _npz_members(path):
+    import zipfile
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def _same_dir(a, b):
+    """Names of the files that differ between two index directories (an
+    npz member by member: its zip headers carry the write time)."""
+    names = sorted(set(os.listdir(a)) | set(os.listdir(b)))
+    bad = []
+    for n in names:
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if not (os.path.isfile(pa) and os.path.isfile(pb)):
+            bad.append(n)
+        elif n.endswith(".npz"):
+            if _npz_members(pa) != _npz_members(pb):
+                bad.append(n)
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    bad.append(n)
+    return bad
+
+
+def _p10_build_index(dev):
+    """(c) build_index on the card over phase 7's corpus: --bm25, then
+    dense at e5-large-v2 (random bf16 weights); both served."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.config import Config
+    from sdag_tpu_torch.pipeline import build_index
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import (build_encoder,
+                                                   init_resources,
+                                                   load_corpus_jsonl)
+    from sdag_tpu_torch.retrieval.dense import DenseIndex
+    from sdag_tpu_torch.retrieval.sparse import BM25Index
+    from sdag_tpu_torch.utils.synth_qa import (fact_query, load_world,
+                                               write_corpus_jsonl)
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt_v4")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    base = os.path.join(P10_DIR, "build_index")
+    for sub in ("bm25", "bm25_ref", "dense"):
+        shutil.rmtree(os.path.join(base, sub), ignore_errors=True)
+    os.makedirs(base, exist_ok=True)
+    corpus = os.path.join(base, "corpus.jsonl")
+    write_corpus_jsonl(world, corpus)
+    texts, ids = load_corpus_jsonl(corpus)
+    bm25_dir, dense_dir = (os.path.join(base, "bm25"),
+                           os.path.join(base, "dense"))
+    _free_cuda()
+    t0 = time.perf_counter()
+    build_index.main([corpus, bm25_dir, "--bm25", "--device", "cuda"])
+    bm25_s = time.perf_counter() - t0
+    BM25Index.from_texts(texts, ids, device=dev).save(
+        os.path.join(base, "bm25_ref"))
+    bm25_differ = _same_dir(bm25_dir, os.path.join(base, "bm25_ref"))
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    build_index.main([corpus, dense_dir, "--ranker-arch", "e5-large-v2",
+                      "--dtype", "bfloat16", "--device", "cuda"])
+    torch.cuda.synchronize(dev)
+    dense_s = time.perf_counter() - t0
+    cli_launches = dict(LAUNCHES)
+    ecfg = Config()
+    ecfg.RANKER_ARCH = "e5-large-v2"
+    ecfg.RANKER_MODEL_NAME = "intfloat/e5-large-v2"
+    enc = build_encoder(ecfg, device=dev)
+    ref = DenseIndex.from_texts(texts, ids, enc, batch_size=256,
+                                dtype=torch.bfloat16, search_mode="exact",
+                                device=dev)
+    encode_s = enc.stats["seconds"]
+    loaded = DenseIndex.load(dense_dir, dtype=torch.bfloat16,
+                             search_mode="exact", device=dev)
+    queries = [fact_query(f) for f in world.facts_for(world.eval_entities)]
+    q = np.ascontiguousarray(enc.encode(queries, kind="query"))
+    li, ls = loaded.search(q, top_k=5)
+    ri, rs = ref.search(q, top_k=5)
+    hits_equal = bool(np.array_equal(np.asarray(li), np.asarray(ri))
+                      and np.array_equal(np.asarray(ls), np.asarray(rs)))
+    cfg, facts = _synth_cfg(
+        os.path.join(base, "serve"), world, world.eval_entities[:2], 1,
+        world.seed + 7, 1, LLM_CHECKPOINT=ckpt, RANKER_ARCH="e5-large-v2",
+        RETRIEVER_BACKEND="sparse_and_dense", DENSE_SEARCH_MODE="exact",
+        DENSE_INDEX_DTYPE="bfloat16", DENSE_INDEX_PATH=dense_dir,
+        SPARSE_INDEX_NAME_OR_PATH=bm25_dir, BM25_ENGINE="scan",
+        SAMPLE_SIZE=8)
+    cfg.CORPUS_JSONL_PATH = ""      # the directories or nothing
+    LAUNCHES.clear()
+    res = init_resources(cfg, device=dev, encoder=enc)
+    served_from_dirs = (res.dense_index.valid_n == len(texts)
+                        and res.sparse_index.valid_n == len(texts))
+    run_experiment(cfg, resources=res, device=dev)
+    serve_launches = dict(LAUNCHES)
+    rec = {"docs": len(texts), "bm25_cli_s": bm25_s,
+           "dense_cli_s": dense_s, "bm25_files_differ": bm25_differ,
+           "dense_cli_launches": cli_launches,
+           "encode_docs_s": len(texts) / encode_s,
+           "hits_equal": hits_equal, "served_from_dirs": served_from_dirs,
+           "serve_launches": serve_launches,
+           "outputs_written": _outputs_written(cfg)}
+    log(f"[phase10] (c) build_index {json.dumps(rec)}")
+    del res, enc, ref, loaded
+    _free_cuda()
+    if bm25_differ or not sorted(os.listdir(bm25_dir)):
+        raise AssertionError(f"phase 10(c): BM25 files differ {bm25_differ}")
+    if not cli_launches.get("encoder_attention_bf16", 0):
+        raise AssertionError("phase 10(c): the dense build never ran K3")
+    if not (hits_equal and served_from_dirs and rec["outputs_written"]):
+        raise AssertionError(f"phase 10(c): {rec}")
+    for key in ("topk_matmul_bf16", "bm25_scan_topk", "sdag_prefill_f32"):
+        if not serve_launches.get(key, 0):
+            raise AssertionError(f"phase 10(c): {key} never launched "
+                                 "serving the built directories")
+    return rec
+
+
+def _p10_attack_builder(dev):
+    """(d) attack.poisoned_rag.main, local backend, llama3-8b width, on a
+    cached samples JSON of 4 synthetic questions; twice."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.attack import poisoned_rag
+    from sdag_tpu_torch.pipeline import resources
+    from sdag_tpu_torch.utils.parsing import load_from_csv
+    from sdag_tpu_torch.utils.synth_qa import fact_query, load_world
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt",
+                                    "world.json"))
+    base = os.path.join(P10_DIR, "attack_builder")
+    os.makedirs(base, exist_ok=True)
+    samples = os.path.join(base, "samples.json")
+    with open(samples, "w", encoding="utf-8") as fh:
+        json.dump([{"id": f"{f.entity}-{f.attr}", "question": fact_query(f),
+                    "short_answers": [f.value]}
+                   for f in world.facts_for(world.eval_entities)[:4]], fh)
+    plain_build = resources.build_generator
+    built, prompts = [], []
+
+    def recorded(cfg, device="cuda"):
+        """The generator main builds, its generate_ids calls counted."""
+        gen = plain_build(cfg, device=device)
+        plain_generate_ids = gen.generate_ids
+
+        def counted(ids, max_new_tokens=128):
+            prompts[-1] += 1
+            return plain_generate_ids(ids, max_new_tokens=max_new_tokens)
+
+        gen.generate_ids = counted
+        built.append(gen)
+        return gen
+
+    runs = []
+    resources.build_generator = recorded
+    try:
+        for i in range(2):
+            out = os.path.join(base, f"attack_{i}.csv")
+            _free_cuda()
+            prompts.append(0)
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            poisoned_rag.main([
+                "--dataset", "nq", "--samples_json", samples,
+                "--out_csv", out, "--backend", "local",
+                "--llm_arch", "llama3-8b", "--temperature", "0",
+                "--max_tokens_false", "16", "--max_tokens_doc", "64",
+                "--device", "cuda"])
+            torch.cuda.synchronize(dev)
+            gen = built.pop()
+            st = gen.stats
+            runs.append({"s": time.perf_counter() - t0,
+                         "n_layers": gen.cfg.n_layers,
+                         "prompts": prompts[-1],
+                         "k1_launches": LAUNCHES.get("sdag_prefill_bf16", 0),
+                         "new_tokens": st["decode_tokens"],
+                         "decode_s": st["decode_s"],
+                         "prefill_s": st["prefill_s"],
+                         "graph_captures": st["graph_captures"],
+                         "capture_s": st["capture_s"]})
+    finally:
+        resources.build_generator = plain_build
+    _free_cuda()
+    import csv
+    with open(os.path.join(base, "attack_0.csv"), encoding="utf-8",
+              newline="") as fh:
+        reader = csv.DictReader(fh)
+        header, rows = reader.fieldnames, list(reader)
+    qd = load_from_csv(os.path.join(base, "attack_0.csv"))
+    with open(os.path.join(base, "attack_0.csv"), "rb") as f0, \
+            open(os.path.join(base, "attack_1.csv"), "rb") as f1:
+        same = f0.read() == f1.read()
+    rec = {"runs": runs, "rows": len(rows), "header": header,
+           "loaded_rows": len(qd), "second_call_same_file": same,
+           "new_tok_s": [r["new_tokens"] / r["s"] for r in runs],
+           "empty_false_answers": sum(not r["false_answer"].strip()
+                                      for r in rows),
+           "empty_documents": sum(not r["malicious_document"].strip()
+                                  for r in rows),
+           "first_row": rows[0] if rows else None}
+    log(f"[phase10] (d) attack builder {json.dumps(rec)}")
+    if header != ["query", "query_id", "ground_truth_answers",
+                  "false_answer", "malicious_document"] or len(rows) != 4:
+        raise AssertionError(f"phase 10(d): {len(rows)} rows, {header}")
+    if len(qd) != 4 or not same:
+        raise AssertionError(f"phase 10(d): {len(qd)} rows read back, "
+                             f"same file on the second call: {same}")
+    for r in runs:
+        # every prompt is one B=1 causal prefill through K1 at 8B width
+        if not r["prompts"] or r["k1_launches"] != r["n_layers"] * r[
+                "prompts"]:
+            raise AssertionError(
+                f"phase 10(d): {r['k1_launches']} sdag_prefill_bf16 "
+                f"launches for {r['prompts']} prompts of "
+                f"{r['n_layers']} layers")
+    return rec
+
+
+def _p10_sdag_effect(dev):
+    """(e) the SDAG-effect grid through the new driver on qa_ckpt, held
+    row by row against the committed JAX CPU reference."""
+    drv = _experiment_module("run_sdag_effect_torch")
+    cmp_mod = _experiment_module("compare_sdag_effect")
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt")
+    out = os.path.join(P10_DIR, "sdag_effect")
+    shutil.rmtree(out, ignore_errors=True)
+    table, walls = {}, {}
+    for n_mal in (1, 2, 5):
+        t0 = time.perf_counter()
+        table[n_mal] = drv.run_grid(ckpt, out, n_mal, [0, 1, 3], 5, 0.0,
+                                    "cuda")
+        walls[n_mal] = time.perf_counter() - t0
+    diff = cmp_mod.compare_dirs(SDAG_EFFECT_REF, out)
+    rec = {"table": table, "wall_s": walls,
+           "rows": {c: r["rows"] for c, r in diff.items()},
+           "differ": {c: r["differ"] for c, r in diff.items()}}
+    log(f"[phase10] (e) sdag effect {json.dumps(rec)}")
+    for cell, r in diff.items():
+        for d in r["differ"]:
+            log(f"[phase10] (e) {cell} differs: {json.dumps(d)}")
+    if len(diff) != 9 or any(r["rows"] != 96 for r in diff.values()):
+        raise AssertionError(f"phase 10(e): cells {rec['rows']}")
+    worst = max(len(r["differ"]) for r in diff.values())
+    if worst > GRID_MAX_DIFF:
+        raise AssertionError(f"phase 10(e): {worst} rows of a cell differ "
+                             "from the JAX CPU reference (at most "
+                             f"{GRID_MAX_DIFF})")
+    return rec
+
+
+def phase10(dev):
+    """Each step's record, and the seconds of each step and of the phase."""
+    rec, step_s = {}, {}
+    t_phase = time.perf_counter()
+    for key, step in (("a_discern", _p10_discern),
+                      ("b_ragdefender", _p10_ragdefender),
+                      ("c_build_index", _p10_build_index),
+                      ("d_attack_builder", _p10_attack_builder),
+                      ("e_sdag_effect", _p10_sdag_effect)):
+        t0 = time.perf_counter()
+        rec[key] = step(dev)
+        step_s[key] = time.perf_counter() - t0
+    rec["step_s"] = step_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    return rec
+
+
 def _first_batch_questions(cfg):
     from sdag_tpu_torch.utils.parsing import load_from_csv
     return load_from_csv(cfg.CSV_INPUT_PATH).questions[
@@ -2880,6 +3494,8 @@ def main() -> int:
     # the earlier phases' trees are gone before 32 GB of f32 loads
     _free_cuda()
     details["phase9"] = p9 = phase9(dev)
+    _free_cuda()
+    details["phase10"] = p10 = phase10(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -3002,7 +3618,35 @@ def main() -> int:
         f"round, {h8q['spec']['accepted_drafts_per_round']} accepted drafts "
         f"a round), peak {h8q['peak_mem_gib']:.2f} GiB; K6-f32 "
         f"{h8q['launches'].get('int8_matmul_f32', 0)} launches; on {card}")
-    log(f"[summary] phases 0-9 in {time.perf_counter() - t_start:.1f} s")
+    pa, pb, pc, pd, pe = (p10[k] for k in (
+        "a_discern", "b_ragdefender", "c_build_index", "d_attack_builder",
+        "e_sdag_effect"))
+    log(f"[summary] phase 10 (a) discern at 8B: defense "
+        f"{pa['runs']['classify']['defense_s']:.2f} s for "
+        f"{pa['labels']} labels ({pa['classifier_prompts_s']:.1f} prompts/s, "
+        f"{pa['classifier_prompt_tok_s']:.0f} prompt tok/s, "
+        f"{pa['runs']['classify']['graph_captures']} graph captures), "
+        f"{pa['runs']['from_labels']['defense_s']:.3f} s from the labels "
+        f"file, K1 launches saved {pa['k1_saved']}; (b) ragdefender at "
+        f"e5-large-v2: malicious dropped "
+        f"{pb['malicious_dropped_share']:.3f}, corpus dropped "
+        f"{pb['corpus_dropped_share']:.3f}, encoder "
+        f"{pb['encoder_tok_s']:.0f} tok/s, z / pair-similarity moved by "
+        f"{pb['z_max_abs_diff']:.4f} / {pb['pair_sim_max_abs_diff']:.5f}, "
+        f"{pb['near_threshold_docs']} of {pb['docs']} docs near a threshold, "
+        f"{len(pb['near_threshold_exempt_queries'])} queries exempt; "
+        f"(c) build_index "
+        f"{pc['encode_docs_s']:.0f} docs/s encoded; (d) attack builder "
+        f"{pd['runs'][0]['s']:.1f} s, "
+        f"{pd['new_tok_s'][0]:.1f} new tok/s, "
+        f"{pd['empty_false_answers']} of {pd['rows']} false answers empty; "
+        f"(e) sdag effect "
+        f"{json.dumps({k: round(v, 1) for k, v in pe['wall_s'].items()})} "
+        f"s per n_mal, rows differing from JAX CPU "
+        f"{sum(len(d) for d in pe['differ'].values())}; on {card}")
+    log(f"[summary] phase 10 in {p10['phase_s']:.1f} s "
+        f"{json.dumps({k: round(v, 1) for k, v in p10['step_s'].items()})}")
+    log(f"[summary] phases 0-10 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -24,7 +24,8 @@ from sdag_tpu_torch.attack.selection import select_malicious_docs_for_batch
 from sdag_tpu_torch.config import Config
 from sdag_tpu_torch.datamodels import PairSpec, QueryData, Resources
 from sdag_tpu_torch.defenses.cache import (LabelCache,
-                                           load_discern_labels_jsonl)
+                                           load_discern_labels_jsonl,
+                                           save_discern_labels_jsonl)
 from sdag_tpu_torch.eval.metrics import (
     build_pair_metrics, compute_false_answer_stats_for_results)
 from sdag_tpu_torch.eval.normalization import (exact_match,
@@ -84,15 +85,24 @@ def load_queries_unified(cfg: Config) -> QueryData:
         qd = load_sampled_queries_json(cfg.SAMPLED_QUERIES_JSON)
     elif cfg.DATASET_NAME in {"nq", "natural_questions", "hotpotqa",
                               "hotpot_qa", "triviaqa", "trivia_qa"}:
-        # cached sampled-queries JSON only: the dataset samplers
-        # (attack/poisoned_rag.py) are not ported yet
+        # samplers unified into ingest (the reference keeps them in its
+        # offline CLI only, main.py:185-186): cached JSON is used when
+        # present, otherwise the HF dataset is sampled fresh
         import os as _os
-        if not _os.path.exists(cfg.SAMPLED_QUERIES_JSON):
-            raise NotImplementedError(
-                f"sampling {cfg.DATASET_NAME} afresh is not ported yet "
-                "(ROADMAP.md Queue A, 'poisoned_rag local backend'); pass "
-                "a cached SAMPLED_QUERIES_JSON")
-        qd = load_sampled_queries_json(cfg.SAMPLED_QUERIES_JSON)
+        if _os.path.exists(cfg.SAMPLED_QUERIES_JSON):
+            qd = load_sampled_queries_json(cfg.SAMPLED_QUERIES_JSON)
+        else:
+            from sdag_tpu_torch.attack.poisoned_rag import SAMPLERS
+            rows = SAMPLERS[cfg.DATASET_NAME](
+                cfg.SAMPLE_SIZE or 1000, cfg.SEED, cfg.DATASET_SPLIT,
+                cfg.SAMPLED_QUERIES_JSON)
+            qd = QueryData(
+                query_ids=[str(r["id"]) for r in rows],
+                questions=[str(r["question"]) for r in rows],
+                short_answers=[[str(a) for a in r["short_answers"]]
+                               for r in rows],
+                false_answer_groups=None,
+                malicious_doc_groups=None)
     else:
         raise ValueError(f"Unknown DATASET_NAME: {cfg.DATASET_NAME}")
     if cfg.SAMPLE_SIZE and cfg.SAMPLE_SIZE > 0 and len(qd) > cfg.SAMPLE_SIZE:
@@ -510,6 +520,10 @@ def run_experiment(cfg: Config,
         save_metrics_json(metrics, base + ".json")
         print(f"[run] saved {base}.csv / .json")
         all_metrics[key] = metrics
+
+    if cfg.DEFENSE_BACKEND == "discern_and_answer":
+        out = f"{cfg.OUTPUT_CSV_BASE}_{cfg.DISCERN_LABELS_SAVE_SUFFIX}"
+        save_discern_labels_jsonl(out, discern_cache)
 
     gen = res.generator
     if getattr(gen, "spec_total_row_rounds", 0):

@@ -3,17 +3,19 @@ indexes.
 
 Counterpart of ``sdag_tpu/pipeline/resources.py`` for the settings this
 port serves: sparse, dense and hybrid retrieval, knn neighbor windows, the
-centroid selection strategies, no defense, a native checkpoint, a local HF
-checkpoint (``LLM_CHECKPOINT`` / ``RANKER_CHECKPOINT``, converted to
-float32 as in the JAX package) or random weights at a named architecture,
-int8 weights (quantized at load), the int8 KV cache, speculative decoding,
-one device.  Every other setting raises NotImplementedError naming the
-ROADMAP item that will serve it.
+centroid selection strategies, the three defenses (none, ragdefender,
+discern_and_answer), a native checkpoint, a local HF checkpoint
+(``LLM_CHECKPOINT`` / ``RANKER_CHECKPOINT``, converted to float32 as in the
+JAX package) or random weights at a named architecture, int8 weights
+(quantized at load), the int8 KV cache, speculative decoding, one device.
+A mesh (``MESH_MODEL`` or ``MESH_DATA`` > 1) raises NotImplementedError
+naming the ROADMAP item that will serve it.
 
 The E5 encoder is built only when a setting calls it (dense or hybrid
-retrieval, ``DOC_NEIGHBORS_K > 0``, a centroid selection strategy); the
-JAX package always builds one.  A sparse-only run with random selection
-never encodes, so it does not pay for the weights.
+retrieval, ``DOC_NEIGHBORS_K > 0``, a centroid selection strategy, the
+ragdefender defense); the JAX package always builds one.  A sparse-only
+run with random selection and no embedding defense never encodes, so it
+does not pay for the weights.
 """
 
 from __future__ import annotations
@@ -66,8 +68,6 @@ def check_supported(cfg: Config) -> None:
     """Raise NotImplementedError for settings outside this port's slice,
     naming the ROADMAP (Queue A) item that will serve each."""
     unsupported = [
-        (cfg.DEFENSE_BACKEND != "none",
-         f"DEFENSE_BACKEND={cfg.DEFENSE_BACKEND!r}", "defenses"),
         # int8 weights with MESH_DATA > 1 raise here too, until the mesh
         # item decides how the int8 tree is sharded
         (cfg.MESH_MODEL > 1 or cfg.MESH_DATA > 1,
@@ -131,7 +131,8 @@ def needs_encoder(cfg: Config) -> bool:
     """Whether any setting of this run calls the E5 encoder."""
     return (cfg.RETRIEVER_BACKEND in {"dense", "sparse_and_dense"}
             or cfg.DOC_NEIGHBORS_K > 0
-            or cfg.MALICIOUS_DOC_SELECTION_STRATEGY != "random")
+            or cfg.MALICIOUS_DOC_SELECTION_STRATEGY != "random"
+            or cfg.DEFENSE_BACKEND == "ragdefender")
 
 
 def build_encoder(cfg: Config, device="cuda") -> E5Encoder:
@@ -242,7 +243,28 @@ def build_retriever(cfg: Config, res: Resources):
 
 
 def build_defense(cfg: Config, res: Resources):
-    """Factory keyed on DEFENSE_BACKEND (none only in this port)."""
+    """Factory keyed on DEFENSE_BACKEND (reference ``main.py:270-286``)."""
     check_supported(cfg)
-    from sdag_tpu_torch.defenses.none import NoDefense
-    return NoDefense()
+    if cfg.DEFENSE_BACKEND == "none":
+        from sdag_tpu_torch.defenses.none import NoDefense
+        return NoDefense()
+    if cfg.DEFENSE_BACKEND == "ragdefender":
+        from sdag_tpu_torch.defenses.ragdefender import \
+            EmbeddingFilterDefense
+        return EmbeddingFilterDefense(res.ranker)
+    if cfg.DEFENSE_BACKEND == "discern_and_answer":
+        from sdag_tpu_torch.defenses.discern import (
+            DiscernAndAnswerDefense, make_local_batch_classifier,
+            make_local_classifier, make_openai_classifier)
+        classify_batch = None
+        if cfg.DISCERN_OPENAI_API_KEY:
+            classify = make_openai_classifier(
+                cfg.DISCERN_OPENAI_API_KEY, cfg.DISCERN_CLASSIFIER_MODEL,
+                cfg.DISCERN_CLASSIFY_TEMPERATURE)
+        else:
+            classify = make_local_classifier(res.generator)
+            classify_batch = make_local_batch_classifier(res.generator)
+        return DiscernAndAnswerDefense(
+            classify, max_docs_to_classify=cfg.DISCERN_MAX_DOCS_TO_CLASSIFY,
+            classify_batch=classify_batch)
+    raise ValueError(f"Unknown DEFENSE_BACKEND: {cfg.DEFENSE_BACKEND}")

@@ -1,6 +1,7 @@
-"""The PyTorch port imports neither jax nor the JAX package, nor the HF
-libraries (transformers, tokenizers, safetensors, regex), and its entry
-points refuse to run without CUDA unless asked for the CPU."""
+"""The PyTorch port (and its experiment scripts) imports neither jax nor
+the JAX package, nor the HF libraries (transformers, tokenizers,
+safetensors, regex), and its entry points refuse to run without CUDA
+unless asked for the CPU."""
 
 import ast
 import os
@@ -113,9 +114,32 @@ print("read", len(ids))
     assert "read" in out.stdout
 
 
+# the port's experiment scripts, beside the JAX package's
+SCRIPTS = [os.path.join(REPO, "experiments", f)
+           for f in ("run_sdag_effect_torch.py", "compare_sdag_effect.py")]
+
+
+def test_the_experiment_scripts_import_with_jax_and_sdag_tpu_blocked():
+    script = _BLOCK + r"""
+import importlib.util
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("m", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not bad, bad
+print("imported", len(sys.argv) - 1)
+"""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script, *SCRIPTS], cwd=REPO,
+                         env=env, capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(SCRIPTS)}" in out.stdout
+
+
 @pytest.mark.parametrize("path", sorted(
     [os.path.join(r, f) for r, _d, fs in os.walk(PKG) for f in fs
-     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]),
+     if f.endswith(".py")] + [os.path.join(REPO, "chip_smoke.py")]
+    + SCRIPTS),
     ids=lambda p: os.path.relpath(p, REPO))
 def test_no_static_import_of_jax_or_sdag_tpu(path):
     """Imports inside functions (never executed by the import test) are
@@ -237,12 +261,36 @@ def _entry_open_checkpoint(tmp_path):
     open_checkpoint(str(tmp_path))
 
 
+def _entry_run_experiment_defenses(tmp_path):
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    cfg = _csv_cfg(tmp_path)
+    cfg.DEFENSE_BACKEND = "ragdefender"
+    run_experiment(cfg)
+
+
+def _entry_build_index(tmp_path):
+    from sdag_tpu_torch.pipeline.build_index import main
+    cfg = _csv_cfg(tmp_path)
+    main([cfg.CORPUS_JSONL_PATH, str(tmp_path / "index")])
+
+
+def _entry_poisoned_rag(tmp_path):
+    import json
+    from sdag_tpu_torch.attack.poisoned_rag import main
+    path = tmp_path / "samples.json"
+    path.write_text(json.dumps([{"id": "q", "question": "q?",
+                                 "short_answers": ["a"]}]))
+    main(["--samples_json", str(path), "--out_csv", str(tmp_path / "a.csv")])
+
+
 @pytest.mark.parametrize("entry", [
     _entry_run_experiment, _entry_init_resources, _entry_build_generator,
     _entry_generator, _entry_bm25_index, _entry_cli, _entry_build_encoder,
     _entry_e5_encoder, _entry_init_encoder_params, _entry_dense_index,
     _entry_run_experiment_dense, _entry_load_decoder_checkpoint,
-    _entry_load_encoder_checkpoint, _entry_open_checkpoint],
+    _entry_load_encoder_checkpoint, _entry_open_checkpoint,
+    _entry_run_experiment_defenses, _entry_build_index,
+    _entry_poisoned_rag],
     ids=lambda f: f.__name__[len("_entry_"):])
 def test_entry_points_default_to_cuda_and_raise_without_it(entry, tmp_path):
     if torch.cuda.is_available():

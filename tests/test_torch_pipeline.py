@@ -5,8 +5,8 @@ and the same with int8 weights, the int8 KV cache and speculative
 decoding at once; tiny HF Llama and BERT checkpoint dirs (a generator
 with a byte-level BPE tokenizer; a ranker with a WordPiece vocab) write
 the JAX package's answers CSV too; settings outside the port's slices
-raise NotImplementedError, the ranker path's, the decode slice's and HF
-checkpoints no longer do."""
+raise NotImplementedError, the ranker path's, the decode slice's, HF
+checkpoints and the defenses no longer do."""
 
 import csv
 import os
@@ -135,6 +135,32 @@ def test_settings_of_the_decode_slice_are_served(settings):
 @pytest.mark.parametrize("key,value", [
     ("DEFENSE_BACKEND", "ragdefender"),
     ("DEFENSE_BACKEND", "discern_and_answer"),
+])
+def test_settings_of_the_defenses_are_served(key, value):
+    """Both defenses pass check_supported; the factory builds the JAX
+    package's classes' counterparts over the run's resources."""
+    from sdag_tpu_torch.datamodels import Resources
+    from sdag_tpu_torch.defenses.discern import DiscernAndAnswerDefense
+    from sdag_tpu_torch.defenses.ragdefender import EmbeddingFilterDefense
+    from sdag_tpu_torch.pipeline.resources import build_defense
+    cfg = Config()
+    cfg.RETRIEVER_BACKEND = "sparse"
+    setattr(cfg, key, value)
+    check_supported(cfg)
+    ranker, generator = object(), object()
+    defense = build_defense(cfg, Resources(
+        ranker=ranker, tokenizer=None, generator=generator,
+        dense_index=None, sparse_index=None))
+    if value == "ragdefender":
+        assert isinstance(defense, EmbeddingFilterDefense)
+        assert defense.encoder is ranker
+    else:
+        assert isinstance(defense, DiscernAndAnswerDefense)
+        assert defense.classify_batch is not None
+        assert defense.max_docs_to_classify == cfg.DISCERN_MAX_DOCS_TO_CLASSIFY
+
+
+@pytest.mark.parametrize("key,value", [
     ("MESH_MODEL", 2),
     ("MESH_DATA", 2),
 ])
