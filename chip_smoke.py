@@ -181,6 +181,39 @@ Phase 10 the paper's defenses, the attack builder, the index builder and
          reference (experiments/results/sdag_effect_jax_cpu), at most 2
          rows a cell differ (each printed).
 
+Phase 11 meshes over torch.distributed (the JAX package's MESH_MODEL /
+         MESH_DATA, index sharding and context parallelism): (a) NCCL at
+         world size 1: the port's CLI under ``python -m
+         torch.distributed.run --nproc-per-node 1`` on phase 3's clean
+         config writes phase 3's answers CSV row for row; a llama3-8b bf16
+         Generator on an explicit (1, 1) NCCL mesh emits the mesh-less
+         Generator's tokens, its decode captured in CUDA graphs with the
+         collectives inside (captures and NCCL calls printed); (b) two
+         ranks on the one card over gloo (NCCL refuses two ranks on one
+         device), every one-rank result computed first, in turn: (i)
+         TP=2 at llama3-8b bf16, 8 ISO prompts x 16 new tokens, eager:
+         last-position prefill logits within K1-bf16's row-relative
+         limit of one rank (bf16 partial sums all-reduced in another
+         order move logits by a share of their scale), greedy token
+         agreement reported, K1 at Hq 16 / Hkv 4; (ii) run_experiment on
+         qa_ckpt with MESH_DATA=2, native (held to phase 3's CSV) and
+         with int8 weights + int8 KV + D=4 (K6-f32 on each data rank):
+         at most 2 of 24 rows differ, rank 1 writes nothing; (iii) exact
+         dense search over 1,048,576 x 1024 rows split over the ranks,
+         bf16, f32 (K4) and int8 (K5): K5 bit-equal to one rank, K4
+         within 1e-5 and indices equal but at ties; (iv) the K2 scan over
+         phase 2's 1M docs split over the ranks, bit-equal; (v) E5 at
+         e5-large-v2 (bf16) with MESH_DATA=2: embeddings within K3-bf16's
+         absolute limit; (vi) all-gather context parallelism with K1 at
+         the 8B ISO shape and at L = 16384 within K1's limits of one-rank
+         K1, the ring (f32) within 1e-4 of the plain reference.  Then
+         each kernel timed against its plain version at its shard shape
+         (K1 at Hq 16 / Hkv 4, K4/K5/K2 on half the index, K3 on half the
+         ranker batch, K6-f32 on a data rank's window round).  Prints
+         each collective's backend and whether it went through host
+         memory, seconds per step, TP tok/s (gloo, two ranks on one card:
+         not a multi-GPU number) and peak memory per rank.
+
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
 result.  The last two stdout lines are the kernels JSON and
@@ -3452,6 +3485,747 @@ def phase10(dev):
     return rec
 
 
+# --------------------------------------------------------------- phase 11
+P11_DIR = os.path.join(OUT_DIR, "chip_smoke_phase11")
+P11_8B_SEED = 11
+P11_NEW_TOKENS = 16
+P11_N, P11_D, P11_Q, P11_K = 1 << 20, 1024, 32, 10
+P11_CP_TOL = 1e-4          # ring CP (f32) against the plain reference
+# TP=2 8B logits: their row-relative error against the same weights' f32
+# logits may be at most this multiple of one rank's bf16 error (both are
+# bf16 sums of one function in different orders; TP rounds each rank's
+# half product to bf16 before the all-reduce adds them).  Sound TP read
+# 1.03x on an H100; each planted fault below must read over the limit in
+# the same run, or the gate could not tell a broken TP from a sound one.
+P11_TP_ERR_RATIO = 1.3
+# planted TP faults: the all-reduce of one prefill left out on every rank
+# (call 2 * layer after wo, 2 * layer + 1 after down)
+P11_TP_FAULTS = (("layer16_down", 2 * 16 + 1), ("layer31_wo", 2 * 31))
+
+
+def _iso_batch(gen, plans, dev):
+    """The padded ISO batch ``Generator.generate_plans`` builds, as
+    tensors on ``dev``: (ids, doc_id, nbr_bits, sys_user_len, valid_len)."""
+    import numpy as np
+    import torch
+    ids = [p.input_ids for p in plans]
+    lp = gen._pad_len(max(len(x) for x in ids))
+    metas = [p.metadata(pad_to=lp) for p in plans]
+    batch = np.full((len(ids), lp), gen.tokenizer.pad_token_id, np.int32)
+    vl = np.zeros(len(ids), np.int32)
+    for i, x in enumerate(ids):
+        batch[i, :len(x)] = x
+        vl[i] = len(x)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return (t(batch), t(np.stack([m[0] for m in metas])),
+            t(np.stack([m[1] for m in metas])),
+            t(np.asarray([m[2] for m in metas], np.int32)), t(vl))
+
+
+def _p11_8b_generator(dev, mesh=None):
+    """llama3-8b, random bf16 weights from P11_8B_SEED (every rank draws
+    the whole tree alike; a mesh keeps this rank's slices and the tree is
+    freed)."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(P11_8B_SEED)
+    params = init_decoder_params(g, cfg, device=dev)
+    gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
+                    device=dev, mesh=mesh)
+    del params
+    _free_cuda()
+    return gen
+
+
+def _p11_8b_prefill(gen, dev):
+    """The last-position prefill logits of 8 ISO prompts (on CPU), the
+    prefill's seconds and the batch."""
+    import torch
+    from sdag_tpu_torch.models.llama import prefill
+    plans, _ = _main_path_prompts(8)
+    batch = _iso_batch(gen, plans, dev)
+    ids, did, nbr, sul, vl = batch
+    with torch.inference_mode():
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        logits, _ = prefill(gen.params, gen.cfg, ids, doc_id=did,
+                            nbr_bits=nbr, sys_user_len=sul, valid_len=vl,
+                            logits_last_only=True, with_cache=False,
+                            tp_group=gen.tp_group)
+        torch.cuda.synchronize(dev)
+    return logits[:, 0].float().cpu(), time.perf_counter() - t0, batch
+
+
+def _p11_8b_run(gen, dev, graphs=False):
+    """The last-position prefill logits of 8 ISO prompts, then their greedy
+    tokens (P11_NEW_TOKENS), on CPU; prefill / decode tok/s."""
+    logits, prefill_s, (ids, did, nbr, sul, vl) = _p11_8b_prefill(gen, dev)
+    s0 = dict(gen.stats)
+    out, lengths = gen._generate(ids, did, nbr, sul, vl, P11_NEW_TOKENS,
+                                 graphs=graphs)
+    dec_s = gen.stats["decode_s"] - s0["decode_s"]
+    dec_tok = gen.stats["decode_tokens"] - s0["decode_tokens"]
+    return {"logits": logits, "tokens": out.cpu(),
+            "lengths": lengths.cpu(),
+            "prefill_tok_s": float(vl.sum()) / prefill_s,
+            "decode_tok_s": dec_tok / dec_s if dec_s else None,
+            "stats": {k: gen.stats[k] for k in ("graph_captures",
+                                                "decode_mode")}}
+
+
+def _p11_tp_fault_logits(gen, dev, skip):
+    """``_p11_8b_prefill``'s logits with a planted TP fault: the prefill's
+    all-reduce number ``skip`` (from 0) is left out on every rank."""
+    from sdag_tpu_torch.models import llama
+    real = llama.all_reduce_
+    calls = [0]
+
+    def faulty(x, group, **kw):
+        calls[0] += 1
+        return x if calls[0] - 1 == skip else real(x, group, **kw)
+    llama.all_reduce_ = faulty
+    try:
+        return _p11_8b_prefill(gen, dev)[0]
+    finally:
+        llama.all_reduce_ = real
+
+
+def _p11_8b_f32_logits(gen, dev):
+    """The last-position prefill logits of ``_p11_8b_run``'s batch with the
+    same weights in float32 (K1's f32 body): the reference both bf16 runs
+    are held to."""
+    import dataclasses
+    import torch
+    from sdag_tpu_torch.models.llama import prefill
+    cfg = dataclasses.replace(gen.cfg, dtype=torch.float32)
+    params = _tree_to(gen.params, dev, torch.float32)
+    plans, _ = _main_path_prompts(8)
+    ids, did, nbr, sul, vl = _iso_batch(gen, plans, dev)
+    with torch.inference_mode():
+        logits, _ = prefill(params, cfg, ids, doc_id=did, nbr_bits=nbr,
+                            sys_user_len=sul, valid_len=vl,
+                            logits_last_only=True, with_cache=False)
+    del params
+    return logits[:, 0].float().cpu()
+
+
+def _row_rel(got, want):
+    """Max over rows of a row's max abs difference over the row's RMS."""
+    rms = want.pow(2).mean(-1).sqrt()
+    return float(((got - want).abs().amax(-1) / rms).max())
+
+
+def _p11_nccl_one_rank(rank, world):
+    """(a) one rank over NCCL: the 8B Generator without a mesh and with an
+    explicit (1, 1) mesh, decode captured in CUDA graphs either way."""
+    import torch
+    from sdag_tpu_torch.core.mesh import make_mesh
+    from sdag_tpu_torch.parallel import collectives as C
+    dev = torch.device("cuda", 0)
+    gen = _p11_8b_generator(dev)
+    plain = _p11_8b_run(gen, dev, graphs=True)
+    del gen
+    _free_cuda()
+    C.CALLS.clear()
+    gen = _p11_8b_generator(dev, mesh=make_mesh(1, 1, device=dev))
+    meshed = _p11_8b_run(gen, dev, graphs=True)
+    return {"plain": plain, "mesh": meshed,
+            "calls": {"/".join(k): v for k, v in C.CALLS.items()},
+            "backend": torch.distributed.get_backend()}
+
+
+def _p11_cli_world1():
+    """(a) the CLI under torch.distributed.run, one rank (NCCL), on phase
+    3's clean qa_ckpt config: its answers CSV equals phase 3's."""
+    import csv
+    from sdag_tpu_torch.parallel.launch import free_port
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    base = os.path.join(P11_DIR, "cli_world1")
+    cfg, _ = _synth_cfg(base, world, world.eval_entities[:4], 1,
+                        world.seed + 1, 0, LLM_CHECKPOINT=ckpt)
+    keys = ("SAMPLE_SIZE", "TOP_K", "ADD_ATTACK_IN_RANK", "CSV_INPUT_PATH",
+            "CORPUS_JSONL_PATH", "RETRIEVER_BACKEND",
+            "SPARSE_INDEX_NAME_OR_PATH", "LLM_CHECKPOINT", "LLM_BATCH_SIZE",
+            "BATCH_SIZE_EMBED_Q", "MAX_GEN_TOKENS_RAG", "TEMPERATURE",
+            "OUTPUT_CSV_BASE")
+    cfg_path = os.path.join(base, "cfg.json")
+    with open(cfg_path, "w") as fh:
+        json.dump({k: getattr(cfg, k) for k in keys}, fh)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "1", "--master-port", str(free_port()), "-m",
+         "sdag_tpu_torch.pipeline.cli", cfg_path],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"phase 11(a): torchrun CLI failed:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    name = "results_top_k=5_attacker_pos=0.csv"
+
+    def rows(path):
+        with open(path, newline="", encoding="utf-8") as fh:
+            return list(csv.DictReader(fh))
+    got = rows(os.path.join(base, "out", name))
+    want = rows(os.path.join(OUT_DIR, "chip_smoke_phase3", "clean", "out",
+                             name))
+    if got != want:
+        raise AssertionError("phase 11(a): the torchrun CLI's answers CSV "
+                             "differs from phase 3's")
+    return {"rows": len(got), "wall_s": wall}
+
+
+def _p11_dense_corpus(dev):
+    """P11_N x P11_D normalised rows and P11_Q queries, from one seed."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(111)
+    c32 = _normalised_rows(g, P11_N, P11_D, dev)
+    return c32, _normalised_rows(g, P11_Q, P11_D, dev)
+
+
+def _p11_bm25_index(dev):
+    """Phase 2's 1M-doc shape (its seed and draws): term ids, impacts,
+    32 queries x 16 terms."""
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    N, Lp, V, Q, T = 1 << 20, 64, 1 << 18, 32, 16
+    term_ids = _dedup_rows(_zipf_ids(g, (N, Lp), V, 1.07, dev))
+    impacts = (0.1 + 2.9 * torch.rand((N, Lp), generator=g, device=dev))
+    impacts = torch.where(term_ids >= 0, impacts, 0.0).contiguous()
+    q_terms = _dedup_rows(_zipf_ids(g, (Q, T), V, 1.07, dev)).contiguous()
+    q_weights = torch.where(
+        q_terms >= 0, 1.0 + (torch.rand((Q, T), generator=g, device=dev)
+                             > 0.8).float(), 0.0).contiguous()
+    return term_ids, impacts, q_terms, q_weights
+
+
+def _p11_cp_inputs(dev):
+    """Context-parallel cases: (name, q, k, v, doc_id, nbr, sul, vl) at the
+    8B ISO shape (bf16, heads 32/8/8), at L = 16384 with 31 docs (bf16),
+    and the ring's f32 case at qa_ckpt's heads (6/6/6, Dh 32)."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa
+
+    def rnd(*shape, dtype):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    plans, _ = _main_path_prompts(8)
+    lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
+    metas = [p.metadata(pad_to=lp) for p in plans]
+    meta = (t32(np.stack([m[0] for m in metas])),
+            t32(np.stack([m[1] for m in metas])),
+            t32([m[2] for m in metas]),
+            t32([len(p.input_ids) for p in plans]))
+    cases = [("iso_8b_bf16", *(rnd(8, h, lp, 128, dtype=torch.bfloat16)
+                               for h in (32, 8, 8)), *meta)]
+    L = 16384
+    d, n = _layout_docs(L, 256, 31, 512, False)
+    cases.append(("L16384_31docs_bf16",
+                  *(rnd(1, h, L, 128, dtype=torch.bfloat16)
+                    for h in (16, 8, 8)),
+                  t32(d[None]), t32(n[None]), t32([256]), t32([L])))
+    cases.append(("ring_iso_qa_ckpt_f32",
+                  *(rnd(8, 6, lp, 32, dtype=torch.float32)
+                    for _ in range(3)), *meta))
+    return cases
+
+
+def _p11_seen_rows(case, q_offset=0, rows=None):
+    """Rows of a CP case that see a key (the rows K1's limits hold on)."""
+    import torch
+    from sdag_tpu_torch.ops import attention as A
+    _, q, _k, _v, did, nbr, sul, vl = case
+    B, _, L, _ = q.shape
+    dev = q.device
+    out = torch.zeros(B, L, dtype=torch.bool, device=dev)
+    for r0 in range(0, L, 1024):
+        i = torch.arange(r0, min(r0 + 1024, L), device=dev)[None, :, None]
+        j = torch.arange(L, device=dev)[None, None, :]
+        m = A._tile_mask(i, j, did[:, r0:r0 + 1024, None], did[:, None, :],
+                         nbr[:, r0:r0 + 1024, None], sul[:, None, None],
+                         vl[:, None, None])
+        out[:, r0:r0 + 1024] = m.any(-1)
+    return out
+
+
+def _p11_pipeline_cfg(tag, rank, **over):
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    ckpt = os.path.join(REPO, "experiments", "data", "qa_ckpt")
+    world = load_world(os.path.join(ckpt, "world.json"))
+    return _synth_cfg(os.path.join(P11_DIR, f"{tag}_r{rank}"), world,
+                      world.eval_entities[:4], 1, world.seed + 1, 0,
+                      LLM_CHECKPOINT=ckpt, **over)[0]
+
+
+P11_INT8 = dict(LLM_WEIGHTS_DTYPE="int8", KV_CACHE_DTYPE="int8",
+                SPECULATIVE_DRAFT_LEN=4)
+
+
+def _p11_step(name, fn, rec, step_s):
+    """Run one step of a rank with the launch counts zeroed before and
+    read after; its seconds and launches go into the rank's record."""
+    from sdag_tpu_torch._build import LAUNCHES
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    rec[name] = fn()
+    step_s[name] = time.perf_counter() - t0
+    rec[name]["launches"] = dict(LAUNCHES)
+
+
+def _p11_two_ranks(rank, world):
+    """(b) two ranks on one card over gloo: (i) TP=2 at llama3-8b, (ii) the
+    DP=2 qa_ckpt pipeline (native, then int8 + int8 KV + D=4), (iii)
+    sharded exact dense search, (iv) the sharded K2 scan, (v) DP encode at
+    e5-large-v2, (vi) context parallelism."""
+    import torch
+    from sdag_tpu_torch.config import Config
+    from sdag_tpu_torch.core.mesh import (make_index_mesh, make_mesh,
+                                          shard_rows)
+    from sdag_tpu_torch.ops import topk as T
+    from sdag_tpu_torch.parallel import collectives as C
+    from sdag_tpu_torch.parallel.context import \
+        context_parallel_prefill_attention
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import build_encoder
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    rec, step_s, peak = {}, {}, {}
+
+    def tp_8b():
+        gen = _p11_8b_generator(dev, mesh=make_mesh(1, 2, device=dev))
+        out = _p11_8b_run(gen, dev)
+        out["fault_logits"] = {name: _p11_tp_fault_logits(gen, dev, skip)
+                               for name, skip in P11_TP_FAULTS}
+        out["local_heads"] = [gen.params["layers"][0]["attn"]["wq"].shape[1]
+                              // gen.cfg.head_dim, gen.n_kv_heads]
+        return out
+
+    def pipeline(tag, **over):
+        def run():
+            cfg = _p11_pipeline_cfg(tag, rank, MESH_DATA=2, **over)
+            m = run_experiment(cfg, device=dev)[(5, 0)]["answer_match_stats"]
+            return {"acc_iso": m["iso"]["ground_truth_match_rate"],
+                    "csv": cfg.OUTPUT_CSV_BASE
+                    + "_top_k=5_attacker_pos=0.csv"}
+        return run
+
+    def dense():
+        c32, q = _p11_dense_corpus(dev)
+        mesh = make_index_mesh(dev)
+        shard = shard_rows(c32, mesh)
+        del c32
+        out = {}
+        for dt in ("bfloat16", "float32", "int8"):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            if dt == "int8":
+                ci, cs = T.quantize_last_axis_int8(shard)
+                v, i = C.sharded_topk_search(q, ci, P11_K, P11_N - 1000,
+                                             mesh, scales=cs)
+            else:
+                v, i = C.sharded_topk_search(
+                    q, shard.to(getattr(torch, dt)), P11_K, P11_N - 1000,
+                    mesh)
+            torch.cuda.synchronize(dev)
+            out[dt] = {"vals": v.cpu(), "idx": i.cpu(),
+                       "s": time.perf_counter() - t0}
+        return out
+
+    def bm25():
+        from sdag_tpu_torch.parallel.collectives import sharded_bm25_topk
+        term_ids, impacts, qt, qw = _p11_bm25_index(dev)
+        mesh = make_index_mesh(dev)
+        v, i = sharded_bm25_topk(shard_rows(term_ids, mesh),
+                                 shard_rows(impacts, mesh), qt, qw, 10,
+                                 valid_n=term_ids.shape[0], mesh=mesh)
+        return {"vals": v.cpu(), "idx": i.cpu()}
+
+    def encode():
+        cfg = Config()
+        cfg.RANKER_ARCH = "e5-large-v2"
+        cfg.MESH_DATA = 2
+        enc = build_encoder(cfg, device=dev)
+        emb = enc.encode(_p11_passages(), kind="passage", batch_size=32)
+        return {"emb": torch.from_numpy(emb), "stats": dict(enc.stats)}
+
+    def context():
+        mesh = make_mesh(1, 2, device=dev)
+        out = {}
+        for case in _p11_cp_inputs(dev):
+            name, q, k, v, did, nbr, sul, vl = case
+            ls = q.shape[2] // 2
+            own = slice(rank * ls, (rank + 1) * ls)
+            ex = "ring" if name.startswith("ring") else "all_gather"
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            o = context_parallel_prefill_attention(
+                q[:, :, own].contiguous(), k[:, :, own].contiguous(),
+                v[:, :, own].contiguous(), did[:, own].contiguous(),
+                nbr[:, own].contiguous(), sul, vl, mesh, kv_exchange=ex)
+            torch.cuda.synchronize(dev)
+            out[name] = {"out": o.cpu(), "s": time.perf_counter() - t0}
+        return out
+
+    steps = (("i_tp2_8b", tp_8b), ("ii_dp2_pipeline", pipeline("dp")),
+             ("ii_dp2_pipeline_int8", pipeline("dp_int8", **P11_INT8)),
+             ("iii_dense", dense), ("iv_bm25", bm25), ("v_encode", encode),
+             ("vi_context", context))
+    for name, fn in steps:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _p11_step(name, fn, rec, step_s)
+        peak[name] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        _free_cuda()
+    rec["step_s"] = step_s
+    rec["peak_gib"] = peak
+    rec["calls"] = {"/".join(k): v for k, v in C.CALLS.items()}
+    return rec
+
+
+def _p11_passages(n=64):
+    """The ranker path's passages: the first n docs of qa_ckpt_v4's
+    corpus (two encode batches of 32)."""
+    from sdag_tpu_torch.pipeline.resources import load_corpus_jsonl
+    from sdag_tpu_torch.utils.synth_qa import load_world, write_corpus_jsonl
+    world = load_world(os.path.join(REPO, "experiments", "data", "qa_ckpt_v4",
+                                    "world.json"))
+    corpus = os.path.join(P11_DIR, "corpus_v4.jsonl")
+    if not os.path.exists(corpus):
+        os.makedirs(P11_DIR, exist_ok=True)
+        write_corpus_jsonl(world, corpus)
+    return load_corpus_jsonl(corpus)[0][:n]
+
+
+def _p11_world1(dev):
+    """The one-rank results phase 11(b) is held to, computed before the
+    ranks start (one model on the card at a time)."""
+    import torch
+    from sdag_tpu_torch.config import Config
+    from sdag_tpu_torch.ops import attention as A
+    from sdag_tpu_torch.ops import bm25 as M
+    from sdag_tpu_torch.ops import topk as T
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.pipeline.resources import build_encoder
+    ref = {}
+    gen = _p11_8b_generator(dev)
+    ref["8b"] = _p11_8b_run(gen, dev)
+    ref["8b_f32_logits"] = _p11_8b_f32_logits(gen, dev)
+    del gen
+    _free_cuda()
+    cfg = _p11_pipeline_cfg("world1_int8", 0, **P11_INT8)
+    run_experiment(cfg, device=dev)
+    ref["int8_csv"] = cfg.OUTPUT_CSV_BASE + "_top_k=5_attacker_pos=0.csv"
+    c32, q = _p11_dense_corpus(dev)
+    ref["dense"] = {}
+    for dt in ("bfloat16", "float32", "int8"):
+        if dt == "int8":
+            ci, cs = T.quantize_last_axis_int8(c32)
+            v, i = T.fused_topk_matmul_int8(q, ci, cs, P11_K,
+                                            valid_n=P11_N - 1000)
+            del ci, cs
+        else:
+            c = c32.to(getattr(torch, dt))
+            v, i = T.fused_topk_matmul(q, c, P11_K, valid_n=P11_N - 1000)
+            del c
+        ref["dense"][dt] = {"vals": v.cpu(), "idx": i.cpu()}
+    del c32
+    _free_cuda()
+    term_ids, impacts, qt, qw = _p11_bm25_index(dev)
+    v, i = M.bm25_topk(term_ids, impacts, qt, qw, 10,
+                       valid_n=term_ids.shape[0])
+    ref["bm25"] = {"vals": v.cpu(), "idx": i.cpu()}
+    del term_ids, impacts
+    _free_cuda()
+    cfg = Config()
+    cfg.RANKER_ARCH = "e5-large-v2"
+    cfg.MESH_DATA = 1
+    enc = build_encoder(cfg, device=dev)
+    ref["emb"] = torch.from_numpy(enc.encode(_p11_passages(),
+                                             kind="passage", batch_size=32))
+    del enc
+    _free_cuda()
+    ref["cp"] = {}
+    for case in _p11_cp_inputs(dev):
+        name, q, k, v, did, nbr, sul, vl = case
+        if name.startswith("ring"):
+            out = A.sdag_attention_reference(q, k, v, did, nbr, sul,
+                                             valid_len=vl)
+        else:
+            out = A.sdag_prefill_attention(q, k, v, did, nbr, sul,
+                                           valid_len=vl)
+        ref["cp"][name] = {"out": out.cpu(),
+                           "rows": _p11_seen_rows(case).cpu()}
+    _free_cuda()
+    return ref
+
+
+def _p11_check_two_ranks(ranks, ref, p3_csv):
+    """Phase 11(b)'s gates on the ranks' records against the one-rank
+    results; returns the comparison numbers, and raises after computing
+    them all when a gate failed."""
+    import csv
+    import torch
+    chk, failed = {}, []
+
+    def gate(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    def rows(path):
+        with open(path, newline="", encoding="utf-8") as fh:
+            return list(csv.DictReader(fh))
+    # (i) TP=2 logits: bf16 sums of the same function in another order (two
+    # half products rounded to bf16, then all-reduced) land as far from
+    # one rank's bf16 logits as bf16 lands from f32 (about 8.6% of a row's
+    # RMS at llama3-8b on an H100, over K1-bf16's 5e-2): so each bf16 run
+    # is held to the same weights' f32 logits, TP within
+    # P11_TP_ERR_RATIO x one rank, and each planted fault over it
+    f32 = ref["8b_f32_logits"]
+    chk["world1_bf16_vs_f32_row_rel"] = e1 = _row_rel(ref["8b"]["logits"],
+                                                      f32)
+    chk["tp_vs_f32_row_rel"] = chk["tp_logits_row_rel_err"] = 0.0
+    for r in ranks:
+        got = r["i_tp2_8b"]["logits"]
+        gate(bool(torch.isfinite(got).all()), "(i) TP logits not finite")
+        chk["tp_vs_f32_row_rel"] = max(chk["tp_vs_f32_row_rel"],
+                                       _row_rel(got, f32))
+        chk["tp_logits_row_rel_err"] = max(chk["tp_logits_row_rel_err"],
+                                           _row_rel(got, ref["8b"]["logits"]))
+        gate(r["i_tp2_8b"]["local_heads"] == [16, 4],
+             f"(i) local heads {r['i_tp2_8b']['local_heads']}")
+        gate(r["i_tp2_8b"]["launches"].get("sdag_prefill_bf16", 0) >= 64,
+             f"(i) K1-bf16 launched {r['i_tp2_8b']['launches']}")
+    chk["tp_ratio"] = chk["tp_vs_f32_row_rel"] / e1
+    gate(chk["tp_ratio"] <= P11_TP_ERR_RATIO,
+         f"(i) TP=2 logits {chk['tp_vs_f32_row_rel']} from f32, over "
+         f"{P11_TP_ERR_RATIO} x one rank's {e1}")
+    chk["tp_fault_ratio"] = {}
+    for name, _ in P11_TP_FAULTS:
+        chk["tp_fault_ratio"][name] = ratio = max(
+            _row_rel(r["i_tp2_8b"]["fault_logits"][name], f32)
+            for r in ranks) / e1
+        gate(ratio > P11_TP_ERR_RATIO,
+             f"(i) planted TP fault {name} reads {ratio} x one rank's "
+             f"error, within the {P11_TP_ERR_RATIO} limit")
+    t0, t1 = ranks[0]["i_tp2_8b"]["tokens"], ref["8b"]["tokens"]
+    chk["tp_greedy_token_agreement"] = float((t0 == t1).float().mean())
+    gate(torch.equal(ranks[0]["i_tp2_8b"]["tokens"],
+                     ranks[1]["i_tp2_8b"]["tokens"]),
+         "(i) the TP ranks' tokens differ")
+    # (ii) the DP=2 pipeline: at most GRID_MAX_DIFF of 24 rows differ
+    for step, want_csv in (("ii_dp2_pipeline", p3_csv),
+                           ("ii_dp2_pipeline_int8", ref["int8_csv"])):
+        got, exp = rows(ranks[0][step]["csv"]), rows(want_csv)
+        differ = sum(a != b for a, b in zip(got, exp))
+        chk[f"{step}_rows_differ"] = differ
+        gate(len(got) == len(exp) == 24, f"(ii) {step}: {len(got)} rows")
+        gate(differ <= GRID_MAX_DIFF, f"(ii) {step}: {differ} rows differ")
+        gate(not os.path.exists(ranks[1][step]["csv"]),
+             f"(ii) {step}: rank 1 wrote")
+    for r in ranks:
+        gate(r["ii_dp2_pipeline_int8"]["launches"].get("int8_matmul_f32"),
+             "(ii) K6-f32 not launched on a data rank")
+    # (iii) sharded exact search: K5 bit-equal; K4 indices equal but at
+    # ties, scores within 1e-5 relative (+1e-6)
+    for dt in ("bfloat16", "float32", "int8"):
+        w = ref["dense"][dt]
+        for r in ranks:
+            g = r["iii_dense"][dt]
+            mism = g["idx"] != w["idx"]
+            chk[f"dense_{dt}_index_mismatches"] = int(mism.sum())
+            chk[f"dense_{dt}_max_abs_err"] = float(
+                (g["vals"] - w["vals"]).abs().max())
+            if dt == "int8":
+                gate(torch.equal(g["vals"], w["vals"])
+                     and torch.equal(g["idx"], w["idx"]),
+                     "(iii) sharded K5 differs from one rank")
+                continue
+            gate(bool(torch.isclose(g["vals"], w["vals"], rtol=K4_RTOL,
+                                    atol=K4_ATOL).all()),
+                 f"(iii) sharded K4 {dt} scores differ")
+            # a differing index must sit on a tie of the one-rank list
+            v = w["vals"]
+            tie = torch.zeros_like(mism)
+            near = torch.isclose(v[:, 1:], v[:, :-1], rtol=K4_RTOL,
+                                 atol=K4_ATOL)
+            tie[:, 1:] |= near
+            tie[:, :-1] |= near
+            gate(bool((tie | ~mism).all()),
+                 f"(iii) sharded K4 {dt} indices differ off a tie")
+    # (iv) sharded K2: bit-equal to one rank (no-match slots as -inf, -1)
+    w = ref["bm25"]
+    hit = w["vals"] > 0
+    wv = torch.where(hit, w["vals"], float("-inf"))
+    wi = torch.where(hit, w["idx"], -1)
+    for r in ranks:
+        g = r["iv_bm25"]
+        gate(torch.equal(g["vals"], wv) and torch.equal(g["idx"], wi),
+             "(iv) sharded K2 differs from one rank")
+    # (v) DP encode within K3-bf16's absolute limit of one rank
+    chk["dp_encode_max_abs_err"] = max(
+        float((r["v_encode"]["emb"] - ref["emb"]).abs().max())
+        for r in ranks)
+    gate(chk["dp_encode_max_abs_err"] <= BF16_TOL,
+         f"(v) DP embeddings off by {chk['dp_encode_max_abs_err']}")
+    for r in ranks:
+        gate(r["v_encode"]["launches"].get("encoder_attention_bf16", 0)
+             >= 48, f"(v) K3-bf16 launched {r['v_encode']['launches']}")
+    # (vi) CP: all-gather with K1 within K1's limits of one-rank K1; ring
+    # within P11_CP_TOL of the plain reference
+    for name, w in ref["cp"].items():
+        got = torch.cat([r["vi_context"][name]["out"] for r in ranks], dim=2)
+        err, row_err = _row_errors(got, w["out"], w["rows"])
+        chk[f"cp_{name}"] = {"max_abs_err": err, "max_row_rel_err": row_err}
+        if name.startswith("ring"):
+            gate(err <= P11_CP_TOL, f"(vi) {name}: {err}")
+        else:
+            gate(err <= BF16_TOL and row_err <= BF16_ROW_TOL,
+                 f"(vi) {name}: abs {err}, row-relative {row_err}")
+    for r in ranks:
+        gate(r["vi_context"]["launches"].get("sdag_prefill_bf16"),
+             "(vi) K1 not launched in CP")
+    log(f"[phase11] (b) checks {json.dumps(chk)}")
+    if failed:
+        raise AssertionError("phase 11(b): " + "; ".join(failed))
+    return chk
+
+
+def _p11_shard_shapes(dev):
+    """Each kernel timed against its plain version at the shard shapes
+    phase 11 runs (one process): K1 at a TP rank's heads (16/4), K4/K5 and
+    K2 on half an index, K3 on half a ranker batch, K6 on a data rank's
+    window round (4 rows x 5)."""
+    import torch
+    from sdag_tpu_torch.models.native_ckpt import load_config
+    from sdag_tpu_torch.ops import topk as T
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=dev)  # noqa
+    out = {}
+    import numpy as np
+    plans, _ = _main_path_prompts(8)
+    lp = -(-max(len(p.input_ids) for p in plans) // 128) * 128
+    metas = [p.metadata(pad_to=lp) for p in plans]
+    q, k, v = (torch.randn(8, h, lp, 128, generator=g, device=dev)
+               .to(torch.bfloat16) for h in (16, 4, 4))
+    out["k1"] = _k1_case("p11_tp_rank_iso_Hq16_Hkv4", q, k, v,
+                         t32(np.stack([m[0] for m in metas])),
+                         t32(np.stack([m[1] for m in metas])),
+                         t32([m[2] for m in metas]),
+                         t32([len(p.input_ids) for p in plans]), timed=True)
+    del q, k, v
+    c32, q = _p11_dense_corpus(dev)
+    half = c32[:P11_N // 2].contiguous()
+    del c32
+    out["k4_bf16"] = _k4_case("p11_shard_bf16_N512K", q,
+                              half.to(torch.bfloat16), P11_K, P11_N // 2)
+    out["k4_f32"] = _k4_case("p11_shard_f32_N512K", q, half, P11_K,
+                             P11_N // 2)
+    ci, cs = T.quantize_last_axis_int8(half)
+    out["k5"] = _k4_case("p11_shard_int8_N512K", q, ci, P11_K, P11_N // 2,
+                         scales=cs)
+    del half, ci, cs
+    _free_cuda()
+    term_ids, impacts, qt, qw = _p11_bm25_index(dev)
+    rows = term_ids.shape[0] // 2
+    out["k2"] = _k2_case("p11_shard_N512K", term_ids[:rows].contiguous(),
+                         impacts[:rows].contiguous(), qt, qw, 10, rows)
+    del term_ids, impacts
+    _free_cuda()
+    L, lens = _ranker_path_passages(32)
+    qkv = torch.randn(16, L, 3 * 1024, generator=g, device=dev).to(
+        torch.bfloat16)
+    out["k3"] = _k3_case("p11_dp_rank_ranker_batch_B16", qkv,
+                         torch.as_tensor(lens[:16], dtype=torch.int32,
+                                         device=dev), 16, timed=True)
+    qa_cfg = load_config(os.path.join(REPO, "experiments", "data",
+                                      "qa_ckpt"))
+    recs = [_k6_case(f"p11_qa_ckpt_{name}_M20", 20, n, kk, torch.float32, g,
+                     dev) for name, n, kk, _c in k6_products(qa_cfg)]
+    out["k6_f32"] = _k6_step(recs, qa_cfg, 20, "float32")
+    out["k6_f32"]["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+    _free_cuda()
+    return out
+
+
+def phase11(dev):
+    """Meshes over torch.distributed: (a) NCCL at world size 1, (b) two
+    ranks on the one card over gloo; then each kernel at its shard shape.
+    Returns the phase's record."""
+    import torch
+    from sdag_tpu_torch.parallel.launch import run_ranks
+    t_phase = time.perf_counter()
+    os.makedirs(P11_DIR, exist_ok=True)
+    rec, step_s = {}, {}
+    t0 = time.perf_counter()
+    rec["a_cli_world1"] = _p11_cli_world1()
+    step_s["a_cli_world1"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = run_ranks(_p11_nccl_one_rank, 1, backend="nccl", threads=None)[0]
+    step_s["a_nccl_8b"] = time.perf_counter() - t0
+    if not torch.equal(one["plain"]["tokens"], one["mesh"]["tokens"]):
+        raise AssertionError("phase 11(a): the (1, 1) NCCL mesh's tokens "
+                             "differ from the mesh-less Generator's")
+    captured = one["mesh"]["stats"]
+    nccl = sum(v for k, v in one["calls"].items() if k.startswith("nccl/"))
+    if captured["graph_captures"] < 1 or captured["decode_mode"] != "graphs" \
+            or not nccl:
+        raise AssertionError(f"phase 11(a): decode not captured with NCCL "
+                             f"collectives inside: {captured}, "
+                             f"{one['calls']}")
+    rec["a_nccl_8b"] = {
+        "backend": one["backend"], "calls": one["calls"],
+        "graph_captures": captured["graph_captures"],
+        "decode_tok_s": {"plain": one["plain"]["decode_tok_s"],
+                         "mesh": one["mesh"]["decode_tok_s"]}}
+    log(f"[phase11] (a) {json.dumps(rec)}")
+    t0 = time.perf_counter()
+    ref = _p11_world1(dev)
+    step_s["b_world1_refs"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = run_ranks(_p11_two_ranks, 2, backend="gloo", threads=None)
+    step_s["b_two_ranks"] = time.perf_counter() - t0
+    p3_csv = os.path.join(OUT_DIR, "chip_smoke_phase3", "clean", "out",
+                          "results_top_k=5_attacker_pos=0.csv")
+    rec["b_checks"] = _p11_check_two_ranks(ranks, ref, p3_csv)
+    r0 = ranks[0]
+    rec["b_ranks"] = [{
+        "step_s": r["step_s"], "peak_gib": r["peak_gib"], "calls": r["calls"],
+        "launches": {k: r[k]["launches"] for k in r
+                     if isinstance(r[k], dict) and "launches" in r[k]}}
+        for r in ranks]
+    rec["b_tp2_8b"] = {
+        "note": "gloo, two ranks on one card: not a multi-GPU number",
+        "prefill_tok_s": r0["i_tp2_8b"]["prefill_tok_s"],
+        "decode_tok_s": r0["i_tp2_8b"]["decode_tok_s"],
+        "decode_mode": r0["i_tp2_8b"]["stats"]["decode_mode"],
+        "world1_prefill_tok_s": ref["8b"]["prefill_tok_s"],
+        "world1_decode_tok_s_eager": ref["8b"]["decode_tok_s"]}
+    rec["b_dense_s"] = {dt: r0["iii_dense"][dt]["s"]
+                        for dt in ("bfloat16", "float32", "int8")}
+    rec["b_cp_s"] = {n: c["s"] for n, c in r0["vi_context"].items()
+                     if isinstance(c, dict) and "s" in c}
+    log(f"[phase11] (b) {json.dumps({k: rec[k] for k in rec if k.startswith('b_')})}")
+    t0 = time.perf_counter()
+    rec["shard_shapes"] = _p11_shard_shapes(dev)
+    step_s["shard_shapes"] = time.perf_counter() - t0
+    rec["step_s"] = step_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase11] steps {json.dumps(step_s)}")
+    return rec
+
+
 def _first_batch_questions(cfg):
     from sdag_tpu_torch.utils.parsing import load_from_csv
     return load_from_csv(cfg.CSV_INPUT_PATH).questions[
@@ -3496,6 +4270,8 @@ def main() -> int:
     details["phase9"] = p9 = phase9(dev)
     _free_cuda()
     details["phase10"] = p10 = phase10(dev)
+    _free_cuda()
+    details["phase11"] = p11 = phase11(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -3583,6 +4359,23 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in p8["k6"]
                             if r["dtype"] == dtype),
             **{key: step[key] for key in keys}))
+    # each kernel at the shard shapes of phase 11 (timed in one process)
+    # and its launches per rank in phase 11(b)
+    shard = p11["shard_shapes"]
+    shard_of = {"sdag_prefill_bf16": shard["k1"], "bm25_scan_topk":
+                shard["k2"], "encoder_attention_bf16": shard["k3"],
+                "topk_matmul_bf16": shard["k4_bf16"],
+                "topk_matmul_f32": shard["k4_f32"],
+                "topk_matmul_int8": shard["k5"],
+                "int8_matmul_f32": shard["k6_f32"]}
+    for kern in kernels:
+        per_rank = [sum(steps[s].get(kern["name"], 0) for s in steps)
+                    for steps in (r["launches"] for r in p11["b_ranks"])]
+        r = shard_of.get(kern["name"])
+        kern["shard_shape"] = dict(
+            {key: r[key] for key in keys + ("max_abs_err",)} if r else {},
+            case=r.get("name", "window round M20") if r else None,
+            launches_per_rank=per_rank)
     main8 = p8["main_path"]
     log(f"[summary] phase 8 int8 + int8 KV + speculation: decode "
         f"{main8['decode_tok_s']:.1f} tok/s ({main8['ms_per_round']:.2f} ms "
@@ -3646,7 +4439,29 @@ def main() -> int:
         f"{sum(len(d) for d in pe['differ'].values())}; on {card}")
     log(f"[summary] phase 10 in {p10['phase_s']:.1f} s "
         f"{json.dumps({k: round(v, 1) for k, v in p10['step_s'].items()})}")
-    log(f"[summary] phases 0-10 in {time.perf_counter() - t_start:.1f} s")
+    tp, chk = p11["b_tp2_8b"], p11["b_checks"]
+    log(f"[summary] phase 11 (a) torchrun CLI (NCCL, 1 rank) "
+        f"{p11['a_cli_world1']['rows']} rows = phase 3's; 8B (1, 1) NCCL "
+        f"mesh tokens = mesh-less, {p11['a_nccl_8b']['graph_captures']} "
+        f"graph captures, collectives {json.dumps(p11['a_nccl_8b']['calls'])}"
+        f"; (b) two ranks on one card over gloo: TP=2 8B prefill "
+        f"{tp['prefill_tok_s']:.1f} tok/s, decode {tp['decode_tok_s']:.1f} "
+        f"tok/s ({tp['note']}), logits row-relative "
+        f"{chk['tp_logits_row_rel_err']:.4f}, from f32 "
+        f"{chk['tp_ratio']:.4f} x one rank's (limit {P11_TP_ERR_RATIO}; "
+        f"planted faults {json.dumps(chk['tp_fault_ratio'])}), greedy "
+        f"token agreement "
+        f"{chk['tp_greedy_token_agreement']:.3f}; DP=2 rows differing "
+        f"{chk['ii_dp2_pipeline_rows_differ']} / "
+        f"{chk['ii_dp2_pipeline_int8_rows_differ']} (int8); dense s "
+        f"{json.dumps(p11['b_dense_s'])}; CP s {json.dumps(p11['b_cp_s'])};"
+        f" peak GiB per rank "
+        f"{json.dumps([r['peak_gib'] for r in p11['b_ranks']])}; "
+        f"collectives per rank "
+        f"{json.dumps([r['calls'] for r in p11['b_ranks']])}; steps "
+        f"{json.dumps({k: round(v, 1) for k, v in p11['step_s'].items()})};"
+        f" phase {p11['phase_s']:.1f} s on {card}")
+    log(f"[summary] phases 0-11 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

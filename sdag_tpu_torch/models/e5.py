@@ -1,4 +1,5 @@
-"""E5-family text encoder (BERT architecture) in PyTorch, single device.
+"""E5-family text encoder (BERT architecture) in PyTorch, one device or
+the ranks of a data-parallel mesh.
 
 Counterpart of ``sdag_tpu/models/e5.py``.  Preserves the E5 conventions:
 "query: " / "passage: " prefixes when the model name contains "e5", mean
@@ -23,6 +24,7 @@ import torch.nn.functional as F
 
 from sdag_tpu_torch.ops.encoder_attention import (encoder_attention_fused,
                                                   encoder_attention_fused_qkv)
+from sdag_tpu_torch.parallel.collectives import all_gather_cat
 from sdag_tpu_torch.utils.device import resolve_device
 
 
@@ -202,15 +204,22 @@ def encoder_forward(params: Dict[str, Any], cfg: EncoderConfig,
 class E5Encoder:
     """Batched encoder with E5 prefixing rules and shape-bucketed batches.
 
-    One device (no data-parallel mesh; multi-device encoding belongs to the
-    torch.distributed port of the sharded paths).
+    ``dp_mesh`` (``core/mesh.py``): a batch's rows are split over the
+    mesh's ``data`` axis, each rank encodes its slice with the same
+    forward (kernel K3 on CUDA) and the embeddings are all-gathered; the
+    forward is row-parallel, so every rank's embeddings equal one
+    device's.
     """
 
     def __init__(self, params, cfg: EncoderConfig, tokenizer,
                  model_name: str = "e5", max_length: int = 512,
                  pad_multiple: int = 64, fused: Optional[bool] = None,
-                 gelu: Optional[str] = None, device="cuda") -> None:
+                 gelu: Optional[str] = None, device="cuda",
+                 dp_mesh=None) -> None:
         self.device = resolve_device(device)
+        self.dp_group = None if dp_mesh is None else dp_mesh.group("data")
+        self._dp_n = 1 if dp_mesh is None else dp_mesh.shape["data"]
+        self._dp_rank = 0 if dp_mesh is None else dp_mesh.rank("data")
         # fused=None: fused QKV + kernel K3 on CUDA, the plain attention on
         # the CPU (the kernel's mask contract is met by _tokenize's
         # contiguous-prefix padding; parity is test-pinned)
@@ -256,12 +265,23 @@ class E5Encoder:
         out = []
         for i in range(0, len(prefixed), batch_size):
             ids, mask = self._tokenize(prefixed[i:i + batch_size])
+            n = len(ids)
+            if self._dp_n > 1:
+                # pad rows to the data multiple (all-zero masks pool to
+                # the zero vector and are dropped) and take this rank's
+                pad = (-n) % self._dp_n
+                ids = np.pad(ids, ((0, pad), (0, 0)))
+                mask = np.pad(mask, ((0, pad), (0, 0)))
+                rows = len(ids) // self._dp_n
+                r0 = self._dp_rank * rows
+                ids, mask = ids[r0:r0 + rows], mask[r0:r0 + rows]
             emb = encoder_forward(
                 self.params, self.cfg,
                 torch.from_numpy(ids).to(self.device),
                 torch.from_numpy(mask).to(self.device),
                 fused_attention=self.fused, gelu=self.gelu)
-            out.append(emb.float().cpu().numpy())
+            emb = all_gather_cat(emb.float(), self.dp_group)
+            out.append(emb[:n].cpu().numpy())
             self.stats["tokens"] += int(mask.sum())
             self.stats["padded_tokens"] += int(mask.size)
             self.stats["batches"] += 1

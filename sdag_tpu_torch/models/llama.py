@@ -1,4 +1,4 @@
-"""Llama-class decoder in PyTorch (single device).
+"""Llama-class decoder in PyTorch (one device, or one tensor-parallel rank).
 
 Counterpart of ``sdag_tpu/models/llama.py``: RMSNorm, RoPE (with HF
 "llama3" frequency scaling), GQA attention, SwiGLU MLP.  The prefill runs
@@ -34,6 +34,7 @@ from sdag_tpu_torch.ops.attention import (
     masked_decode_window_attention, masked_decode_window_attention_int8,
     prefill_mask_plan, quantize_kv_heads_int8, sdag_prefill_attention)
 from sdag_tpu_torch.ops.int8_matmul import int8_matmul
+from sdag_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_
 from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
 from sdag_tpu_torch.utils.device import resolve_device
 
@@ -265,22 +266,30 @@ def _mlp(mlp: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
 
 
 def _unembed(params: Dict[str, Any], cfg: DecoderConfig,
-             x: torch.Tensor) -> torch.Tensor:
+             x: torch.Tensor, tp_group=None) -> torch.Tensor:
+    """Vocab logits.  Under tensor parallelism an untied lm_head holds
+    this rank's vocab columns and the slices are all-gathered; a tied
+    embedding is whole on every rank."""
     if cfg.tie_embeddings:
         emb = params["embed"]
         if isinstance(emb, dict):     # per-row scales = unembed channels
             return int8_matmul(x, emb["w"], emb["s"])
         return x @ emb.T
-    return _mm(x, params["lm_head"])
+    return all_gather_cat(_mm(x, params["lm_head"]), tp_group, dim=-1)
 
 
 def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   doc_id: torch.Tensor, nbr_bits: torch.Tensor,
                   sys_user_len: torch.Tensor, valid_len: torch.Tensor,
-                  mask_plan=None):
+                  mask_plan=None, tp_group=None):
     """One decoder layer (attention + MLP with residuals).
-    Returns (x, (k, v))."""
+    Returns (x, (k, v)).
+
+    tp_group: the tensor-parallel process group when the layer holds
+    Megatron-sliced weights (``parallel/sharding.py``): attention runs on
+    this rank's heads, the MLP on its ff slice, and the wo / down products
+    are all-reduced; q/k/v and the KV cache are the local heads."""
     B, L, _ = x.shape
     h = rms_norm(x, layer["ln1"], cfg.norm_eps)
     q, k, v = _project_qkv(layer["attn"], h, cfg)
@@ -290,19 +299,23 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                                       sys_user_len, valid_len=valid_len,
                                       mask_plan=mask_plan)
     attn_out = attn_out.transpose(1, 2).reshape(B, L, -1)
-    x = x + _mm(attn_out, layer["attn"]["wo"])
-    x = x + _mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps))
+    x = x + all_reduce_(_mm(attn_out, layer["attn"]["wo"]), tp_group)
+    x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
+                                                    cfg.norm_eps)), tp_group)
     return x, (k, v)
 
 
 def make_kv_cache(cfg: DecoderConfig, batch: int, size: int,
-                  device="cuda", kv_dtype: str = "native"
+                  device="cuda", kv_dtype: str = "native",
+                  n_kv_heads: Optional[int] = None
                   ) -> Dict[str, torch.Tensor]:
     """{k, v}: [n_layers, B, Hkv, size, Dh] in cfg.dtype ('native'), or
     int8 with f32 per-(layer, batch, head, slot) scales ``k_scale`` /
-    ``v_scale`` [n_layers, B, Hkv, size] ('int8')."""
+    ``v_scale`` [n_layers, B, Hkv, size] ('int8').  ``n_kv_heads``
+    overrides the config's (a tensor-parallel rank holds its slice)."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, size, cfg.head_dim)
+    shape = (cfg.n_layers, batch, n_kv_heads or cfg.n_kv_heads, size,
+             cfg.head_dim)
     if kv_dtype == "int8":
         return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
                 "v": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -313,6 +326,14 @@ def make_kv_cache(cfg: DecoderConfig, batch: int, size: int,
                          "'native' or 'int8'")
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def local_kv_heads(params: Dict[str, Any], cfg: DecoderConfig) -> int:
+    """KV heads the tree's wk produces: the config's on one rank, its
+    slice under tensor parallelism."""
+    wk = params["layers"][0]["attn"]["wk"]
+    out = wk["w"].shape[0] if isinstance(wk, dict) else wk.shape[1]
+    return out // cfg.head_dim
 
 
 def _quantize_kv(k: torch.Tensor, v: torch.Tensor):
@@ -339,7 +360,7 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             positions: Optional[torch.Tensor] = None,
             logits_last_only: bool = False,
             cache: Optional[Dict[str, torch.Tensor]] = None,
-            kv_dtype: str = "native",
+            kv_dtype: str = "native", tp_group=None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-prompt forward.  input_ids: [B, L] right-padded.
 
@@ -349,7 +370,8 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     valid_len-1 (logits [B, 1, V]).  ``cache``: a ``make_kv_cache`` result
     of at least L slots to write the prompt's K/V into (slots past L keep
     what they held) instead of a fresh one of ``kv_dtype``; an int8 cache
-    takes the K/V quantized per slot."""
+    takes the K/V quantized per slot.  ``tp_group``: as in
+    ``layer_forward``."""
     B, L = input_ids.shape
     dev = input_ids.device
     cache_size = cache_size or L
@@ -371,11 +393,12 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
 
     if cache is None and with_cache:
         cache = make_kv_cache(cfg, B, cache_size, device=dev,
-                              kv_dtype=kv_dtype)
+                              kv_dtype=kv_dtype,
+                              n_kv_heads=local_kv_heads(params, cfg))
     for li, layer in enumerate(params["layers"]):
         x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
                                   nbr_bits, sys_user_len, valid_len,
-                                  mask_plan=mask_plan)
+                                  mask_plan=mask_plan, tp_group=tp_group)
         if cache is not None and "k_scale" in cache:
             kv_q, kv_s = _quantize_kv(k, v)
             for i, name in enumerate(("k", "v")):
@@ -389,7 +412,7 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     if logits_last_only:
         last = (valid_len.long() - 1).clamp(min=0)
         x = x[torch.arange(B, device=dev), last][:, None, :]
-    logits = _unembed(params, cfg, x).float()
+    logits = _unembed(params, cfg, x, tp_group).float()
     return logits, cache
 
 
@@ -399,6 +422,7 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                 cache: Dict[str, torch.Tensor],
                 write_index,                   # cache slot to write
                 cache_mask: torch.Tensor,      # [B, S] valid cache slots
+                tp_group=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: plain causal attention over all valid cache slots
     (reference decode semantics, no isolation after prefill).  Writes the
@@ -406,7 +430,8 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
     cache); cache_mask must already include the written slot.
     ``write_index``: an int, or a one-element int64 tensor on the cache's
     device (a step captured in a CUDA graph reads the slot from device
-    memory).  Returns (logits [B, V] f32, cache)."""
+    memory).  ``tp_group``: as in ``layer_forward``.  Returns (logits
+    [B, V] f32, cache)."""
     B = tokens.shape[0]
     if not isinstance(write_index, torch.Tensor):
         write_index = torch.tensor([write_index], device=tokens.device)
@@ -432,10 +457,13 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
             cache["v"][li].index_copy_(2, write_index, v)
             attn_out = masked_decode_attention(q[:, :, 0, :], cache["k"][li],
                                                cache["v"][li], cache_mask)
-        x = x + _mm(attn_out.reshape(B, 1, -1), layer["attn"]["wo"])
-        x = x + _mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps))
+        x = x + all_reduce_(_mm(attn_out.reshape(B, 1, -1),
+                                layer["attn"]["wo"]), tp_group)
+        x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
+                                                        cfg.norm_eps)),
+                            tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x)[:, 0, :].float(), cache
+    return _unembed(params, cfg, x, tp_group)[:, 0, :].float(), cache
 
 
 def _window_rows(slots: torch.Tensor, G: int) -> torch.Tensor:
@@ -470,6 +498,7 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
                   cache: Dict[str, torch.Tensor],
                   write_slots: torch.Tensor,   # [B] per-row base cache slot
                   cache_mask: torch.Tensor,    # [B, G, S'] valid slots
+                  tp_group=None,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Speculative verification step: one forward over a G-token window.
 
@@ -480,8 +509,8 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
     all G tokens are written in place at ``write_slots[b] .. + G - 1``
     (quantized per slot into an int8 cache, scales alongside); the caller
     treats only the accepted prefix as history, and the next window starts
-    at or before the rejected slots and overwrites them.  Returns (logits
-    [B, G, V] f32, cache)."""
+    at or before the rejected slots and overwrites them.  ``tp_group``: as
+    in ``layer_forward``.  Returns (logits [B, G, V] f32, cache)."""
     B, G = tokens.shape
     x = _embed_rows(params["embed"], tokens, cfg.dtype)   # [B, G, d]
     int8_kv = "k_scale" in cache
@@ -505,7 +534,9 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
             attn_out = masked_decode_window_attention(
                 q, cache["k"][li], cache["v"][li], cache_mask)
         attn_out = attn_out.transpose(1, 2).reshape(B, G, -1)
-        x = x + _mm(attn_out, layer["attn"]["wo"])
-        x = x + _mlp(layer["mlp"], rms_norm(x, layer["ln2"], cfg.norm_eps))
+        x = x + all_reduce_(_mm(attn_out, layer["attn"]["wo"]), tp_group)
+        x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
+                                                        cfg.norm_eps)),
+                            tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x).float(), cache
+    return _unembed(params, cfg, x, tp_group).float(), cache

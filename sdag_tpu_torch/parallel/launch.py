@@ -1,0 +1,78 @@
+"""Run one function on n ranks of this host, each in its own process.
+
+``run_ranks(fn, world, *args)`` starts ``world`` processes with
+``torch.multiprocessing.spawn``, gives each a process group (gloo by
+default) over ``tcp://127.0.0.1:<free port>``, calls ``fn(rank, world,
+*args)`` in each and returns the ranks' results in rank order.  The CPU
+tests run the multi-rank paths this way, and ``chip_smoke.py`` runs two
+ranks on one card with it.  ``fn`` and its arguments and result are
+pickled, so ``fn`` must be a module-level function; results are pickled
+by value (a CPU tensor too, so the rank may exit before the parent reads
+it).  A rank that raises makes the call raise
+``torch.multiprocessing.ProcessRaisedException`` with its traceback, and
+the other ranks are ended (``spawn``'s rule).
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import socket
+import time
+from typing import Any, Callable, List, Optional
+
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, world: int, port: int, backend: str,
+               threads: Optional[int], fn: Callable, args, results) -> None:
+    if threads is not None:
+        import torch
+        torch.set_num_threads(threads)
+    os.environ.update({"RANK": str(rank), "WORLD_SIZE": str(world),
+                       "LOCAL_RANK": str(rank), "MASTER_ADDR": "127.0.0.1",
+                       "MASTER_PORT": str(port)})
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    try:
+        out = fn(rank, world, *args)
+    finally:
+        dist.destroy_process_group()
+    results.put((rank, pickle.dumps(out)))
+
+
+def run_ranks(fn: Callable, world: int, *args, backend: str = "gloo",
+              threads: Optional[int] = 1, timeout: float = 600.0
+              ) -> List[Any]:
+    """``[fn(0, world, *args), ..., fn(world - 1, world, *args)]``, each
+    run in its own process with a process group of ``world`` ranks."""
+    results = mp.get_context("spawn").SimpleQueue()
+    ctx = mp.spawn(_rank_main, nprocs=world, join=False,
+                   args=(world, free_port(), backend, threads, fn, args,
+                         results))
+    got = {}
+    deadline = time.monotonic() + timeout
+
+    def drain():
+        # read while the ranks run: a result larger than the pipe's
+        # buffer blocks its rank until it is read
+        while not results.empty():
+            rank, payload = results.get()
+            got[rank] = pickle.loads(payload)
+
+    while not ctx.join(timeout=0.5):
+        drain()
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+                p.join()
+            raise RuntimeError(f"run_ranks: no result within {timeout}s")
+    drain()
+    return [got[r] for r in range(world)]

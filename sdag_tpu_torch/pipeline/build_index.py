@@ -9,10 +9,11 @@ line):
         [--bm25] [--ranker-checkpoint DIR] [--ranker-arch e5-large-v2]
         [--batch-size 256] [--dtype bfloat16] [--device cuda]
 
-Dense: E5 encode on one device (kernel K3 on CUDA) -> embeddings + manifest.
+Dense: E5 encode (kernel K3 on CUDA) -> embeddings + manifest.
 --bm25: C++ analyzer + packed impact postings instead.  The device defaults
 to CUDA and the build raises when CUDA is missing; ``--device cpu`` runs
-the plain PyTorch path.
+the plain PyTorch path.  Under torchrun the ranks split the encode batches
+(the whole world is the data axis) and rank 0 writes the index.
 """
 
 from __future__ import annotations
@@ -36,12 +37,24 @@ def main(argv=None) -> None:
                    choices=["float32", "bfloat16"])
     p.add_argument("--k1", default=0.9, type=float)
     p.add_argument("--b", default=0.4, type=float)
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default: cuda)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda, cuda:LOCAL_RANK under "
+                        "torchrun)")
     args = p.parse_args(argv)
 
-    from sdag_tpu_torch.utils.device import resolve_device
-    dev = resolve_device(args.device)
+    import torch.distributed as dist
+
+    from sdag_tpu_torch.core.mesh import maybe_init_distributed, rank_device
+    dev = rank_device(args.device)
+    maybe_init_distributed(dev)
+    try:
+        _build(args, dev)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _build(args, dev) -> None:
     from sdag_tpu_torch.pipeline.resources import load_corpus_jsonl
     texts, ids = load_corpus_jsonl(args.corpus_jsonl)
     print(f"[build] corpus: {len(texts)} documents")

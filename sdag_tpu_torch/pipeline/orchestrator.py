@@ -22,6 +22,7 @@ from sdag_tpu_torch.attack.injection import (
     inject_malicious_docs_into_ranked_list)
 from sdag_tpu_torch.attack.selection import select_malicious_docs_for_batch
 from sdag_tpu_torch.config import Config
+from sdag_tpu_torch.core.mesh import is_writer
 from sdag_tpu_torch.datamodels import PairSpec, QueryData, Resources
 from sdag_tpu_torch.defenses.cache import (LabelCache,
                                            load_discern_labels_jsonl,
@@ -384,6 +385,8 @@ def run_experiment(cfg: Config,
     cfg.validate()
     check_supported(cfg)
     cfg.init_seeds()
+    # under torchrun every rank computes the same rows; rank 0 writes
+    writer = is_writer()
     timer = PhaseTimer()
 
     query_data = load_queries_unified(cfg)
@@ -502,7 +505,7 @@ def run_experiment(cfg: Config,
                         false_groups_batch=false_groups, rng=pair_rng,
                         timer=timer)
                 results_per_pair[key].extend(rows)
-                if resume_logs:
+                if resume_logs and writer:
                     resume_logs[key].append_batch(batch_idx, rows)
 
     all_metrics: Dict[Tuple[int, int], Dict[str, Any]] = {}
@@ -511,17 +514,18 @@ def run_experiment(cfg: Config,
         results = results_per_pair[key]
         base = (f"{cfg.OUTPUT_CSV_BASE}_top_k={pair.top_k}"
                 f"_attacker_pos={pair.attacker_pos}")
-        save_results(results, base + ".csv")
         metrics = build_pair_metrics(results, pair.top_k, pair.attacker_pos)
         metrics["false_answer_stats"] = \
             compute_false_answer_stats_for_results(results)
         metrics["run_config"] = cfg.snapshot()
         metrics["phase_timings"] = timer.summary()
-        save_metrics_json(metrics, base + ".json")
-        print(f"[run] saved {base}.csv / .json")
+        if writer:
+            save_results(results, base + ".csv")
+            save_metrics_json(metrics, base + ".json")
+            print(f"[run] saved {base}.csv / .json")
         all_metrics[key] = metrics
 
-    if cfg.DEFENSE_BACKEND == "discern_and_answer":
+    if cfg.DEFENSE_BACKEND == "discern_and_answer" and writer:
         out = f"{cfg.OUTPUT_CSV_BASE}_{cfg.DISCERN_LABELS_SAVE_SUFFIX}"
         save_discern_labels_jsonl(out, discern_cache)
 

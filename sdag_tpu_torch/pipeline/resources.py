@@ -7,9 +7,12 @@ centroid selection strategies, the three defenses (none, ragdefender,
 discern_and_answer), a native checkpoint, a local HF checkpoint
 (``LLM_CHECKPOINT`` / ``RANKER_CHECKPOINT``, converted to float32 as in the
 JAX package) or random weights at a named architecture, int8 weights
-(quantized at load), the int8 KV cache, speculative decoding, one device.
-A mesh (``MESH_MODEL`` or ``MESH_DATA`` > 1) raises NotImplementedError
-naming the ROADMAP item that will serve it.
+(quantized at load), the int8 KV cache, speculative decoding, and the
+meshes of ``core/mesh.py`` over the torchrun world: the decoder
+tensor-parallel over ``MESH_MODEL`` ranks with its batches split over
+``MESH_DATA`` (int8 weights are served replicated on the data ranks, with
+``MESH_MODEL=1``), the encoder's batches split over ``MESH_DATA`` ranks,
+the indexes row-sharded over all ranks.
 
 The E5 encoder is built only when a setting calls it (dense or hybrid
 retrieval, ``DOC_NEIGHBORS_K > 0``, a centroid selection strategy, the
@@ -28,6 +31,8 @@ from typing import List, Optional, Tuple
 import torch
 
 from sdag_tpu_torch.config import Config
+from sdag_tpu_torch.core.mesh import (make_index_mesh, make_mesh, mesh_shape,
+                                      world_size)
 from sdag_tpu_torch.datamodels import Resources
 from sdag_tpu_torch.models.e5 import (E5Encoder, EncoderConfig,
                                       init_encoder_params)
@@ -65,20 +70,12 @@ def _decoder_config(arch: str) -> DecoderConfig:
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for settings outside this port's slice,
-    naming the ROADMAP (Queue A) item that will serve each."""
-    unsupported = [
-        # int8 weights with MESH_DATA > 1 raise here too, until the mesh
-        # item decides how the int8 tree is sharded
-        (cfg.MESH_MODEL > 1 or cfg.MESH_DATA > 1,
-         f"MESH_MODEL={cfg.MESH_MODEL}, MESH_DATA={cfg.MESH_DATA}",
-         "TP/DP on torch.distributed"),
-    ]
-    for bad, what, item in unsupported:
-        if bad:
-            raise NotImplementedError(
-                f"sdag_tpu_torch does not serve {what} yet: ROADMAP.md "
-                f"Queue A, '{item}'")
+    """Raise ValueError, before anything is loaded, when the configured
+    meshes do not fit this process' torch.distributed world (one rank
+    without torchrun)."""
+    # the decoder's data x model mesh; the encoder's data x 1 fits if it
+    # does
+    mesh_shape(cfg.MESH_DATA, cfg.MESH_MODEL, world_size())
 
 
 def load_corpus_jsonl(path: str) -> Tuple[List[str], List[str]]:
@@ -116,15 +113,27 @@ def build_generator(cfg: Config, device="cuda") -> Generator:
         params = init_decoder_params(gen, dec_cfg, device=dev)
     if cfg.LLM_WEIGHTS_DTYPE == "int8":
         # weight-only int8 serving, quantized once at load, each float
-        # matrix freed as it goes (the forwards dispatch on leaf type)
+        # matrix freed as it goes (the forwards dispatch on leaf type);
+        # with MESH_DATA > 1 the int8 tree is replicated on the data ranks
         params = quantize_decoder_params_int8(params, consume=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return Generator(params, dec_cfg, tok, temperature=cfg.TEMPERATURE,
-                     top_p=cfg.TOP_P, seed=cfg.SEED,
-                     batch_bucket=cfg.LLM_BATCH_SIZE,
-                     kv_cache_dtype=cfg.KV_CACHE_DTYPE,
-                     speculative_draft=cfg.SPECULATIVE_DRAFT_LEN, device=dev)
+    mesh = None
+    if cfg.MESH_MODEL > 1 or cfg.MESH_DATA > 1:
+        # 'model' = tensor parallelism, 'data' = batch rows; every rank
+        # made the whole tree from the seed and keeps its slices
+        mesh = make_mesh(data=cfg.MESH_DATA, model=max(cfg.MESH_MODEL, 1),
+                         device=dev)
+    gen = Generator(params, dec_cfg, tok, temperature=cfg.TEMPERATURE,
+                    top_p=cfg.TOP_P, seed=cfg.SEED,
+                    batch_bucket=cfg.LLM_BATCH_SIZE,
+                    kv_cache_dtype=cfg.KV_CACHE_DTYPE,
+                    speculative_draft=cfg.SPECULATIVE_DRAFT_LEN, device=dev,
+                    mesh=mesh)
+    del params
+    if mesh is not None and dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return gen
 
 
 def needs_encoder(cfg: Config) -> bool:
@@ -149,8 +158,13 @@ def build_encoder(cfg: Config, device="cuda") -> E5Encoder:
         gen = torch.Generator(device=dev)
         gen.manual_seed(cfg.SEED)
         params = init_encoder_params(gen, enc_cfg, device=dev)
+    # batches split over the data axis (MESH_DATA=0: all ranks); without
+    # a process group the mesh has one rank and encoding is unchanged
+    dp_mesh = make_mesh(data=cfg.MESH_DATA, model=1, device=dev) \
+        if cfg.MESH_DATA != 1 else None
     return E5Encoder(params, enc_cfg, load_tokenizer(cfg.RANKER_CHECKPOINT),
-                     model_name=cfg.RANKER_MODEL_NAME, device=dev)
+                     model_name=cfg.RANKER_MODEL_NAME, device=dev,
+                     dp_mesh=dp_mesh)
 
 
 def init_resources(cfg: Config, device="cuda",
@@ -158,6 +172,8 @@ def init_resources(cfg: Config, device="cuda",
     """``encoder``: a ready E5Encoder to use instead of building one."""
     check_supported(cfg)
     dev = resolve_device(device)
+    # corpus rows sharded over every rank
+    mesh = make_index_mesh(dev)
     if encoder is None and needs_encoder(cfg):
         encoder = build_encoder(cfg, device=dev)
     generator = build_generator(cfg, device=dev)
@@ -182,7 +198,8 @@ def init_resources(cfg: Config, device="cuda",
                              f"{sorted(INDEX_DTYPES)}")
         idx_kw = dict(dtype=INDEX_DTYPES[cfg.DENSE_INDEX_DTYPE],
                       search_mode=cfg.DENSE_SEARCH_MODE,
-                      int8_rescore=cfg.DENSE_INT8_RESCORE, device=dev)
+                      int8_rescore=cfg.DENSE_INT8_RESCORE, device=dev,
+                      mesh=mesh)
         if os.path.isdir(cfg.DENSE_INDEX_PATH):
             print(f"[resources] loading dense index: {cfg.DENSE_INDEX_PATH}")
             meta_path = cfg.META_JSONL_PATH \
@@ -208,7 +225,7 @@ def init_resources(cfg: Config, device="cuda",
         if sp and os.path.isdir(sp):
             print(f"[resources] loading sparse index: {sp}")
             sparse_index = BM25Index.load(sp, engine=cfg.BM25_ENGINE,
-                                          device=dev)
+                                          device=dev, mesh=mesh)
         elif cfg.CORPUS_JSONL_PATH:
             print("[resources] building BM25 index from corpus "
                   f"{cfg.CORPUS_JSONL_PATH}")
@@ -216,7 +233,7 @@ def init_resources(cfg: Config, device="cuda",
             sparse_index = BM25Index.from_texts(texts, ids, k1=cfg.BM25_K1,
                                                 b=cfg.BM25_B,
                                                 engine=cfg.BM25_ENGINE,
-                                                device=dev)
+                                                device=dev, mesh=mesh)
             if sp:
                 sparse_index.save(sp)
         else:

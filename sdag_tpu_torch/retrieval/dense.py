@@ -5,8 +5,9 @@ reference's FAISS flat index, ``src/pipeline/retrieval/dense.py:15-178``):
 the corpus embedding matrix lives on the device, queries are scored with
 the fused matmul+top-k kernels (``ops/topk.py``), and hits are materialized
 from a JSONL metadata manifest with the same ""/"NA" fallbacks for invalid
-indices.  One device, one shard: sharded search belongs to the
-torch.distributed port of the parallel paths.
+indices.  Over an index mesh of n ranks (``core/mesh.py``) each rank holds
+one block of the padded rows and search merges the per-shard top-k
+(``parallel/collectives.py`` ``sharded_topk_search``).
 """
 
 from __future__ import annotations
@@ -18,11 +19,11 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sdag_tpu_torch.core.mesh import is_writer, make_index_mesh
 from sdag_tpu_torch.datamodels import RetrievalBatch
-from sdag_tpu_torch.ops.topk import (approx_topk_matmul_int8,
-                                     fused_topk_matmul_int8,
-                                     quantize_last_axis_int8,
-                                     rescored_topk_int8, topk_search)
+from sdag_tpu_torch.ops.topk import quantize_last_axis_int8
+from sdag_tpu_torch.parallel.collectives import (gather_rows,
+                                                 sharded_topk_search)
 from sdag_tpu_torch.retrieval.retriever import Retriever, materialize_hits
 from sdag_tpu_torch.utils.device import resolve_device
 from sdag_tpu_torch.utils.mathutil import round_up as _round_up
@@ -31,28 +32,21 @@ INDEX_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
                 "int8": torch.int8}
 
 
-def _one_shard_only(mesh=None, n_shards: int = 1) -> None:
-    if mesh is not None or n_shards > 1:
-        raise NotImplementedError(
-            "sdag_tpu_torch serves one dense-index shard on one device; a "
-            "mesh / n_shards > 1 (sharded_topk_search) is ROADMAP.md Queue "
-            "A, 'TP/DP on torch.distributed'")
-
-
 class DenseIndex:
     """Flat exact inner-product index over normalized embeddings.
 
-    Rows are padded to a multiple of block_n (kept from the JAX package so
-    index directories stay interchangeable); searches mask the padding
-    through ``valid_n``.
+    Rows are padded to a multiple of block_n * n_shards (the JAX
+    package's rule, so index directories stay interchangeable) and this
+    rank keeps its block of them along the mesh's 'index' axis (all rows
+    without a process group); searches mask the padding through
+    ``valid_n``.
     """
 
     def __init__(self, embeddings: np.ndarray, meta: List[Dict[str, Any]],
                  mesh=None, block_n: int = 1024,
                  dtype: torch.dtype = torch.float32,
                  search_mode: str = "approx", int8_rescore: bool = True,
-                 device="cuda", n_shards: int = 1) -> None:
-        _one_shard_only(mesh, n_shards)
+                 device="cuda") -> None:
         if embeddings.ndim != 2:
             raise ValueError("embeddings must be [N, D]")
         if len(meta) != embeddings.shape[0]:
@@ -67,7 +61,9 @@ class DenseIndex:
         self.valid_n = embeddings.shape[0]
         self.dim = embeddings.shape[1]
         self.block_n = block_n
-        self.n_shards = 1
+        self.mesh = mesh if mesh is not None else make_index_mesh(
+            self.device)
+        self.n_shards = self.mesh.shape["index"]
         self.quantized = dtype == torch.int8
         # "approx": matmul + candidate list + exact merge, plain PyTorch
         # (exact on this port).  "exact": kernels K4/K5 on CUDA, exact
@@ -76,11 +72,17 @@ class DenseIndex:
 
         # max(., 1): an empty corpus still builds a 1-row padded index
         # whose searches return all -1/-inf (same guard as BM25Index)
-        n_pad = _round_up(max(self.valid_n, 1), block_n)
-        padded = torch.zeros((n_pad, self.dim), dtype=torch.float32,
+        n_pad = _round_up(max(self.valid_n, 1), block_n * self.n_shards)
+        # this rank's block of the padded rows, filled on the device from
+        # its slice of the embeddings (quantization is per row, so a shard
+        # quantizes as the whole matrix would)
+        rows = n_pad // self.n_shards
+        row0 = self.mesh.rank("index") * rows
+        mine = embeddings[row0: row0 + rows]
+        padded = torch.zeros((rows, self.dim), dtype=torch.float32,
                              device=self.device)
-        padded[: self.valid_n] = torch.from_numpy(
-            np.ascontiguousarray(embeddings, dtype=np.float32))
+        padded[: mine.shape[0]] = torch.from_numpy(
+            np.ascontiguousarray(mine, dtype=np.float32))
         self.resid = None
         self.resid_scales = None
         self.scales = None
@@ -111,20 +113,10 @@ class DenseIndex:
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Top-k over query embeddings already on the index' device.
         Returns (scores [Q,k] f32, indices [Q,k] int32)."""
-        if self.quantized:
-            if self.search_mode == "approx" and self.int8_rescore:
-                return rescored_topk_int8(
-                    q, self.embeddings, self.scales, self.resid,
-                    self.resid_scales, top_k, valid_n=self.valid_n)
-            if self.search_mode == "approx":
-                return approx_topk_matmul_int8(
-                    q, self.embeddings, self.scales, top_k,
-                    valid_n=self.valid_n)
-            # exact mode: kernel K5 on CUDA, its plain version on the CPU
-            return fused_topk_matmul_int8(q, self.embeddings, self.scales,
-                                          top_k, valid_n=self.valid_n)
-        return topk_search(q, self.embeddings, top_k, valid_n=self.valid_n,
-                           mode=self.search_mode)
+        return sharded_topk_search(
+            q, self.embeddings, top_k, valid_n=self.valid_n, mesh=self.mesh,
+            scales=self.scales, mode=self.search_mode, resid=self.resid,
+            resid_scales=self.resid_scales)
 
     def search(self, query_embeddings: np.ndarray, top_k: int
                ) -> Tuple[np.ndarray, np.ndarray]:
@@ -146,14 +138,17 @@ class DenseIndex:
     # --------------------------------------------------------------- I/O
     def save(self, index_dir: str) -> None:
         """Persist as embeddings.npy + meta.jsonl + manifest.json, always
-        float32 (bf16/int8 are device storage choices)."""
-        os.makedirs(index_dir, exist_ok=True)
-        emb = self.embeddings[: self.valid_n].float()
+        float32 (bf16/int8 are device storage choices).  Every rank calls
+        it (the shards are gathered); rank 0 writes."""
+        emb = self.embeddings.float()
         if self.quantized:
-            emb = emb * self.scales[: self.valid_n, None]
+            emb = emb * self.scales[:, None]
             if self.resid is not None:
-                emb = emb + (self.resid[: self.valid_n].float()
-                             * self.resid_scales[: self.valid_n, None])
+                emb = emb + (self.resid.float() * self.resid_scales[:, None])
+        emb = gather_rows(emb, self.mesh)[: self.valid_n]
+        if not is_writer():
+            return
+        os.makedirs(index_dir, exist_ok=True)
         np.save(os.path.join(index_dir, "embeddings.npy"),
                 emb.cpu().numpy())
         with open(os.path.join(index_dir, "meta.jsonl"), "w",

@@ -1,13 +1,19 @@
 """Sparse (BM25) retrieval over a device-packed inverted representation.
 
-Counterpart of ``sdag_tpu/retrieval/sparse.py`` on one device: the host
-C++ analyzer (retrieval/analyzer.py) reproduces Lucene's analysis chain;
-documents are packed as padded (term_id, impact) tensors on the device;
+Counterpart of ``sdag_tpu/retrieval/sparse.py``: the host C++ analyzer
+(retrieval/analyzer.py) reproduces Lucene's analysis chain; documents are packed as padded (term_id, impact) tensors on the device;
 search runs the postings engine by default and the dense-scan kernel K2
 (ops/bm25.py) for ``engine="scan"`` and whenever a batch's postings
 candidates exceed the budget.  Queries with fewer than k matches are
 padded with ""/"NA"/-inf like the reference.  The index files are the JAX
 package's, so an index saved by either package loads in the other.
+
+Over an index mesh of n ranks (``core/mesh.py``) the packed rows pad to a
+multiple of ROW_BLOCK * n and each rank keeps one block: its packed rows,
+its own CSR postings and heavy-term columns with LOCAL doc ids; the
+engines run per shard and merge (``parallel/collectives.py``).  Every rank
+builds every shard's CSR on the host (the windows and the heavy terms need
+all shards' dfs) and keeps its own on the device.
 """
 
 from __future__ import annotations
@@ -19,9 +25,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from sdag_tpu_torch.core.mesh import is_writer, make_index_mesh
 from sdag_tpu_torch.datamodels import RetrievalBatch
 from sdag_tpu_torch.ops.bm25 import (PAD_TERM, bm25_hybrid_topk,
                                      bm25_postings_topk, bm25_topk_dispatch)
+from sdag_tpu_torch.parallel.collectives import (
+    gather_rows, sharded_bm25_hybrid_topk, sharded_bm25_postings_topk,
+    sharded_bm25_topk)
 from sdag_tpu_torch.retrieval.analyzer import analyze_texts
 from sdag_tpu_torch.retrieval.retriever import Retriever, materialize_hits
 from sdag_tpu_torch.utils.device import resolve_device
@@ -85,7 +95,8 @@ def _counts_from_tokens(doc_tokens: List[List[str]]) -> Dict[str, Any]:
 
 class BM25Index:
     """Packed impact-scored BM25 index (Lucene scoring variant, k1=0.9
-    b=0.4 Anserini defaults) on one device."""
+    b=0.4 Anserini defaults), row-sharded over an index mesh (one shard
+    without a process group)."""
 
     def __init__(self, doc_tokens: Optional[List[List[str]]],
                  meta: List[Dict[str, Any]],
@@ -94,7 +105,7 @@ class BM25Index:
                  max_query_terms: int = 32,
                  engine: str = "postings",
                  counts: Optional[Dict[str, Any]] = None,
-                 device="cuda") -> None:
+                 device="cuda", mesh=None) -> None:
         if counts is None:
             if doc_tokens is None:
                 raise ValueError("need doc_tokens or counts")
@@ -106,6 +117,7 @@ class BM25Index:
         if engine not in {"postings", "scan"}:
             raise ValueError(f"Unknown BM25 engine: {engine}")
         self.device = resolve_device(device)
+        self._set_mesh(mesh)
         self.engine = engine
         self.meta = meta
         self.k1, self.b = float(k1), float(b)
@@ -150,7 +162,7 @@ class BM25Index:
         norm = self.k1 * (1.0 - self.b + self.b * dls / avgdl)
         impacts_flat = (self.idf[pair_tid] * pair_tf
                         / (pair_tf + norm[pair_doc])).astype(np.float32)
-        n_pad = _round_up(max(n, 1), self.ROW_BLOCK)
+        n_pad = _round_up(max(n, 1), self.ROW_BLOCK * self.n_shards)
         term_ids = np.full((n_pad, lp), PAD_TERM, np.int32)
         impacts = np.zeros((n_pad, lp), np.float32)
         if len(pair_tid):
@@ -162,23 +174,38 @@ class BM25Index:
             term_ids[sd[keep], pos[keep]] = pair_tid[order][keep]
             impacts[sd[keep], pos[keep]] = impacts_flat[order][keep]
         self.avgdl = float(avgdl)
-        self.term_ids = torch.from_numpy(term_ids).to(self.device)
-        self.impacts = torch.from_numpy(impacts).to(self.device)
+        self._place(term_ids, impacts)
+
+    def _set_mesh(self, mesh) -> None:
+        self.mesh = mesh if mesh is not None else make_index_mesh(
+            self.device)
+        self.n_shards = self.mesh.shape["index"]
+
+    def _place(self, term_ids: np.ndarray, impacts: np.ndarray) -> None:
+        """This rank's block of the packed rows on the device, then the
+        postings."""
+        self.rows_per_shard = term_ids.shape[0] // self.n_shards
+        r0 = self.mesh.rank("index") * self.rows_per_shard
+        own = slice(r0, r0 + self.rows_per_shard)
+        self.term_ids = self._dev(term_ids[own])
+        self.impacts = self._dev(impacts[own])
         self._build_postings(term_ids, impacts)
 
-    # packed rows pad to a multiple of this (the JAX package's block_n)
+    # packed rows pad to a multiple of this times the shards (the JAX
+    # package's block_n)
     ROW_BLOCK = 512
     # postings window size: M = sum(per-slot windows) * window candidates
     POSTINGS_WINDOW = 512
     # Candidate budget per query batch: beyond it the postings walk
     # (O(sum df)) costs more than the flat scan's O(N*Lp/Q) share, so the
     # batch falls back to the scan engine (kernel K2 on CUDA).  Effective
-    # budget = min(this, N/2), the JAX package's rule on one shard.
+    # budget = min(this, rows a shard / 2), the JAX package's rule: every
+    # shard walks the whole window profile, the scan only its own rows.
     POSTINGS_CANDIDATE_BUDGET = 1 << 20
 
     def _candidate_budget(self) -> int:
         return min(self.POSTINGS_CANDIDATE_BUDGET,
-                   max(self.valid_n, 2) >> 1)
+                   max(self.valid_n // max(self.n_shards, 1), 2) >> 1)
     # Heavy-term dense sidecar: terms with df >= max(HEAVY_DF_MIN,
     # N * HEAVY_DF_FRAC) get a dense f32 impact column and are scored by a
     # matmul instead of a postings walk, capped at HEAVY_SIDECAR_BUDGET_MB
@@ -189,9 +216,10 @@ class BM25Index:
 
     def _build_postings(self, term_ids: np.ndarray, impacts: np.ndarray
                         ) -> None:
-        """Device CSR postings for the O(sum df) engine; also keeps
-        ``term_df_bound`` (host, [V]): per-term df, the per-slot gather
-        window bound at query time."""
+        """Device CSR postings for the O(sum df) engine: one CSR per
+        shard over its row block (local doc ids), this rank's on the
+        device.  Also keeps ``term_df_bound`` (host, [V]): per-term df, max
+        over shards, the per-slot gather window bound at query time."""
         self.post_docs = self.post_imps = self.post_offsets = None
         self.term_df_bound = np.ones(max(len(self.vocab), 1), np.int64)
         self.heavy_cols = None
@@ -201,44 +229,60 @@ class BM25Index:
         if self.engine != "postings":
             return
         n_vocab = max(len(self.vocab), 1)
-        n_rows = term_ids.shape[0]
-        d, i, o, _m = _csr_from_packed(term_ids, impacts, n_vocab)
-        p_pad = _round_up(max(len(d), 1), 128)
+        sr = self.rows_per_shard
+        me = self.mesh.rank("index")
+        df_bound = np.zeros(n_vocab, np.int64)
+        df_global = np.zeros(n_vocab, np.int64)
+        p_max = 1
+        for s in range(self.n_shards):
+            d_s, i_s, o_s, _m = _csr_from_packed(
+                term_ids[s * sr:(s + 1) * sr], impacts[s * sr:(s + 1) * sr],
+                n_vocab)
+            if s == me:
+                d, i, o = d_s, i_s, o_s
+            dfs = np.diff(o_s.astype(np.int64))
+            np.maximum(df_bound, dfs, out=df_bound)
+            df_global += dfs
+            p_max = max(p_max, len(d_s))
+        # every shard pads its CSR to the longest one's length (the JAX
+        # package stacks them)
+        p_pad = _round_up(p_max, 128)
         docs = np.full(p_pad, np.iinfo(np.int32).max, np.int32)
         imps = np.zeros(p_pad, np.float32)
         docs[:len(d)] = d
         imps[:len(i)] = i
-        self.post_docs = torch.from_numpy(docs).to(self.device)
-        self.post_imps = torch.from_numpy(imps).to(self.device)
-        self.post_offsets = torch.from_numpy(o).to(self.device)
-        dfs = np.diff(o.astype(np.int64))
-        self.term_df_bound = dfs
+        self.post_docs = self._dev(docs)
+        self.post_imps = self._dev(imps)
+        self.post_offsets = self._dev(o)
+        self.term_df_bound = df_bound
 
-        thresh = max(self.HEAVY_DF_MIN, int(n_rows * self.HEAVY_DF_FRAC))
+        # heavy terms by global df, so every shard has one column layout
+        thresh = max(self.HEAVY_DF_MIN,
+                     int(sr * self.n_shards * self.HEAVY_DF_FRAC))
         # 8 bytes/doc/term: impacts stored doc-major and term-major
         h_cap = int(self.HEAVY_SIDECAR_BUDGET_MB * (1 << 20)
-                    // (8 * max(n_rows, 1)))
-        heavy = np.flatnonzero(dfs >= thresh)
+                    // (8 * max(sr, 1)))
+        heavy = np.flatnonzero(df_global >= thresh)
         if heavy.size and h_cap > 0:
             if heavy.size > h_cap:
-                heavy = heavy[np.argsort(-dfs[heavy], kind="stable")[:h_cap]]
+                heavy = heavy[np.argsort(-df_global[heavy],
+                                         kind="stable")[:h_cap]]
                 print(f"[bm25] Note: heavy-term sidecar capped at "
-                      f"{h_cap} of {int((dfs >= thresh).sum())} "
+                      f"{h_cap} of {int((df_global >= thresh).sum())} "
                       f"terms over df>={thresh} "
                       f"(HEAVY_SIDECAR_BUDGET_MB="
                       f"{self.HEAVY_SIDECAR_BUDGET_MB}); the rest stay "
                       "on the postings walk.", flush=True)
             heavy = np.sort(heavy)
             h_pad = _round_up(heavy.size, 128)
-            dense = np.zeros((n_rows, h_pad), np.float32)
+            dense = np.zeros((sr, h_pad), np.float32)
             row_of = np.full(n_vocab, -1, np.int32)
             row_of[heavy] = np.arange(heavy.size, dtype=np.int32)
             for h, t in enumerate(heavy):
                 lo, hi = o[t], o[t + 1]
                 dense[d[lo:hi], h] = i[lo:hi]
-            self.heavy_cols = torch.from_numpy(dense).to(self.device)
-            self.heavy_rows = torch.from_numpy(
-                np.ascontiguousarray(dense.T)).to(self.device)
+            self.heavy_cols = self._dev(dense)
+            self.heavy_rows = self._dev(dense.T)
             self.heavy_row_of = row_of
 
     def _order_slots_by_df(self, q_terms: np.ndarray, q_weights: np.ndarray
@@ -358,7 +402,23 @@ class BM25Index:
             else:
                 w_slots = self._merge_window_profile(w_slots)
         qt, qw = self._dev(q_terms), self._dev(q_weights)
-        if use_postings and use_heavy:
+        if use_postings and use_heavy and self.n_shards > 1:
+            vals, idx = sharded_bm25_hybrid_topk(
+                self.post_docs, self.post_imps, self.post_offsets,
+                self.heavy_cols, self.heavy_rows, qt, qw,
+                self._dev(q_heavy), top_k, w_slots=w_slots,
+                window=self.POSTINGS_WINDOW, mesh=self.mesh,
+                rows_per_shard=self.rows_per_shard)
+        elif use_postings and self.n_shards > 1:
+            vals, idx = sharded_bm25_postings_topk(
+                self.post_docs, self.post_imps, self.post_offsets, qt, qw,
+                top_k, w_slots=w_slots, window=self.POSTINGS_WINDOW,
+                mesh=self.mesh, rows_per_shard=self.rows_per_shard)
+        elif self.n_shards > 1:
+            vals, idx = sharded_bm25_topk(self.term_ids, self.impacts, qt,
+                                          qw, top_k, valid_n=self.valid_n,
+                                          mesh=self.mesh)
+        elif use_postings and use_heavy:
             vals, idx = bm25_hybrid_topk(
                 self.post_docs, self.post_imps, self.post_offsets,
                 self.heavy_cols, self.heavy_rows, qt, qw,
@@ -384,9 +444,15 @@ class BM25Index:
 
     # --------------------------------------------------------------- I/O
     def save(self, index_dir: str) -> None:
+        """Every rank calls it (the shards are gathered); rank 0
+        writes."""
+        term_ids = gather_rows(self.term_ids, self.mesh)[: self.valid_n]
+        impacts = gather_rows(self.impacts, self.mesh)[: self.valid_n]
+        if not is_writer():
+            return
         os.makedirs(index_dir, exist_ok=True)
-        arrays = {"term_ids": self.term_ids[: self.valid_n].cpu().numpy(),
-                  "impacts": self.impacts[: self.valid_n].cpu().numpy()}
+        arrays = {"term_ids": term_ids.cpu().numpy(),
+                  "impacts": impacts.cpu().numpy()}
         if self.idf is not None:  # savez would pickle a None into an
             arrays["idf"] = self.idf  # object array load() cannot read
         np.savez(os.path.join(index_dir, "postings.npz"), **arrays)
@@ -408,13 +474,14 @@ class BM25Index:
                     valid_n: Optional[int] = None,
                     engine: str = "postings",
                     max_query_terms: int = 32,
-                    device="cuda") -> "BM25Index":
+                    device="cuda", mesh=None) -> "BM25Index":
         """Construct around precomputed packed [N, Lp] (term_id, impact)
         arrays: the path for load() and for synthetic postings."""
         if engine not in {"postings", "scan"}:
             raise ValueError(f"Unknown BM25 engine: {engine}")
         obj = cls.__new__(cls)
         obj.device = resolve_device(device)
+        obj._set_mesh(mesh)
         obj.engine = engine
         obj.vocab = dict(vocab)
         obj.meta = meta if meta is not None else []
@@ -424,21 +491,19 @@ class BM25Index:
         obj.valid_n = int(valid_n if valid_n is not None
                           else term_ids.shape[0])
         obj.max_query_terms = max_query_terms
-        n_pad = _round_up(max(term_ids.shape[0], 1), cls.ROW_BLOCK)
+        n_pad = _round_up(max(term_ids.shape[0], 1),
+                          cls.ROW_BLOCK * obj.n_shards)
         if n_pad != term_ids.shape[0]:
             pad = ((0, n_pad - term_ids.shape[0]), (0, 0))
             term_ids = np.pad(term_ids, pad, constant_values=PAD_TERM)
             impacts = np.pad(impacts, pad)
-        term_ids = np.ascontiguousarray(term_ids, np.int32)
-        impacts = np.ascontiguousarray(impacts, np.float32)
-        obj.term_ids = torch.from_numpy(term_ids).to(obj.device)
-        obj.impacts = torch.from_numpy(impacts).to(obj.device)
-        obj._build_postings(term_ids, impacts)
+        obj._place(np.ascontiguousarray(term_ids, np.int32),
+                   np.ascontiguousarray(impacts, np.float32))
         return obj
 
     @classmethod
-    def load(cls, index_dir: str,
-             engine: str = "postings", device="cuda") -> "BM25Index":
+    def load(cls, index_dir: str, engine: str = "postings", device="cuda",
+             mesh=None) -> "BM25Index":
         data = np.load(os.path.join(index_dir, "postings.npz"))
         with open(os.path.join(index_dir, "vocab.json")) as f:
             vocab = json.load(f)
@@ -456,7 +521,7 @@ class BM25Index:
             k1=man["k1"], b=man["b"], avgdl=man["avgdl"],
             valid_n=man["n"],
             max_query_terms=man.get("max_query_terms", 32),
-            engine=engine, device=device)
+            engine=engine, device=device, mesh=mesh)
 
     @classmethod
     def from_texts(cls, texts: List[str], ids: List[str],

@@ -30,6 +30,15 @@ token drawn from p without the rejected draft), each row advancing by its
 own count.  Rounds are captured in chunks of ``SPEC_CHUNK`` like steps; a
 round after every row is done emits nothing.  The int8 KV cache
 (``kv_cache_dtype="int8"``) serves both loops.
+
+A ``mesh`` (``core/mesh.py``, the JAX package's ``tp_mesh``) serves the
+decoder Megatron-sliced over its ``model`` axis (the forwards all-reduce
+and all-gather over the model group) and the batch rows split over its
+``data`` axis: rows pad to the data multiple, each data rank prefills and
+decodes its own rows until its own EOS, and tokens and lengths are
+all-gathered.  Over NCCL the decode chunks stay captured CUDA graphs with
+the collectives inside; a gloo group cannot be captured, so a mesh with
+one runs the steps eagerly, chosen up front (``stats["decode_mode"]``).
 """
 
 from __future__ import annotations
@@ -42,10 +51,14 @@ import numpy as np
 import torch
 
 from sdag_tpu_torch.models.llama import (DecoderConfig, decode_step,
-                                         decode_window, make_kv_cache,
-                                         prefill)
+                                         decode_window, local_kv_heads,
+                                         make_kv_cache, prefill)
 from sdag_tpu_torch.ops.sampling import (draft_accept_probs,
                                          sample_excluding, sample_tokens)
+from sdag_tpu_torch.parallel.collectives import (all_gather_cat, all_reduce_,
+                                                 group_backend)
+from sdag_tpu_torch.parallel.sharding import (check_tp_divisible,
+                                              shard_params)
 from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
 from sdag_tpu_torch.sdag.spans import PromptPlan
 from sdag_tpu_torch.utils.device import resolve_device
@@ -79,12 +92,12 @@ class DecodeBuffers:
 
     def __init__(self, cfg: DecoderConfig, batch: int, lp: int, max_new: int,
                  chunk: int, device: torch.device, kv_dtype: str = "native",
-                 draft: int = 0) -> None:
+                 draft: int = 0, n_kv_heads: Optional[int] = None) -> None:
         self.G = draft + 1 if draft else 0
         size = lp + max_new + self.G
         self.lp, self.max_new, self.chunk = lp, max_new, chunk
         self.cache = make_kv_cache(cfg, batch, size, device=device,
-                                   kv_dtype=kv_dtype)
+                                   kv_dtype=kv_dtype, n_kv_heads=n_kv_heads)
         i32 = dict(dtype=torch.int32, device=device)
         self.slot_iota = torch.arange(size, **i32)[None, :]
         self.t = torch.zeros(1, dtype=torch.int64, device=device)
@@ -165,7 +178,8 @@ class Generator:
                  temperature: float = 0.0, top_p: float = 1.0,
                  seed: int = 0, batch_bucket: int = 0,
                  kv_cache_dtype: str = "native",
-                 speculative_draft: int = 0, device="cuda") -> None:
+                 speculative_draft: int = 0, device="cuda",
+                 mesh=None) -> None:
         self.device = resolve_device(device)
         if kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"Unknown kv_cache_dtype {kv_cache_dtype!r}")
@@ -174,13 +188,26 @@ class Generator:
         self.params = params
         self.cfg = cfg
         self.tokenizer = tokenizer
+        # tensor parallelism over mesh 'model', batch rows over 'data'
+        self.mesh = mesh
+        self.tp_group = self.dp_group = None
+        self.dp_n, self.dp_rank = 1, 0
+        if mesh is not None:
+            check_tp_divisible(cfg, mesh.shape["model"])
+            self.params = shard_params(params, cfg, mesh)
+            self.tp_group = mesh.group("model")
+            self.dp_group = mesh.group("data")
+            self.dp_n, self.dp_rank = mesh.shape["data"], mesh.rank("data")
+        self.n_kv_heads = local_kv_heads(self.params, cfg)
         self.temperature = max(float(temperature), 0.0)
         self.top_p = float(top_p)
         # partial batches pad up to this row count (0 = off); pad rows are
         # inert (valid_len 0, born done)
         self.batch_bucket = int(batch_bucket)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        # data ranks draw apart (the JAX package folds the data index into
+        # its key); the model ranks of a data rank draw alike
+        self._gen.manual_seed(seed + self.dp_rank)
         # 'int8': per-slot int8 K/V with f32 scales (halved KV bytes)
         self.kv_cache_dtype = kv_cache_dtype
         # prompt-lookup speculation: D drafted tokens a round (0 = off)
@@ -194,10 +221,17 @@ class Generator:
         # seconds of each phase (the device is synchronized at both ends);
         # decode steps run (chunks included whole), chunks, graph captures
         # and their seconds (warm-up step included; outside both phases)
+        # a gloo group's collectives cannot be captured: its mesh decodes
+        # eagerly (decided here, never by catching a failed capture)
+        gloo = [a for a in ("model", "data")
+                if mesh is not None and group_backend(mesh.group(a)) == "gloo"]
+        self.graphs_ok = not gloo
         self.stats = {"prefill_tokens": 0, "prefill_s": 0.0,
                       "decode_tokens": 0, "decode_s": 0.0,
                       "decode_steps": 0, "decode_chunks": 0,
-                      "graph_captures": 0, "capture_s": 0.0}
+                      "graph_captures": 0, "capture_s": 0.0,
+                      "decode_mode": ("graphs" if self.graphs_ok else
+                                      f"eager: gloo group on {gloo}")}
         # speculation, under the JAX package's names: verification rounds
         # of the last call (rounds with a live row), and cumulative rounds,
         # live rows summed over rounds, emitted tokens (tokens / row_rounds
@@ -244,7 +278,10 @@ class Generator:
     def _run(self, ids: Sequence[np.ndarray], doc_id, nbr_bits, sys_user_len,
              lp: int, max_new_tokens: int) -> List[str]:
         b = len(ids)
-        bp = max(b, self.batch_bucket)
+        # rows pad to the data multiple, partial batches up to the bucket
+        bp = _round_up(b, self.dp_n)
+        if self.batch_bucket and bp < self.batch_bucket:
+            bp = _round_up(self.batch_bucket, self.dp_n)
         batch_ids = np.full((bp, lp), self.tokenizer.pad_token_id, np.int32)
         valid_len = np.zeros((bp,), np.int32)
         for i, x in enumerate(ids):
@@ -258,7 +295,13 @@ class Generator:
             sys_user_len = np.concatenate(
                 [sys_user_len, np.zeros((bp - b,), np.int32)])
         dev = self.device
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+        rows = bp // self.dp_n
+        r0 = rows * self.dp_rank
+
+        def t(a):     # this data rank's rows, on the device
+            return torch.from_numpy(np.ascontiguousarray(
+                a[r0:r0 + rows])).to(dev)
+
         out, lengths = self._generate(t(batch_ids), t(doc_id), t(nbr_bits),
                                       t(sys_user_len), t(valid_len),
                                       max_new_tokens)
@@ -271,20 +314,22 @@ class Generator:
     def _generate(self, input_ids, doc_id, nbr_bits, sys_user_len,
                   valid_len, max_new: int, graphs: Optional[bool] = None):
         """Prefill, then decode until every row hit EOS or max_new tokens.
-        Returns (tokens [B, max_new] int32, lengths [B]).  ``graphs``:
-        replay captured chunks (the default on CUDA; a failed capture
-        raises) or run the same steps eagerly (the default on the CPU)."""
+        Returns (tokens [B, max_new] int32, lengths [B]), all data ranks'
+        rows under a mesh.  ``graphs``: replay captured chunks (the
+        default on CUDA unless a gloo group is in the mesh; a failed
+        capture raises) or run the same steps eagerly (the default on the
+        CPU)."""
         pad = int(self.tokenizer.pad_token_id)
         batch, lp = input_ids.shape
         if graphs is None:
-            graphs = input_ids.device.type == "cuda"
+            graphs = input_ids.device.type == "cuda" and self.graphs_ok
         buf = self._buffers(batch, lp, max_new, graphs)
         self._sync()
         t0 = time.perf_counter()
         logits, _ = prefill(self.params, self.cfg, input_ids, doc_id=doc_id,
                             nbr_bits=nbr_bits, sys_user_len=sys_user_len,
                             valid_len=valid_len, logits_last_only=True,
-                            cache=buf.cache)
+                            cache=buf.cache, tp_group=self.tp_group)
         cur = sample_tokens(self._gen, logits[:, 0, :], self.temperature,
                             self.top_p)
         buf.start(cur, doc_id, valid_len, pad, input_ids=input_ids)
@@ -304,12 +349,18 @@ class Generator:
                     step(buf, i)
             steps += n
             self.stats["decode_chunks"] += 1
-        out, lengths = buf.out.clone(), buf.lengths.clone()
+        out = all_gather_cat(buf.out.clone(), self.dp_group)
+        lengths = all_gather_cat(buf.lengths.clone(), self.dp_group)
         n_out = int(lengths.sum())
         if self.speculative_draft:
-            self.last_spec_rounds = int(buf.rounds)
+            # data ranks stop at their own rounds: the run took the most,
+            # and live rows add up
+            rounds = all_reduce_(buf.rounds.clone(), self.dp_group,
+                                 torch.distributed.ReduceOp.MAX)
+            row_rounds = all_reduce_(buf.row_rounds.clone(), self.dp_group)
+            self.last_spec_rounds = int(rounds)
             self.spec_total_rounds += self.last_spec_rounds
-            self.spec_total_row_rounds += int(buf.row_rounds)
+            self.spec_total_row_rounds += int(row_rounds)
             self.spec_total_tokens += n_out
         t2 = time.perf_counter()
         self.stats["prefill_tokens"] += int(valid_len.sum())
@@ -335,7 +386,8 @@ class Generator:
                                 & (buf.slot_iota <= slot))
         logits, _ = decode_step(self.params, self.cfg, cur,
                                 buf.real_len + t, buf.cache,
-                                write_index=slot, cache_mask=mask)
+                                write_index=slot, cache_mask=mask,
+                                tp_group=self.tp_group)
         nxt = sample_tokens(None, logits, self.temperature, self.top_p,
                             uniform=buf.uniform[i])
         cur.copy_(torch.where(done, eos, nxt))
@@ -383,7 +435,8 @@ class Generator:
         win = (att[:, None, :] >= base[:, None, None]) & \
             (att[:, None, :] <= base[:, None, None] + iota_g[None, :, None])
         logits, _ = decode_window(self.params, self.cfg, w, pos, buf.cache,
-                                  base, hist[:, None, :] | win)
+                                  base, hist[:, None, :] | win,
+                                  tp_group=self.tp_group)
         # ---- accept the longest valid draft prefix (+ EOS / budget)
         if self.temperature == 0.0:
             g_tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -433,7 +486,8 @@ class Generator:
             buf = DecodeBuffers(self.cfg, batch, lp, max_new,
                                 self.decode_chunk, self.device,
                                 kv_dtype=self.kv_cache_dtype,
-                                draft=self.speculative_draft)
+                                draft=self.speculative_draft,
+                                n_kv_heads=self.n_kv_heads)
         self._live[key] = buf
         if graphs and not buf.graphs:
             self._capture(buf)

@@ -132,11 +132,19 @@ def test_dense_index_files_read_both_ways(tmp_path, dtype):
 
 
 def test_dense_index_refuses_shards_and_bad_arguments():
-    e, meta, _ = _emb()
-    for kw in (dict(mesh=object()), dict(n_shards=2)):
-        with pytest.raises(NotImplementedError,
-                           match="TP/DP on torch.distributed"):
-            tdense.DenseIndex(e, meta, device="cpu", **kw)
+    """A one-rank index mesh (no process group) holds the index whole and
+    searches as the default index does; bad arguments raise."""
+    from sdag_tpu_torch.core.mesh import make_index_mesh
+    e, meta, q = _emb()
+    for dtype in (torch.float32, torch.int8):
+        plain = tdense.DenseIndex(e, meta, dtype=dtype, block_n=32,
+                                  device="cpu")
+        meshed = tdense.DenseIndex(e, meta, dtype=dtype, block_n=32,
+                                   mesh=make_index_mesh("cpu"), device="cpu")
+        assert meshed.n_shards == 1
+        assert torch.equal(meshed.embeddings, plain.embeddings)
+        for got, want in zip(meshed.search(q, 5), plain.search(q, 5)):
+            np.testing.assert_array_equal(got, want)
     with pytest.raises(ValueError, match="search_mode"):
         tdense.DenseIndex(e, meta, search_mode="fast", device="cpu")
     with pytest.raises(ValueError, match="meta length"):

@@ -65,6 +65,14 @@ def test_the_ranker_path_modules_are_covered():
         assert f"sdag_tpu_torch.{mod}" in mods
 
 
+def test_the_mesh_modules_are_covered():
+    """The module walk reaches the torch.distributed slice's modules."""
+    mods = set(_port_modules())
+    for mod in ("core.mesh", "parallel.sharding", "parallel.collectives",
+                "parallel.context", "parallel.launch"):
+        assert f"sdag_tpu_torch.{mod}" in mods
+
+
 def test_every_port_module_imports_with_jax_and_sdag_tpu_blocked():
     mods = _port_modules() + ["chip_smoke"]
     env = dict(os.environ, PYTHONPATH=REPO)

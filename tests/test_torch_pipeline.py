@@ -4,9 +4,10 @@ identical per-query answers CSV, clean ACC >= 0.5, ASR > 0 under attack,
 and the same with int8 weights, the int8 KV cache and speculative
 decoding at once; tiny HF Llama and BERT checkpoint dirs (a generator
 with a byte-level BPE tokenizer; a ranker with a WordPiece vocab) write
-the JAX package's answers CSV too; settings outside the port's slices
-raise NotImplementedError, the ranker path's, the decode slice's, HF
-checkpoints and the defenses no longer do."""
+the JAX package's answers CSV too; the ranker path's, the decode slice's,
+HF checkpoints' and the defenses' settings are served; a mesh larger than
+the torch.distributed world raises ValueError (meshes that fit are run in
+test_torch_distributed_pipeline.py)."""
 
 import csv
 import os
@@ -164,11 +165,13 @@ def test_settings_of_the_defenses_are_served(key, value):
     ("MESH_MODEL", 2),
     ("MESH_DATA", 2),
 ])
-def test_settings_outside_the_slice_raise(key, value):
+def test_mesh_larger_than_the_world_raises(key, value):
+    """Without torchrun the world is one rank: a 2-rank mesh raises
+    ValueError naming the world size, before anything is loaded."""
     cfg = Config()
     cfg.RETRIEVER_BACKEND = "sparse"
     setattr(cfg, key, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="world size 1"):
         check_supported(cfg)
 
 
@@ -189,15 +192,16 @@ def test_hf_checkpoint_settings_are_served(key, build):
         getattr(resources, build)(cfg, device="cpu")
 
 
-def test_int8_weights_with_a_data_mesh_still_raise():
-    """int8 weights with MESH_DATA > 1 raise through the mesh row until
-    the mesh item decides how the int8 tree shards."""
+def test_int8_weights_with_a_model_mesh_raise_in_validate():
+    """int8 weights with MESH_MODEL > 1 raise through Config.validate, as
+    in the JAX package (the int8 tree is served replicated, MESH_DATA
+    only)."""
     cfg = Config()
     cfg.RETRIEVER_BACKEND = "sparse"
     cfg.LLM_WEIGHTS_DTYPE = "int8"
-    cfg.MESH_DATA = 2
-    with pytest.raises(NotImplementedError, match="MESH_DATA=2"):
-        check_supported(cfg)
+    cfg.MESH_MODEL = 2
+    with pytest.raises(ValueError, match="MESH_MODEL=1"):
+        cfg.validate()
 
 
 def test_run_with_int8_weights_int8_cache_and_speculation_equals_jax(
