@@ -214,6 +214,34 @@ Phase 11 meshes over torch.distributed (the JAX package's MESH_MODEL /
          memory, seconds per step, TP tok/s (gloo, two ranks on one card:
          not a multi-GPU number) and peak memory per rank.
 
+Phase 12 training on the card (the JAX package trains through its XLA
+         attention; so does the port, through its differentiable dense-mask
+         attention, and K1 serves the result): (a) the port's
+         pipeline.train_qa.main at the flags of the committed JAX CPU
+         reference (experiments/results/train_qa_jax_cpu/reference.json:
+         qa_ckpt_v4 warm start, d 192, 6 layers, batch 32, seq 768, 20
+         steps, lr 3e-4, warmup 2, one step per dispatch), f32 with TF32
+         off: each step's loss within 1e-3 and each tensor's update norm
+         within 1e-2 of the reference, relative; in the same run two
+         planted faults (ISO rows trained with the causal mask; the lr
+         schedule read one step late) must each read over a gate; (b) the
+         trained directory served by phase 3's clean pipeline config
+         (LLM_CHECKPOINT): ACC iso and noiso >= 0.5, K1-f32 and K2
+         launched; (d) 10 steps, save_train_state, restore_train_state
+         into a fresh template, 10 more: steps 11-20 within twice the
+         spread of two uninterrupted runs (bit-equal when they are); (c)
+         the 30M word recipe's width (d 512, 8 layers, 4 heads, d_ff 1792,
+         vocab 1280, seq 512, batch 32) from the port's own init, 50
+         steps: loss finite and falling; steps/s, valid and padded tok/s,
+         host sampling seconds against step seconds, the device busy share
+         of a profiled 2-step window, peak memory, the FLOPs of a step and
+         their share of the f32 peak; (e) two gloo ranks on the one card
+         against one rank, each one-rank result computed first: DP=2 on
+         the v4 recipe (losses, gradients, update norms), TP=2 and GPipe
+         (2 stages x 4 microbatches) at the 30M width on 8 rows (losses,
+         gradients; GPipe's loss within 2e-5, JAX's own gate; the
+         replicated leaves' gradients equal on both TP ranks).
+
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
 result.  The last two stdout lines are the kernels JSON and
@@ -981,6 +1009,23 @@ def _decode_graph_vs_eager(gen, dev, new_tokens=32, tag="phase 4", **kw):
     return rec, greedy
 
 
+def _device_rows(prof):
+    """(kernel, device us, calls) of a profile's CUDA rows, the most time
+    first (operator rows repeat their kernels' device time)."""
+    from torch.autograd import DeviceType
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            rows.append((e.key, dev_us, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows
+
+
 def _profile_window(gen, dev, new_tokens=16):
     """torch.profiler over one NO-ISO batch (prefill + decode) after the
     counted run: device busy share of the wall time, device time by
@@ -998,17 +1043,7 @@ def _profile_window(gen, dev, new_tokens=16):
         gen.generate_ids(plain, max_new_tokens=new_tokens)
         torch.cuda.synchronize(dev)
         wall_us = (time.perf_counter() - t0) * 1e6
-    from torch.autograd import DeviceType
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # operator rows repeat their
-            continue                           # kernels' device time
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            rows.append((e.key, dev_us, e.count))
-    rows.sort(key=lambda r: -r[1])
+    rows = _device_rows(prof)
     total = sum(r[1] for r in rows)
     return {"batch": len(plain), "new_tokens": new_tokens,
             "graph_captures_in_window": gen.stats["graph_captures"]
@@ -3579,19 +3614,20 @@ def _p11_8b_run(gen, dev, graphs=False):
 
 def _p11_tp_fault_logits(gen, dev, skip):
     """``_p11_8b_prefill``'s logits with a planted TP fault: the prefill's
-    all-reduce number ``skip`` (from 0) is left out on every rank."""
-    from sdag_tpu_torch.models import llama
-    real = llama.all_reduce_
+    all-reduce number ``skip`` (from 0) is left out on every rank (the
+    layers' ``reduce_from_group`` calls ``collectives.all_reduce_``)."""
+    from sdag_tpu_torch.parallel import collectives
+    real = collectives.all_reduce_
     calls = [0]
 
     def faulty(x, group, **kw):
         calls[0] += 1
         return x if calls[0] - 1 == skip else real(x, group, **kw)
-    llama.all_reduce_ = faulty
+    collectives.all_reduce_ = faulty
     try:
         return _p11_8b_prefill(gen, dev)[0]
     finally:
-        llama.all_reduce_ = real
+        collectives.all_reduce_ = real
 
 
 def _p11_8b_f32_logits(gen, dev):
@@ -4226,6 +4262,601 @@ def phase11(dev):
     return rec
 
 
+# ---------------------------------------------------------------- phase 12
+P12_REF = os.path.join(REPO, "experiments", "results", "train_qa_jax_cpu",
+                       "reference.json")
+P12_V4 = os.path.join(REPO, "experiments", "data", "qa_ckpt_v4")
+# 12(a): each step's loss and each tensor's update norm (final - initial)
+# against the JAX CPU reference, relative
+P12_LOSS_GATE, P12_NORM_GATE = 1e-3, 1e-2
+# 12(e): two ranks against one (f32, TF32 off, sums in another order):
+# losses relative; per-tensor update norms relative; gradients as a
+# tensor's max abs error over its largest |value|; GPipe's loss at JAX's
+# own pipeline gate (tests/test_sharding.py)
+P12_RANK_LOSS_GATE, P12_RANK_NORM_GATE, P12_RANK_GRAD_GATE = 1e-5, 1e-3, 1e-4
+# a loss after an update (Adam turns gradients that differ by rounding
+# into steps of either sign, on elements whose gradient is that small)
+P12_RANK_STEP_GATE = 1e-4
+P12_PP_LOSS_GATE = 2e-5
+# the 30M word recipe (experiments/tpu_r4_queue2.sh:30-35), cut to 50 steps
+# (warmup 10, the scan chunk of 25 kept)
+P12_30M_FLAGS = ["--tokenizer", "word", "--d-model", "512", "--layers", "8",
+                 "--heads", "4", "--kv-heads", "4", "--d-ff", "1792",
+                 "--seq-len", "512", "--batch", "32", "--steps", "50",
+                 "--warmup", "10", "--scan-chunk", "25", "--eval-every", "0",
+                 "--eval-n", "32", "--seed", "2"]
+# 12(e): rows of the 30M-width TP and GPipe batch (the width is the
+# recipe's; over gloo every all-reduce of [rows, 512, 512] goes through
+# host memory)
+P12_RANK_ROWS = 8
+
+
+def _p12_ref_flags(out, dev):
+    """(the JAX CPU reference, its flags for the port's train_qa.main
+    writing to ``out`` on ``dev``)."""
+    ref = json.load(open(P12_REF))
+    flags = [P12_V4 if f == "experiments/data/qa_ckpt_v4" else f
+             for f in ref["flags"]]
+    return ref, flags + ["--out", out, "--device", str(dev)]
+
+
+def _p12_update_norms(init_dir, out_dir):
+    """L2 norm of (final - initial) per parameter, as the reference
+    script computes it."""
+    import numpy as np
+    a = np.load(os.path.join(init_dir, "params.npz"))
+    b = np.load(os.path.join(out_dir, "params.npz"))
+    return {k: float(np.linalg.norm(b[k].astype(np.float64)
+                                    - a[k].astype(np.float64)))
+            for k in sorted(a.files)}
+
+
+def _p12_against_ref(losses, norms, ref):
+    """(the largest per-step loss error, the largest per-tensor update
+    norm error), both relative to the reference."""
+    le = max(abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"]))
+    ne = max(abs(norms[k] - v) / v for k, v in ref["update_norms"].items())
+    return le, ne
+
+
+def _p12_faults():
+    """The two planted faults of 12(a), as patches of train_qa's names:
+    ISO rows trained with the causal mask; the schedule read one step
+    late (lr(count + 1), a torch scheduler's off-by-one)."""
+    from sdag_tpu_torch.pipeline import train_qa
+
+    def causal_iso():
+        real = train_qa.sample_batch
+
+        def sample(*a, **kw):
+            b = real(*a, **kw)
+            b["doc_id"].fill_(-1)
+            b["nbr_bits"].zero_()
+            b["sys_user_len"].zero_()
+            return b
+        return "sample_batch", sample
+
+    def lr_late():
+        real = train_qa.warmup_cosine_decay_schedule
+
+        def sched(*a, **kw):
+            s = real(*a, **kw)
+            return lambda count: s(count + 1)
+        return "warmup_cosine_decay_schedule", sched
+
+    return {"iso_trained_causal": causal_iso, "lr_one_step_late": lr_late}
+
+
+def _p12_run_main(flags, patch=None):
+    from sdag_tpu_torch.pipeline import train_qa
+    saved = None
+    if patch is not None:
+        name, fn = patch()
+        saved = (name, getattr(train_qa, name))
+        setattr(train_qa, name, fn)
+    try:
+        return train_qa.main(flags)
+    finally:
+        if saved:
+            setattr(train_qa, *saved)
+
+
+def _p12_recipe(flags):
+    """A run's pieces (train_qa's own): args, cfg and its batches, sampled
+    as main samples them."""
+    import numpy as np
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.pipeline import train_qa as T
+    args = T.parse_args(flags)
+    tok = T.make_tokenizer(args.tokenizer)
+    cfg = DecoderConfig(vocab_size=tok.vocab_size, d_model=args.d_model,
+                        n_layers=args.layers, n_heads=args.heads,
+                        n_kv_heads=args.kv_heads, d_ff=args.d_ff)
+    rng = np.random.default_rng(args.seed + 7)
+    batches = [T.sample_batch(rng, tok, None, args.batch, args.seq_len,
+                              **T.sample_kwargs(args))
+               for _ in range(args.steps)]
+    return args, cfg, batches
+
+
+def _p12_resume(flags, dev, tmp):
+    """(d): the reference steps uninterrupted twice (the spread), and
+    10 steps, save_train_state, restore into a fresh template, 10 more."""
+    import numpy as np
+    from sdag_tpu_torch.parallel.checkpoint import (restore_train_state,
+                                                    save_train_state)
+    from sdag_tpu_torch.pipeline import train_qa as T
+    from sdag_tpu_torch.utils.tree import flatten_with_paths
+    args, cfg, batches = _p12_recipe(flags)
+
+    def run(n, state=None):
+        init_state, step_fn, _ = T.make_training(args, cfg, dev)
+        if state is None:
+            state = init_state(T.initial_params(args, cfg, dev))
+        losses = []
+        for b in batches[state.step:state.step + n]:
+            state, loss = step_fn(state, b)
+            losses.append(float(loss))
+        return state, losses, init_state
+
+    def params_np(state):
+        return {k: v.detach().cpu().numpy() for k, v in
+                flatten_with_paths(state.params).items()}
+
+    t0 = time.perf_counter()
+    sa, la, _ = run(20)
+    sb, lb, _ = run(20)
+    s10, l10, init_state = run(10)
+    path = os.path.join(tmp, "train_state")
+    save_train_state(path, s10)
+    fresh = init_state(T.initial_params(args, cfg, dev))
+    restored = restore_train_state(path, fresh)
+    sr, lr_, _ = run(10, restored)
+    pa, pb, pr = params_np(sa), params_np(sb), params_np(sr)
+    spread_loss = max(abs(x - y) for x, y in zip(la[10:], lb[10:]))
+    spread_param = max(float(np.abs(pa[k] - pb[k]).max()) for k in pa)
+    dev_loss = max(abs(x - y) for x, y in zip(la[10:], lr_))
+    dev_param = max(float(np.abs(pa[k] - pr[k]).max()) for k in pa)
+    rec = {"losses_uninterrupted": la, "losses_resumed": l10 + lr_,
+           "restored_step": restored.step,
+           "spread_loss": spread_loss, "spread_param": spread_param,
+           "resume_loss_dev": dev_loss, "resume_param_dev": dev_param,
+           "s": time.perf_counter() - t0}
+    # within the measured run-to-run spread: bit-equal when the two
+    # uninterrupted runs are, else within twice their difference
+    if restored.step != 10 or dev_loss > 2 * spread_loss \
+            or dev_param > 2 * spread_param:
+        raise AssertionError(f"phase 12(d): resumed steps 11-20 leave "
+                             f"the run-to-run spread: {rec}")
+    return rec, la
+
+
+def _p12_flops_per_step(cfg, batch, seq):
+    """FLOPs of one training step on the dense-mask path: 3 x the
+    forward (forward, and a backward of two products each), the forward
+    being the weight products 2 x tokens x (layer weights x layers +
+    the d x V unembedding) and the attention 4 x B x L^2 x (Hq x Dh) a
+    layer (scores and values, every (row, key) pair of the dense mask)."""
+    d, hd = cfg.d_model, cfg.head_dim
+    layer_w = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd \
+        + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
+    tokens = batch * seq
+    fwd = 2 * tokens * (layer_w * cfg.n_layers + d * cfg.vocab_size) \
+        + 4 * batch * seq * seq * cfg.n_heads * hd * cfg.n_layers
+    return 3 * fwd
+
+
+def _p12_busy_share(args, cfg, state, dev):
+    """Device busy share of one profiled scan call of 2 steps at the
+    run's shapes, after a warm call (sampling excluded: host time of the
+    steps alone)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from sdag_tpu_torch.pipeline import train_qa as T
+    tok = T.make_tokenizer(args.tokenizer)
+    init_state, _, scan_fn = T.make_training(args, cfg, dev)
+    st = init_state(state.params)
+    stacked = T.sample_batch_stack(np.random.default_rng(99), tok, None, 2,
+                                   args.batch, args.seq_len,
+                                   **T.sample_kwargs(args))
+    st, _ = scan_fn(st, stacked)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st, ls = scan_fn(st, stacked)
+        ls.cpu()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = _device_rows(prof)
+    total = sum(r[1] for r in rows)
+    return {"steps": 2, "wall_ms": wall_us / 1e3,
+            "device_ms": total / 1e3 if total else None,
+            "device_busy_share": total / wall_us if total else None,
+            "top": [{"name": k[:80], "ms": us / 1e3,
+                     "share": us / total} for k, us, _n in rows[:8]]}
+
+
+def _p12_30m(dev, tmp):
+    """(c): the 30M word recipe's full width from the port's own init,
+    50 steps."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig
+    from sdag_tpu_torch.pipeline import train_qa as T
+    flags = P12_30M_FLAGS + ["--out", os.path.join(tmp, "ckpt_30m"),
+                             "--device", str(dev)]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    res = T.main(flags)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda else None
+    losses = res["losses"]
+    args = T.parse_args(flags)
+    tok = T.make_tokenizer(args.tokenizer)
+    cfg = DecoderConfig(vocab_size=tok.vocab_size, d_model=args.d_model,
+                        n_layers=args.layers, n_heads=args.heads,
+                        n_kv_heads=args.kv_heads, d_ff=args.d_ff)
+    flops = _p12_flops_per_step(cfg, args.batch, args.seq_len)
+    s_step = res["step_s"] / res["steps"]
+    rec = {"vocab": cfg.vocab_size, "steps": res["steps"],
+           "first_losses": losses[:5], "last_losses": losses[-5:],
+           "wall_s": wall, "sample_s": res["sample_s"],
+           "step_s": res["step_s"], "steps_per_s": 1.0 / s_step,
+           "tok_s_valid": res["valid_tokens"] / res["step_s"],
+           "tok_s_padded": res["padded_tokens"] / res["step_s"],
+           "valid_share": res["valid_tokens"] / res["padded_tokens"],
+           "host_sample_share": res["sample_s"]
+           / (res["sample_s"] + res["step_s"]),
+           "flops_per_step": flops,
+           "f32_peak_share": flops / s_step / PEAK_FLOPS["float32"],
+           "peak_mem_gib": peak,
+           "final_eval": res["final_eval"]}
+    rec["profile"] = _p12_busy_share(args, cfg, res["state"], dev)
+    n = min(10, len(losses) // 2)
+    first, last = sum(losses[:n]) / n, sum(losses[-n:]) / n
+    if not all(math.isfinite(x) for x in losses) or not last < first:
+        raise AssertionError(f"phase 12(c): loss not finite and falling "
+                             f"(first {n} {first}, last {n} {last}): "
+                             f"{rec}")
+    if cfg.vocab_size != 1280:
+        raise AssertionError(f"phase 12(c): vocab {cfg.vocab_size} is not "
+                             "the 30M recipe's 1280")
+    return rec
+
+
+class _P12Recorder:
+    """An optimizer wrapper that keeps the gradients of its last update
+    (the ones a step applies, after its collectives)."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update_(self, grads, opt_state, params):
+        self.grads = [g.detach().clone() for g in grads]
+        return self.opt.update_(grads, opt_state, params)
+
+
+def _p12_width_case(dev):
+    """The 30M width's cfg, seeded params (port init) and a word batch."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch.models.llama import (DecoderConfig,
+                                             init_decoder_params)
+    from sdag_tpu_torch.pipeline import train_qa as T
+    args = T.parse_args(P12_30M_FLAGS + ["--out", "-"])
+    tok = T.make_tokenizer("word")
+    cfg = DecoderConfig(vocab_size=tok.vocab_size, d_model=args.d_model,
+                        n_layers=args.layers, n_heads=args.heads,
+                        n_kv_heads=args.kv_heads, d_ff=args.d_ff)
+    params = init_decoder_params(torch.Generator(device=dev).manual_seed(5),
+                                 cfg, device=dev)
+    batch = T.sample_batch(np.random.default_rng(5), tok, None,
+                           P12_RANK_ROWS, args.seq_len,
+                           **T.sample_kwargs(args))
+    return cfg, params, batch
+
+
+def _p12_steps(cfg, mesh, params, batches, opt):
+    """Losses of len(batches) steps, the first step's gradients (as the
+    optimizer applied them) and each tensor's update (final - initial),
+    on the host."""
+    from sdag_tpu_torch.parallel.train import make_sharded_train_step
+    from sdag_tpu_torch.utils.tree import flatten_with_paths
+    rec = _P12Recorder(opt)
+    init_state, step = make_sharded_train_step(cfg, mesh, optimizer=rec)
+    state = init_state(params)
+    p0 = {k: v.detach().clone() for k, v in
+          flatten_with_paths(state.params).items()}
+    losses, grads = [], None
+    for b in batches:
+        state, loss = step(state, b)
+        losses.append(float(loss))
+        grads = grads or rec.grads
+    flat = flatten_with_paths(state.params)
+    return {"losses": losses,
+            "grads": {k: g.cpu() for k, g in zip(flat, grads)},
+            "deltas": {k: (v.detach() - p0[k]).cpu()
+                       for k, v in flat.items()}}
+
+
+def _p12_pp(cfg, mesh, params, batch, opt):
+    """GPipe (4 microbatches): the loss, one step, the loss after it and
+    the step's gradients (the replicated leaves' summed over 'pipe')."""
+    from sdag_tpu_torch.parallel.pipeline import make_pp_train_step
+    from sdag_tpu_torch.utils.tree import flatten_with_paths
+    rec = _P12Recorder(opt)
+    init_state, step, pp_loss = make_pp_train_step(cfg, mesh, n_micro=4,
+                                                   optimizer=rec)
+    state = init_state(params)
+    loss0 = float(pp_loss(state.params, batch))
+    state, l1 = step(state, batch)
+    loss1 = float(pp_loss(state.params, batch))
+    flat = flatten_with_paths(state.params)
+    return {"loss": loss0, "step_loss": float(l1), "next_loss": loss1,
+            "grads": {k: g.cpu() for k, g in zip(flat, rec.grads)},
+            "step": state.step}
+
+
+def _p12_opts():
+    """(the v4 recipe's optimizer: its schedule over 20 steps; a constant
+    lr for the 30M-width cases)."""
+    from sdag_tpu_torch.parallel.train import (AdamW,
+                                               warmup_cosine_decay_schedule)
+    return (lambda: AdamW(warmup_cosine_decay_schedule(0.0, 3e-4, 2, 20,
+                                                       9e-6),
+                          weight_decay=0.01),
+            lambda: AdamW(1e-4, weight_decay=0.01))
+
+
+def _p12_two_ranks(rank, world, device):
+    """(e): DP=2 on the v4 recipe, TP=2 and GPipe (2 stages x 4
+    microbatches) at the 30M width; two gloo ranks on one card."""
+    import torch
+    from sdag_tpu_torch.core.mesh import make_mesh, make_pipe_mesh
+    from sdag_tpu_torch.parallel import collectives as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    v4_opt, w_opt = _p12_opts()
+    out, step_s = {}, {}
+    t0 = time.perf_counter()
+    cfg, params, batches = _p12_v4_case(dev)
+    out["dp"] = _p12_steps(cfg, make_mesh(2, 1, device=dev), params,
+                           batches, v4_opt())
+    step_s["dp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cfg, params, batch = _p12_width_case(dev)
+    out["tp"] = _p12_steps(cfg, make_mesh(1, 2, device=dev), params,
+                           [batch, batch], w_opt())
+    step_s["tp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["pp"] = _p12_pp(cfg, make_pipe_mesh(2, device=dev), params, batch,
+                        w_opt())
+    step_s["pp"] = time.perf_counter() - t0
+    out["step_s"] = step_s
+    out["calls"] = {"/".join(k): v for k, v in C.CALLS.items()}
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if dev.type == "cuda" else None)
+    return out
+
+
+def _p12_v4_case(dev):
+    from sdag_tpu_torch.models.native_ckpt import load_decoder
+    _ref, flags = _p12_ref_flags("-", dev)
+    args, cfg, batches = _p12_recipe(flags)
+    params, _ = load_decoder(P12_V4, device=dev)
+    return cfg, params, batches[:3]
+
+
+def _p12_one_rank(dev):
+    """The one-rank results (e) holds the ranks to, computed first."""
+    from sdag_tpu_torch.core.mesh import make_mesh
+    from sdag_tpu_torch.utils.tree import tree_map
+    v4_opt, w_opt = _p12_opts()
+    one = make_mesh(1, 1, device=dev)
+    cfg, params, batches = _p12_v4_case(dev)
+    out = {"dp": _p12_steps(cfg, one, params, batches, v4_opt())}
+    cfg, params, batch = _p12_width_case(dev)
+    out["w"] = _p12_steps(cfg, one, params, [batch, batch], w_opt())
+    out["w_cfg"] = cfg
+    out["w_template"] = tree_map(lambda _x: 0, params)
+    return out
+
+
+def _p12_grad_err(got, want):
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _p12_check_ranks(ranks, one):
+    """Every rank against one rank; returns the largest errors."""
+    import torch
+    from sdag_tpu_torch.core.mesh import Mesh
+    from sdag_tpu_torch.parallel.checkpoint import _slice
+    from sdag_tpu_torch.parallel.pipeline import (stack_layer_params,
+                                                  stacked_param_specs)
+    from sdag_tpu_torch.parallel.sharding import decoder_param_specs
+    from sdag_tpu_torch.utils.tree import flatten_with_paths, unflatten_like
+    cfg = one["w_cfg"]
+    w_tree = unflatten_like(one["w_template"], one["w"]["grads"])
+    plain_specs = flatten_with_paths(decoder_param_specs(cfg))
+    stacked = flatten_with_paths(stack_layer_params(w_tree))
+    pp_specs = flatten_with_paths(stacked_param_specs(
+        stack_layer_params(w_tree)))
+    err = {"dp_loss": 0.0, "dp_step_loss": 0.0, "dp_grad": 0.0,
+           "dp_norm": 0.0, "tp_loss": 0.0, "tp_step_loss": 0.0,
+           "tp_grad": 0.0, "tp_norm": 0.0, "tp_replicated_equal": 0.0,
+           "pp_loss": 0.0, "pp_step_loss": 0.0, "pp_grad": 0.0}
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    for r, rk in enumerate(ranks):
+        for case in ("dp", "tp"):
+            want = one["dp" if case == "dp" else "w"]
+            got = rk[case]
+            err[f"{case}_loss"] = max(err[f"{case}_loss"],
+                                      rel(got["losses"][0],
+                                          want["losses"][0]))
+            err[f"{case}_step_loss"] = max(
+                [err[f"{case}_step_loss"]] + [
+                    rel(a, b) for a, b in zip(got["losses"][1:],
+                                              want["losses"][1:])])
+            mesh = Mesh({"model": 2}, {"model": r}, {}, torch.device("cpu"))
+
+            def mine(x, k):     # this rank's slice of a one-rank tensor
+                return _slice(x, plain_specs[k], mesh) if case == "tp" \
+                    else x
+
+            for k, g in got["grads"].items():
+                err[f"{case}_grad"] = max(err[f"{case}_grad"], _p12_grad_err(
+                    g, mine(want["grads"][k], k)))
+                norm = float(mine(want["deltas"][k], k).double().norm())
+                if norm > 0:
+                    err[f"{case}_norm"] = max(err[f"{case}_norm"], rel(
+                        float(got["deltas"][k].double().norm()), norm))
+        pp = rk["pp"]
+        err["pp_loss"] = max(err["pp_loss"], rel(pp["loss"],
+                                                 one["w"]["losses"][0]),
+                             rel(pp["step_loss"], one["w"]["losses"][0]))
+        err["pp_step_loss"] = max(err["pp_step_loss"],
+                                  rel(pp["next_loss"],
+                                      one["w"]["losses"][1]))
+        mesh = Mesh({"pipe": 2}, {"pipe": r}, {}, torch.device("cpu"))
+        for k, g in pp["grads"].items():
+            w = _slice(stacked[k], pp_specs[k], mesh)
+            err["pp_grad"] = max(err["pp_grad"], _p12_grad_err(g, w))
+    a, b = (rk["tp"]["grads"] for rk in ranks)
+    for k in a:
+        if plain_specs[k] in ((None,), (None, None)):
+            err["tp_replicated_equal"] = max(err["tp_replicated_equal"],
+                                             _p12_grad_err(a[k], b[k]))
+    return err
+
+
+def phase12(dev):
+    """Training on the card: (a) train_qa at the JAX CPU reference's
+    flags against reference.json, with two planted faults; (b) the
+    trained directory served; (d) resume from a train-state checkpoint;
+    (c) the 30M word recipe's width, 50 steps; (e) DP, TP and GPipe on
+    two gloo ranks against one rank.  Returns the phase's record."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.parallel.launch import run_ranks
+    from sdag_tpu_torch.pipeline.orchestrator import run_experiment
+    from sdag_tpu_torch.utils.synth_qa import load_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    rec, step_s = {}, {}
+    try:
+        # (a) the port's train_qa.main against the JAX CPU reference
+        t0 = time.perf_counter()
+        ckpt = os.path.join(tmp, "ckpt")
+        ref, flags = _p12_ref_flags(ckpt, dev)
+        res = _p12_run_main(flags)
+        loss_err, norm_err = _p12_against_ref(
+            res["losses"], _p12_update_norms(P12_V4, ckpt), ref)
+        faults = {}
+        for name, patch in _p12_faults().items():
+            out = os.path.join(tmp, name)
+            r = _p12_run_main(_p12_ref_flags(out, dev)[1], patch)
+            fl, fn = _p12_against_ref(
+                r["losses"], _p12_update_norms(P12_V4, out), ref)
+            faults[name] = {"loss_err": fl, "norm_err": fn}
+        rec["a"] = {"losses": res["losses"], "ref_losses": ref["losses"],
+                    "loss_err": loss_err, "norm_err": norm_err,
+                    "loss_gate": P12_LOSS_GATE, "norm_gate": P12_NORM_GATE,
+                    "faults": faults, "final_eval": res["final_eval"],
+                    "ref_final_eval": ref["final_eval"],
+                    "sample_s": res["sample_s"], "step_s": res["step_s"],
+                    "s_per_step": res["step_s"] / res["steps"]}
+        step_s["a"] = time.perf_counter() - t0
+        log(f"[phase12] (a) {json.dumps(rec['a'])}")
+        if not (loss_err <= P12_LOSS_GATE and norm_err <= P12_NORM_GATE):
+            raise AssertionError(f"phase 12(a): the port's run leaves the "
+                                 f"reference's gate: {rec['a']}")
+        for name, f in faults.items():
+            if not (f["loss_err"] > P12_LOSS_GATE
+                    or f["norm_err"] > P12_NORM_GATE):
+                raise AssertionError(f"phase 12(a): planted fault {name} "
+                                     f"reads within the gate: {f}")
+        # (b) the trained directory served by phase 3's pipeline config
+        t0 = time.perf_counter()
+        world = load_world(os.path.join(ckpt, "world.json"))
+        LAUNCHES.clear()
+        cfg, _ = _synth_cfg(os.path.join(tmp, "serve"), world,
+                            world.eval_entities[:4], 1, world.seed + 1, 0,
+                            LLM_CHECKPOINT=ckpt)
+        m = run_experiment(cfg, device=dev)[(5, 0)]["answer_match_stats"]
+        rec["b"] = {"acc_iso": m["iso"]["ground_truth_match_rate"],
+                    "acc_noiso": m["no_iso"]["ground_truth_match_rate"],
+                    "launches": dict(LAUNCHES)}
+        step_s["b"] = time.perf_counter() - t0
+        log(f"[phase12] (b) {json.dumps(rec['b'])}")
+        if not (rec["b"]["acc_iso"] >= 0.5 and rec["b"]["acc_noiso"] >= 0.5
+                and LAUNCHES["sdag_prefill_f32"]
+                and LAUNCHES["bm25_scan_topk"]):
+            raise AssertionError(f"phase 12(b): serving the card-trained "
+                                 f"checkpoint: {rec['b']}")
+        # (d) resume from a train-state checkpoint after step 10
+        t0 = time.perf_counter()
+        rec["d"], uninterrupted = _p12_resume(flags, dev, tmp)
+        rec["d"]["equals_main_run"] = uninterrupted == res["losses"]
+        step_s["d"] = time.perf_counter() - t0
+        log(f"[phase12] (d) {json.dumps(rec['d'])}")
+        # (c) the 30M word recipe's width
+        t0 = time.perf_counter()
+        rec["c"] = _p12_30m(dev, tmp)
+        step_s["c"] = time.perf_counter() - t0
+        log(f"[phase12] (c) {json.dumps(rec['c'])}")
+        # (e) two gloo ranks on the one card against one rank
+        t0 = time.perf_counter()
+        one = _p12_one_rank(dev)
+        step_s["e_one_rank"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_ranks(_p12_two_ranks, 2, str(dev), backend="gloo",
+                          threads=None)
+        step_s["e_two_ranks"] = time.perf_counter() - t0
+        err = _p12_check_ranks(ranks, one)
+        gates = {"dp_loss": P12_RANK_LOSS_GATE, "tp_loss":
+                 P12_RANK_LOSS_GATE, "dp_step_loss": P12_RANK_STEP_GATE,
+                 "tp_step_loss": P12_RANK_STEP_GATE,
+                 "pp_step_loss": P12_RANK_STEP_GATE,
+                 "dp_norm": P12_RANK_NORM_GATE,
+                 "tp_norm": P12_RANK_NORM_GATE,
+                 "dp_grad": P12_RANK_GRAD_GATE,
+                 "tp_grad": P12_RANK_GRAD_GATE,
+                 "pp_grad": P12_RANK_GRAD_GATE,
+                 "tp_replicated_equal": P12_RANK_GRAD_GATE,
+                 "pp_loss": P12_PP_LOSS_GATE}
+        rec["e"] = {"errors": err, "gates": gates,
+                    "rank_step_s": [r["step_s"] for r in ranks],
+                    "calls": [r["calls"] for r in ranks],
+                    "peak_gib": [r["peak_gib"] for r in ranks],
+                    "pp_steps": [r["pp"]["step"] for r in ranks],
+                    "note": "gloo, two ranks on one card: not a multi-GPU "
+                            "number"}
+        log(f"[phase12] (e) {json.dumps(rec['e'])}")
+        over = {k: v for k, v in err.items() if not v <= gates[k]}
+        if over:
+            raise AssertionError(f"phase 12(e): two ranks leave their "
+                                 f"gates: {over}; {rec['e']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["step_s"] = step_s
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"[phase12] steps {json.dumps(step_s)}")
+    return rec
+
+
 def _first_batch_questions(cfg):
     from sdag_tpu_torch.utils.parsing import load_from_csv
     return load_from_csv(cfg.CSV_INPUT_PATH).questions[
@@ -4272,6 +4903,8 @@ def main() -> int:
     details["phase10"] = p10 = phase10(dev)
     _free_cuda()
     details["phase11"] = p11 = phase11(dev)
+    _free_cuda()
+    details["phase12"] = p12 = phase12(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -4461,7 +5094,28 @@ def main() -> int:
         f"{json.dumps([r['calls'] for r in p11['b_ranks']])}; steps "
         f"{json.dumps({k: round(v, 1) for k, v in p11['step_s'].items()})};"
         f" phase {p11['phase_s']:.1f} s on {card}")
-    log(f"[summary] phases 0-11 in {time.perf_counter() - t_start:.1f} s")
+    pa, pc, pd, pe = (p12[k] for k in "acde")
+    log(f"[summary] phase 12 (a) train_qa at the JAX CPU reference's flags:"
+        f" losses within {pa['loss_err']:.2e} (gate {P12_LOSS_GATE}), "
+        f"update norms within {pa['norm_err']:.2e} (gate {P12_NORM_GATE}); "
+        f"planted faults {json.dumps(pa['faults'])}; "
+        f"{pa['s_per_step']:.4f} s a step; (b) served: ACC iso "
+        f"{p12['b']['acc_iso']:.3f} noiso {p12['b']['acc_noiso']:.3f}, K1-f32 "
+        f"{p12['b']['launches'].get('sdag_prefill_f32', 0)}, K2 "
+        f"{p12['b']['launches'].get('bm25_scan_topk', 0)} launches; (d) "
+        f"resume loss dev {pd['resume_loss_dev']:.3g} (spread "
+        f"{pd['spread_loss']:.3g}), param dev {pd['resume_param_dev']:.3g} "
+        f"(spread {pd['spread_param']:.3g}); (c) 30M word width: "
+        f"{pc['steps_per_s']:.2f} steps/s, {pc['tok_s_valid']:.0f} valid / "
+        f"{pc['tok_s_padded']:.0f} padded tok/s, host sampling "
+        f"{pc['sample_s']:.2f} s against {pc['step_s']:.2f} s of steps, "
+        f"busy {pc['profile']['device_busy_share']}, peak "
+        f"{pc['peak_mem_gib']:.2f} GiB, {pc['flops_per_step']:.4g} FLOP a "
+        f"step = {pc['f32_peak_share']:.3f} of the f32 peak, loss "
+        f"{pc['first_losses'][0]:.3f} -> {pc['last_losses'][-1]:.3f}; (e) "
+        f"two ranks {json.dumps(pe['errors'])}; phase "
+        f"{p12['phase_s']:.1f} s on {card}")
+    log(f"[summary] phases 0-12 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,6 +9,8 @@ Axes, as in the JAX package:
 - ``model`` : tensor parallelism inside the decoder
 - ``index`` : corpus-row sharding for the dense/sparse indexes (one
   dimension over all ranks)
+- ``pipe``  : GPipe stages of a training step (``make_pipe_mesh``), alone
+  or beside ``model``
 
 A ``Mesh`` names this rank's place on each axis and the process group of
 the ranks it shares that axis with.  Without a process group (``WORLD_SIZE``
@@ -131,6 +133,14 @@ _GROUPS: Dict[tuple, Dict[str, Optional[dist.ProcessGroup]]] = {}
 _GROUPS_WORLD: list = [None]
 
 
+def release_mesh_groups() -> None:
+    """Forget the cached groups; call before destroying the default group,
+    so no group object outlives it (one left to interpreter exit is torn
+    down after the backend it needs)."""
+    _GROUPS.clear()
+    _GROUPS_WORLD[0] = None
+
+
 def _mesh_groups(data: int, model: int, n: int, rep: int, coords
                  ) -> Dict[str, Optional[dist.ProcessGroup]]:
     if _GROUPS_WORLD[0] is not dist.group.WORLD:
@@ -169,6 +179,27 @@ def make_mesh(data: int = 0, model: int = 1, device=None) -> Mesh:
     groups = (_mesh_groups(data, model, n, rep, coords)
               if dist.is_initialized() else {"data": None, "model": None})
     return Mesh({"data": data, "model": model}, coords, groups,
+                rank_device(device))
+
+
+def make_pipe_mesh(pipe: int, model: int = 1, device=None) -> Mesh:
+    """Pipeline mesh ('pipe', 'model') for GPipe training
+    (``parallel/pipeline.py``): ``pipe`` stages, each Megatron-split over
+    ``model`` ranks (1: the stage is whole), rank = replica * pipe * model
+    + stage * model + model_index (the JAX tests' ``reshape(pipe,
+    model)`` of the device list).  A stage's ranks form the 'model'
+    group; the ranks of one model index along the stages the 'pipe'
+    group, which carries the activations and the replicated leaves'
+    gradient sums."""
+    n, me = world_size(), world_rank()
+    pipe, model = mesh_shape(pipe, model, n)
+    rep, local = divmod(me, pipe * model)
+    coords = {"data": local // model, "model": local % model}
+    groups = ({"data": None, "model": None} if not dist.is_initialized()
+              else _mesh_groups(pipe, model, n, rep, coords))
+    return Mesh({"pipe": pipe, "model": model},
+                {"pipe": coords["data"], "model": coords["model"]},
+                {"pipe": groups["data"], "model": groups["model"]},
                 rank_device(device))
 
 

@@ -32,9 +32,12 @@ import torch
 from sdag_tpu_torch.ops.attention import (
     masked_decode_attention, masked_decode_attention_int8,
     masked_decode_window_attention, masked_decode_window_attention_int8,
-    prefill_mask_plan, quantize_kv_heads_int8, sdag_prefill_attention)
+    prefill_dense_mask, prefill_mask_plan, quantize_kv_heads_int8,
+    sdag_attention_dense, sdag_prefill_attention)
 from sdag_tpu_torch.ops.int8_matmul import int8_matmul
-from sdag_tpu_torch.parallel.collectives import all_gather_cat, all_reduce_
+from sdag_tpu_torch.parallel.collectives import (all_reduce_, copy_to_group,
+                                                 gather_from_group,
+                                                 reduce_from_group)
 from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
 from sdag_tpu_torch.utils.device import resolve_device
 
@@ -275,33 +278,58 @@ def _unembed(params: Dict[str, Any], cfg: DecoderConfig,
         if isinstance(emb, dict):     # per-row scales = unembed channels
             return int8_matmul(x, emb["w"], emb["s"])
         return x @ emb.T
-    return all_gather_cat(_mm(x, params["lm_head"]), tp_group, dim=-1)
+    return gather_from_group(_mm(copy_to_group(x, tp_group),
+                                 params["lm_head"]), tp_group, dim=-1)
+
+
+def layer_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
+                    attn_impl: str = "auto"):
+    """The layer-invariant attention metadata of one forward: K1's plan
+    (``attn_impl="auto"``; None on the CPU) or the dense mask of the
+    differentiable path (``"xla"``)."""
+    if attn_impl == "auto":
+        return prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len)
+    if attn_impl == "xla":
+        return prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len)
+    raise ValueError(f"attn_impl {attn_impl!r}: expected 'auto' or 'xla'")
 
 
 def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   doc_id: torch.Tensor, nbr_bits: torch.Tensor,
                   sys_user_len: torch.Tensor, valid_len: torch.Tensor,
-                  mask_plan=None, tp_group=None):
+                  mask_plan=None, tp_group=None, attn_impl: str = "auto"):
     """One decoder layer (attention + MLP with residuals).
     Returns (x, (k, v)).
 
-    tp_group: the tensor-parallel process group when the layer holds
-    Megatron-sliced weights (``parallel/sharding.py``): attention runs on
-    this rank's heads, the MLP on its ff slice, and the wo / down products
-    are all-reduced; q/k/v and the KV cache are the local heads."""
+    attn_impl: "auto" runs ``sdag_prefill_attention`` (kernel K1 on CUDA,
+    which has no backward and raises under autograd); "xla" the
+    differentiable dense-mask attention the JAX package trains through.
+    mask_plan: ``layer_mask_plan``'s result for this impl (built here when
+    None).  tp_group: the tensor-parallel process group when the layer
+    holds Megatron-sliced weights (``parallel/sharding.py``): attention
+    runs on this rank's heads, the MLP on its ff slice, and the wo / down
+    products are all-reduced; q/k/v and the KV cache are the local heads.
+    Under autograd the collectives are Megatron's Functions (the norms'
+    outputs all-reduce their gradients), so the layer trains."""
     B, L, _ = x.shape
-    h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+    if mask_plan is None:
+        mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len,
+                                    valid_len, attn_impl)
+    h = copy_to_group(rms_norm(x, layer["ln1"], cfg.norm_eps), tp_group)
     q, k, v = _project_qkv(layer["attn"], h, cfg)
     q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    attn_out = sdag_prefill_attention(q, k, v, doc_id, nbr_bits,
-                                      sys_user_len, valid_len=valid_len,
-                                      mask_plan=mask_plan)
+    if attn_impl == "xla":
+        attn_out = sdag_attention_dense(q, k, v, mask_plan)
+    else:
+        attn_out = sdag_prefill_attention(q, k, v, doc_id, nbr_bits,
+                                          sys_user_len, valid_len=valid_len,
+                                          mask_plan=mask_plan)
     attn_out = attn_out.transpose(1, 2).reshape(B, L, -1)
-    x = x + all_reduce_(_mm(attn_out, layer["attn"]["wo"]), tp_group)
-    x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
-                                                    cfg.norm_eps)), tp_group)
+    x = x + reduce_from_group(_mm(attn_out, layer["attn"]["wo"]), tp_group)
+    h = copy_to_group(rms_norm(x, layer["ln2"], cfg.norm_eps), tp_group)
+    x = x + reduce_from_group(_mlp(layer["mlp"], h), tp_group)
     return x, (k, v)
 
 
@@ -361,6 +389,7 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             logits_last_only: bool = False,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             kv_dtype: str = "native", tp_group=None,
+            attn_impl: str = "auto",
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-prompt forward.  input_ids: [B, L] right-padded.
 
@@ -370,8 +399,8 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     valid_len-1 (logits [B, 1, V]).  ``cache``: a ``make_kv_cache`` result
     of at least L slots to write the prompt's K/V into (slots past L keep
     what they held) instead of a fresh one of ``kv_dtype``; an int8 cache
-    takes the K/V quantized per slot.  ``tp_group``: as in
-    ``layer_forward``."""
+    takes the K/V quantized per slot.  ``tp_group``, ``attn_impl``: as
+    in ``layer_forward`` ("xla" trains; "auto" serves through K1)."""
     B, L = input_ids.shape
     dev = input_ids.device
     cache_size = cache_size or L
@@ -387,9 +416,10 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
         positions = positions_from_doc_id(doc_id)
     x = _embed_rows(params["embed"], input_ids, cfg.dtype)
 
-    # layer-invariant kernel metadata (block kinds, live-tile worklists):
-    # computed once per prefill, shared by every layer
-    mask_plan = prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len)
+    # layer-invariant metadata (K1's block kinds and live-tile worklists,
+    # or the dense mask): computed once per prefill, shared by every layer
+    mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
+                                attn_impl)
 
     if cache is None and with_cache:
         cache = make_kv_cache(cfg, B, cache_size, device=dev,
@@ -398,7 +428,8 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     for li, layer in enumerate(params["layers"]):
         x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
                                   nbr_bits, sys_user_len, valid_len,
-                                  mask_plan=mask_plan, tp_group=tp_group)
+                                  mask_plan=mask_plan, tp_group=tp_group,
+                                  attn_impl=attn_impl)
         if cache is not None and "k_scale" in cache:
             kv_q, kv_s = _quantize_kv(k, v)
             for i, name in enumerate(("k", "v")):

@@ -1,26 +1,45 @@
-"""Native (non-HF) decoder checkpoints, read without JAX.
+"""Native (non-HF) decoder checkpoints, read and written without JAX.
 
-Format (written by the JAX package's ``models/native_ckpt.save_decoder``):
-``native_decoder.json`` (the DecoderConfig) next to ``params.npz`` (the
-parameter tree flattened to '/'-joined key paths, f32).  The pipeline's
-``LLM_CHECKPOINT`` accepts such a directory (pipeline/resources.py).
+Format (the JAX package's ``models/native_ckpt.py``): ``native_decoder.json``
+(``{"config": the DecoderConfig, "extra": ...}``) next to ``params.npz``
+(the parameter tree flattened to '/'-joined key paths, f32).  Each package
+reads what the other writes.  The pipeline's ``LLM_CHECKPOINT`` accepts
+such a directory (pipeline/resources.py); ``pipeline/train_qa.py`` writes
+one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from sdag_tpu_torch.models.llama import DecoderConfig
 from sdag_tpu_torch.utils.device import resolve_device
+from sdag_tpu_torch.utils.tree import flatten_with_paths
 
 MANIFEST = "native_decoder.json"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_NAMES = {v: k for k, v in _DTYPES.items()}
+
+
+def save_decoder(params: Dict[str, Any], cfg: DecoderConfig, out_dir: str,
+                 extra: Optional[Dict[str, Any]] = None) -> None:
+    """Write a float parameter tree (the JAX layout, any device) and its
+    config as a native checkpoint directory."""
+    os.makedirs(out_dir, exist_ok=True)
+    cfg_dict = dataclasses.asdict(cfg)
+    cfg_dict["dtype"] = _NAMES[cfg.dtype]
+    with open(os.path.join(out_dir, MANIFEST), "w") as fh:
+        json.dump({"config": cfg_dict, "extra": extra or {}}, fh, indent=1)
+    flat = {k: v.detach().float().cpu().numpy()
+            for k, v in flatten_with_paths(params).items()}
+    np.savez(os.path.join(out_dir, "params.npz"), **flat)
 
 
 def is_native_checkpoint(path: str) -> bool:

@@ -124,6 +124,39 @@ def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
     return out
 
 
+def prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len=None):
+    """The SDAG rule for every (q row, key) pair of a prefill, [B, 1, L, L]
+    bool: the training path's mask, built once a forward and shared by
+    every layer (the JAX package hoists its plan the same way)."""
+    B, L = doc_id.shape
+    dev = doc_id.device
+    sul = _per_batch(sys_user_len, B, 0, dev)
+    vl = _per_batch(valid_len, B, L, dev)
+    r = torch.arange(L, dtype=torch.int32, device=dev)
+    m = _tile_mask(r[None, :, None], r[None, None, :], doc_id[:, :, None],
+                   doc_id[:, None, :], nbr_bits[:, :, None],
+                   sul[:, None, None], vl[:, None, None])
+    return m[:, None]
+
+
+def sdag_attention_dense(q, k, v, mask, scale: Optional[float] = None):
+    """Differentiable dense-mask attention over a whole batch: the training
+    path (JAX ``attn_impl="xla"``, ``sdag_attention_reference``'s
+    arithmetic: f32 scores, probabilities cast to v's dtype before the
+    value product).  q: [B, H, L, Dh]; k/v: [B, Hkv, L, Dh] (GQA groups
+    repeated here); mask: ``prefill_dense_mask`` [B, 1, L, L]."""
+    H, Dh = q.shape[1], q.shape[3]
+    if k.shape[1] != H:
+        rep = H // k.shape[1]
+        k = k.repeat_interleave(rep, dim=1)
+        v = v.repeat_interleave(rep, dim=1)
+    scale = scale if scale is not None else Dh ** -0.5
+    scores = (q.float() @ k.float().transpose(-1, -2)) * scale
+    scores = scores.masked_fill(~mask, DEFAULT_MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1)
+    return probs.to(v.dtype) @ v
+
+
 def _reduce_blocks(x: torch.Tensor, op) -> torch.Tensor:
     """Bitwise reduce over the last axis by folding halves (torch has no
     bitwise reductions).  x: int64 [..., n]."""
@@ -420,7 +453,14 @@ def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
     q: [B, Hq, Lq, Dh]; k/v: [B, Hkv, Lk, Dh]; all contiguous CUDA tensors
     of one dtype (float32 or bfloat16), Dh in 32/64/128; ``plan`` from
     ``prefill_mask_plan`` on the same metadata.  Output has q's dtype; a
-    row that sees no key outputs 0."""
+    row that sees no key outputs 0.  K1 has no backward: a call that
+    autograd would record (grad enabled, an input requiring grad) raises,
+    since its output would carry no gradient to wq/wk/wv."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "sdag_prefill_cuda: kernel K1 has no backward; under autograd "
+            "use the differentiable dense path (attn_impl='xla') or run "
+            "K1 under torch.no_grad()")
     B, Hq, Lq, Dh = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):

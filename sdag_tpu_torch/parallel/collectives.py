@@ -6,6 +6,11 @@ search and K2 for the BM25 scan on CUDA), candidates are all-gathered over
 the index group, and the merge is order-stable (score desc, global index
 asc), so sharded results equal a one-device exact scan.
 
+The layers' collectives (``copy_to_group``, ``reduce_from_group``,
+``gather_from_group``) and a pipeline's ``send_to`` / ``recv_from`` are
+autograd Functions when autograd records them, so tensor-parallel and
+pipelined training differentiate through them.
+
 The collective helpers take the axis' process group (None: one rank, no
 process group; the helper is the identity).  A backend that cannot carry a
 collective on CUDA tensors gets it staged through host memory, by one
@@ -72,6 +77,167 @@ def all_gather_cat(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     dist.all_gather(parts, src, group=group)
     out = torch.cat(parts, dim=dim)
     return out.to(x.device) if host else out
+
+
+# Megatron's pair of autograd Functions for a tensor-parallel layer, and a
+# differentiable all-gather: each collective runs through all_reduce_ /
+# all_gather_cat, so the staging rule holds in forward and backward alike.
+
+class _CopyToGroup(torch.autograd.Function):
+    """Identity forward, all-reduce backward: the input of a
+    column-parallel product (wq/wk/wv, gate/up, a vocab-sliced head)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    """All-reduce forward, identity backward: the partial sums of a
+    row-parallel product (wo, down)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromGroup(torch.autograd.Function):
+    """All-gather along ``dim`` forward, this rank's slice backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return all_gather_cat(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = dist.get_rank(ctx.group)
+        return g.narrow(ctx.dim, r * ctx.size, ctx.size).contiguous(), \
+            None, None
+
+
+def _recorded(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """x for a column-parallel product: under autograd its gradient is
+    all-reduced over ``group`` (the other ranks' slices of the product
+    contribute to it); otherwise x itself."""
+    if group is None or not _recorded(x):
+        return x
+    return _CopyToGroup.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over ``group`` (a row-parallel product's partial
+    sums); in place when autograd does not record it (serving, and inside
+    a captured decode step)."""
+    if group is None:
+        return x
+    if not _recorded(x):
+        return all_reduce_(x, group)
+    return _ReduceFromGroup.apply(x, group)
+
+
+def gather_from_group(x: torch.Tensor, group, dim: int = -1
+                      ) -> torch.Tensor:
+    """``all_gather_cat`` whose gradient is this rank's slice."""
+    if group is None:
+        return x
+    if not _recorded(x):
+        return all_gather_cat(x, group, dim=dim)
+    return _GatherFromGroup.apply(x, group, dim % x.dim())
+
+
+def all_reduce_grads_(tensors: List[torch.Tensor], group) -> None:
+    """Sum tensors (gradients) over ``group`` in place, as one flat
+    all-reduce per dtype."""
+    if group is None or not tensors:
+        return
+    for dt in sorted({t.dtype for t in tensors}, key=str):
+        ts = [t for t in tensors if t.dtype == dt]
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        all_reduce_(flat, group)
+        off = 0
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+class _SendTo(torch.autograd.Function):
+    """Send x to global rank ``peer``; returns a scalar whose backward
+    receives x's gradient from ``peer``.  A pipeline stage's last
+    activation goes out through it."""
+
+    @staticmethod
+    def forward(ctx, x, group, peer):
+        ctx.group, ctx.peer = group, peer
+        ctx.like = (x.shape, x.dtype, x.device)
+        _send(x, group, peer)
+        return x.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, _g):
+        shape, dtype, device = ctx.like
+        return _recv(shape, dtype, device, ctx.group, ctx.peer), None, None
+
+
+class _RecvFrom(torch.autograd.Function):
+    """Receive a tensor from global rank ``peer``; its gradient is sent
+    back to ``peer``.  ``anchor`` (an empty tensor requiring grad) puts
+    the receive in the graph: a Function without a differentiable input
+    has no backward."""
+
+    @staticmethod
+    def forward(ctx, anchor, shape, dtype, group, peer):
+        ctx.group, ctx.peer = group, peer
+        return _recv(shape, dtype, anchor.device, group, peer)
+
+    @staticmethod
+    def backward(ctx, g):
+        _send(g.contiguous(), ctx.group, ctx.peer)
+        return None, None, None, None, None
+
+
+def _send(x: torch.Tensor, group, peer: int) -> None:
+    host = staged(group, x)
+    _count(group, "send", host)
+    dist.send(x.cpu() if host else x.contiguous(), peer, group=group)
+
+
+def _recv(shape, dtype, device, group, peer: int) -> torch.Tensor:
+    host = device.type == "cuda" and dist.get_backend(group) == "gloo"
+    _count(group, "recv", host)
+    out = torch.empty(shape, dtype=dtype,
+                      device="cpu" if host else device)
+    dist.recv(out, peer, group=group)
+    return out.to(device) if host else out
+
+
+def send_to(x: torch.Tensor, group, peer: int) -> torch.Tensor:
+    """Send x to global rank ``peer`` of ``group``; the returned scalar's
+    backward (``torch.autograd.backward`` on it) receives x's gradient
+    from ``peer`` and carries it into x's graph."""
+    return _SendTo.apply(x, group, peer)
+
+
+def recv_from(shape, dtype, device, group, peer: int) -> torch.Tensor:
+    """A tensor sent by global rank ``peer`` of ``group`` (``send_to``);
+    under autograd its gradient goes back to ``peer`` in the backward."""
+    anchor = torch.empty(0, device=device, requires_grad=True)
+    return _RecvFrom.apply(anchor, tuple(shape), dtype, group, peer)
 
 
 def ring_shift(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:

@@ -73,6 +73,14 @@ def test_the_mesh_modules_are_covered():
         assert f"sdag_tpu_torch.{mod}" in mods
 
 
+def test_the_training_modules_are_covered():
+    """The module walk reaches the training slice's modules."""
+    mods = set(_port_modules())
+    for mod in ("parallel.train", "parallel.checkpoint", "parallel.pipeline",
+                "pipeline.train_qa", "utils.tree"):
+        assert f"sdag_tpu_torch.{mod}" in mods
+
+
 def test_every_port_module_imports_with_jax_and_sdag_tpu_blocked():
     mods = _port_modules() + ["chip_smoke"]
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -291,8 +299,13 @@ def _entry_poisoned_rag(tmp_path):
     main(["--samples_json", str(path), "--out_csv", str(tmp_path / "a.csv")])
 
 
+def _entry_train_qa(tmp_path):
+    from sdag_tpu_torch.pipeline.train_qa import main
+    main(["--out", str(tmp_path / "ckpt"), "--steps", "1"])
+
+
 @pytest.mark.parametrize("entry", [
-    _entry_run_experiment, _entry_init_resources, _entry_build_generator,
+    _entry_train_qa, _entry_run_experiment, _entry_init_resources, _entry_build_generator,
     _entry_generator, _entry_bm25_index, _entry_cli, _entry_build_encoder,
     _entry_e5_encoder, _entry_init_encoder_params, _entry_dense_index,
     _entry_run_experiment_dense, _entry_load_decoder_checkpoint,
