@@ -11,32 +11,38 @@ from typing import List, Optional, Sequence, Tuple
 
 from sdag_tpu_torch.sdag.spans import build_plain_chat_ids
 from sdag_tpu_torch.utils import prompts
+from sdag_tpu_torch.utils.profiling import span
+
+
+def _generate_in_batches(generator, ids, max_tokens: int,
+                         batch_size: int) -> List[str]:
+    out: List[str] = []
+    for i in range(0, len(ids), batch_size):
+        with span("sdag.orch.llm_batch"):
+            out.extend(generator.generate_ids(ids[i:i + batch_size],
+                                              max_new_tokens=max_tokens))
+    return out
 
 
 def generate_false_answers(generator, queries: Sequence[str],
                            max_tokens: int, batch_size: int = 8) -> List[str]:
-    ids = [build_plain_chat_ids(
-        generator.tokenizer, prompts.SYSTEM_PROMPT_FALSE_ANSWER,
-        prompts.USER_FALSE_ANSWER_PROMPT.format(query=q)) for q in queries]
-    out: List[str] = []
-    for i in range(0, len(ids), batch_size):
-        out.extend(generator.generate_ids(ids[i:i + batch_size],
-                                          max_new_tokens=max_tokens))
-    return out
+    with span("sdag.orch.prompts.false_answer"):
+        ids = [build_plain_chat_ids(
+            generator.tokenizer, prompts.SYSTEM_PROMPT_FALSE_ANSWER,
+            prompts.USER_FALSE_ANSWER_PROMPT.format(query=q))
+            for q in queries]
+    return _generate_in_batches(generator, ids, max_tokens, batch_size)
 
 
 def generate_malicious_docs(generator, queries: Sequence[str],
                             false_answers: Sequence[str], max_tokens: int,
                             batch_size: int = 8) -> List[str]:
-    ids = [build_plain_chat_ids(
-        generator.tokenizer, prompts.SYSTEM_PROMPT_FALSE_DOC,
-        prompts.USER_FALSE_DOC_PROMPT.format(query=q, false_answer=fa))
-        for q, fa in zip(queries, false_answers)]
-    out: List[str] = []
-    for i in range(0, len(ids), batch_size):
-        out.extend(generator.generate_ids(ids[i:i + batch_size],
-                                          max_new_tokens=max_tokens))
-    return out
+    with span("sdag.orch.prompts.malicious_doc"):
+        ids = [build_plain_chat_ids(
+            generator.tokenizer, prompts.SYSTEM_PROMPT_FALSE_DOC,
+            prompts.USER_FALSE_DOC_PROMPT.format(query=q, false_answer=fa))
+            for q, fa in zip(queries, false_answers)]
+    return _generate_in_batches(generator, ids, max_tokens, batch_size)
 
 
 def build_attack_content_for_batch(

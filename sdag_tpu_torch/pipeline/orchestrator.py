@@ -3,13 +3,19 @@ NO-ISO) -> evaluate -> save.
 
 Counterpart of ``sdag_tpu/pipeline/orchestrator.py`` (itself mirroring the
 reference's ``src/pipeline/main.py:109-858``): ISO generation is
-batched and every phase is timed (utils/profiling.py).  Settings outside
+batched and every phase is timed (utils/profiling.py).  Spans (recorded
+while a torch.profiler collects) name the host work between the device
+calls: ``sdag.orch.prompts.*`` (prompt building), ``sdag.orch.llm_batch``
+(one Generator call), ``sdag.orch.score`` (answer extraction and exact
+match), and each phase as ``sdag.orch.<phase>``; every span of a batch
+carries its first query id (``batch_context``).  Settings outside
 this port's slice (pipeline/resources.py ``check_supported``) raise
 NotImplementedError.
 """
 
 from __future__ import annotations
 
+import functools
 import random
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -42,7 +48,8 @@ from sdag_tpu_torch.sdag.spans import (build_plain_chat_ids,
 from sdag_tpu_torch.utils import prompts
 from sdag_tpu_torch.utils.parsing import (load_from_csv,
                                           load_sampled_queries_json)
-from sdag_tpu_torch.utils.profiling import PhaseTimer, maybe_profile
+from sdag_tpu_torch.utils.profiling import (PhaseTimer, batch_context,
+                                            maybe_profile, span)
 
 
 # --------------------------------------------------------------- helpers
@@ -129,19 +136,22 @@ def generate_iso_batch(cfg: Config, res: Resources, queries: List[str],
     """Batched document-isolation generation (reference runs this per query,
     ``main.py:469-496``; the mask/span semantics are identical)."""
     plans = []
-    for q, docs_ranked, mals in zip(queries, defended_docs_batch,
-                                    survived_mals_batch):
-        block_align = getattr(res.generator, "block_align", 0)
-        if cfg.ORACLE:
-            plan = build_rag_prompt_plan(
-                res.tokenizer, q,
-                inject_malicious_docs_into_ranked_list(
-                    list(docs_ranked), list(mals), attacker_pos, rng=rng),
-                block_align=block_align)
-        else:
-            plan = build_rag_prompt_plan(res.tokenizer, q, list(docs_ranked),
-                                         block_align=block_align)
-        plans.append(plan)
+    with span("sdag.orch.prompts.iso"):
+        for q, docs_ranked, mals in zip(queries, defended_docs_batch,
+                                        survived_mals_batch):
+            block_align = getattr(res.generator, "block_align", 0)
+            if cfg.ORACLE:
+                plan = build_rag_prompt_plan(
+                    res.tokenizer, q,
+                    inject_malicious_docs_into_ranked_list(
+                        list(docs_ranked), list(mals), attacker_pos,
+                        rng=rng),
+                    block_align=block_align)
+            else:
+                plan = build_rag_prompt_plan(res.tokenizer, q,
+                                             list(docs_ranked),
+                                             block_align=block_align)
+            plans.append(plan)
     if cfg.DOC_NEIGHBORS_K and cfg.DOC_NEIGHBORS_K > 0:
         # one encode per batch, not one per query
         neighbors = compute_doc_knn_for_docs_batch(
@@ -152,10 +162,11 @@ def generate_iso_batch(cfg: Config, res: Resources, queries: List[str],
     answers: List[str] = []
     bs = max(1, cfg.LLM_BATCH_SIZE)
     for i in range(0, len(plans), bs):
-        answers.extend(res.generator.generate_plans(
-            plans[i:i + bs],
-            doc_neighbors=neighbors[i:i + bs],
-            max_new_tokens=cfg.MAX_GEN_TOKENS_RAG))
+        with span("sdag.orch.llm_batch"):
+            answers.extend(res.generator.generate_plans(
+                plans[i:i + bs],
+                doc_neighbors=neighbors[i:i + bs],
+                max_new_tokens=cfg.MAX_GEN_TOKENS_RAG))
     return answers
 
 
@@ -166,30 +177,42 @@ def generate_noiso_batch(cfg: Config, res: Resources, queries: List[str],
                          rng: random.Random) -> List[str]:
     """Plain causal generation (reference ``main.py:308-378``)."""
     ids_list = []
-    for q, docs_ranked, mals in zip(queries, defended_docs_batch,
-                                    survived_mals_batch):
-        if cfg.ORACLE:
-            ranked = inject_malicious_docs_into_ranked_list(
-                list(docs_ranked), list(mals), attacker_pos, rng=rng)
-        else:
-            ranked = list(docs_ranked)
-        ranked = apply_ranked_list_order(ranked,
-                                         cfg.RANKED_LIST_ORDER_IN_PROMPT,
-                                         rng=rng)
-        user_content = prompts.USER_RAG_PROMPT.format(
-            query=q, docs_text=prompts.render_docs_text(ranked))
-        ids_list.append(build_plain_chat_ids(
-            res.tokenizer, prompts.SYSTEM_PROMPT_RAG, user_content))
+    with span("sdag.orch.prompts.noiso"):
+        for q, docs_ranked, mals in zip(queries, defended_docs_batch,
+                                        survived_mals_batch):
+            if cfg.ORACLE:
+                ranked = inject_malicious_docs_into_ranked_list(
+                    list(docs_ranked), list(mals), attacker_pos, rng=rng)
+            else:
+                ranked = list(docs_ranked)
+            ranked = apply_ranked_list_order(
+                ranked, cfg.RANKED_LIST_ORDER_IN_PROMPT, rng=rng)
+            user_content = prompts.USER_RAG_PROMPT.format(
+                query=q, docs_text=prompts.render_docs_text(ranked))
+            ids_list.append(build_plain_chat_ids(
+                res.tokenizer, prompts.SYSTEM_PROMPT_RAG, user_content))
 
     answers: List[str] = []
     bs = max(1, cfg.LLM_BATCH_SIZE)
     for i in range(0, len(ids_list), bs):
-        answers.extend(res.generator.generate_ids(
-            ids_list[i:i + bs], max_new_tokens=cfg.MAX_GEN_TOKENS_RAG))
+        with span("sdag.orch.llm_batch"):
+            answers.extend(res.generator.generate_ids(
+                ids_list[i:i + bs], max_new_tokens=cfg.MAX_GEN_TOKENS_RAG))
     return answers
 
 
 # --------------------------------------------------- pair execution paths
+def _in_batch(run_pair):
+    """Spans opened by a pair function carry its batch's first query id."""
+    @functools.wraps(run_pair)
+    def wrapped(**kw):
+        with batch_context(kw["batch_qids"][0] if kw["batch_qids"]
+                           else None):
+            return run_pair(**kw)
+    return wrapped
+
+
+@_in_batch
 def run_pair_malicious_doc_attack_for_batch(
     *, cfg: Config, res: Resources, defense, discern_cache: LabelCache,
     pair: PairSpec, batch_qids: List[str], batch_qs: List[str],
@@ -250,39 +273,41 @@ def run_pair_malicious_doc_attack_for_batch(
                 cfg, res, batch_qs, defended_docs, survived_mals,
                 pair.attacker_pos, rng)
 
-        for qid, q, gts, fa_list, docs_ranked, ids_ranked, mals, a_iso, \
-                a_noiso in zip(batch_qids, batch_qs, batch_gts,
-                               false_groups_batch, defended_docs,
-                               defended_ids, survived_mals, answers_iso,
-                               answers_noiso):
-            iso_clean = extract_final_answer(a_iso)
-            noiso_clean = extract_final_answer(a_noiso)
-            has_attack = attack_config_requests_docs(pair.attacker_pos)
-            rows.append({
-                "query_id": qid,
-                "question": q,
-                "short_answers": gts,
-                "false_answer": fa_list,
-                "malicious_doc": (" ||| ".join(mals)
-                                  if has_attack and mals else ""),
-                "retrieved_docs": list(docs_ranked),
-                "retrieved_doc_ids": list(ids_ranked),
-                "rag_answer_iso": iso_clean,
-                "rag_answer_noiso": noiso_clean,
-                "ground_truth_match_iso":
-                    any(exact_match(iso_clean, gt) for gt in gts),
-                "ground_truth_match_noiso":
-                    any(exact_match(noiso_clean, gt) for gt in gts),
-                "false_match_iso":
-                    any(exact_match(iso_clean, fa) for fa in fa_list)
-                    if fa_list else False,
-                "false_match_noiso":
-                    any(exact_match(noiso_clean, fa) for fa in fa_list)
-                    if fa_list else False,
-            })
+        with span("sdag.orch.score"):
+            for qid, q, gts, fa_list, docs_ranked, ids_ranked, mals, \
+                    a_iso, a_noiso in zip(
+                        batch_qids, batch_qs, batch_gts, false_groups_batch,
+                        defended_docs, defended_ids, survived_mals,
+                        answers_iso, answers_noiso):
+                iso_clean = extract_final_answer(a_iso)
+                noiso_clean = extract_final_answer(a_noiso)
+                has_attack = attack_config_requests_docs(pair.attacker_pos)
+                rows.append({
+                    "query_id": qid,
+                    "question": q,
+                    "short_answers": gts,
+                    "false_answer": fa_list,
+                    "malicious_doc": (" ||| ".join(mals)
+                                      if has_attack and mals else ""),
+                    "retrieved_docs": list(docs_ranked),
+                    "retrieved_doc_ids": list(ids_ranked),
+                    "rag_answer_iso": iso_clean,
+                    "rag_answer_noiso": noiso_clean,
+                    "ground_truth_match_iso":
+                        any(exact_match(iso_clean, gt) for gt in gts),
+                    "ground_truth_match_noiso":
+                        any(exact_match(noiso_clean, gt) for gt in gts),
+                    "false_match_iso":
+                        any(exact_match(iso_clean, fa) for fa in fa_list)
+                        if fa_list else False,
+                    "false_match_noiso":
+                        any(exact_match(noiso_clean, fa) for fa in fa_list)
+                        if fa_list else False,
+                })
     return rows
 
 
+@_in_batch
 def run_pair_doc_corruption_for_batch(
     *, cfg: Config, res: Resources, pair: PairSpec, batch_qids: List[str],
     batch_qs: List[str], batch_gts: List[List[str]],
@@ -350,28 +375,32 @@ def run_pair_doc_corruption_for_batch(
             answers_noiso = generate_noiso_batch(
                 cfg, res, qs, docs_b, empties, 0, rng)
 
-        for it, a_iso, a_noiso in zip(items, answers_iso, answers_noiso):
-            iso_clean = extract_final_answer(a_iso)
-            noiso_clean = extract_final_answer(a_noiso)
-            gts, false_ans = it["gts"], it["false_ans"]
-            rows.append({
-                "query_id": it["qid"],
-                "question": it["q"],
-                "short_answers": gts,
-                "false_answer": [false_ans],
-                "malicious_doc": it["poisoned"],
-                "retrieved_docs": [d for i, d in enumerate(it["docs_pool"])
-                                   if i != it["attacked_idx"]],
-                "retrieved_doc_ids": list(it["ids_for_prompt"]),
-                "rag_answer_iso": iso_clean,
-                "rag_answer_noiso": noiso_clean,
-                "ground_truth_match_iso":
-                    any(exact_match(iso_clean, gt) for gt in gts),
-                "ground_truth_match_noiso":
-                    any(exact_match(noiso_clean, gt) for gt in gts),
-                "false_match_iso": exact_match(iso_clean, false_ans),
-                "false_match_noiso": exact_match(noiso_clean, false_ans),
-            })
+        with span("sdag.orch.score"):
+            for it, a_iso, a_noiso in zip(items, answers_iso,
+                                          answers_noiso):
+                iso_clean = extract_final_answer(a_iso)
+                noiso_clean = extract_final_answer(a_noiso)
+                gts, false_ans = it["gts"], it["false_ans"]
+                rows.append({
+                    "query_id": it["qid"],
+                    "question": it["q"],
+                    "short_answers": gts,
+                    "false_answer": [false_ans],
+                    "malicious_doc": it["poisoned"],
+                    "retrieved_docs": [
+                        d for i, d in enumerate(it["docs_pool"])
+                        if i != it["attacked_idx"]],
+                    "retrieved_doc_ids": list(it["ids_for_prompt"]),
+                    "rag_answer_iso": iso_clean,
+                    "rag_answer_noiso": noiso_clean,
+                    "ground_truth_match_iso":
+                        any(exact_match(iso_clean, gt) for gt in gts),
+                    "ground_truth_match_noiso":
+                        any(exact_match(noiso_clean, gt) for gt in gts),
+                    "false_match_iso": exact_match(iso_clean, false_ans),
+                    "false_match_noiso": exact_match(noiso_clean,
+                                                     false_ans),
+                })
     return rows
 
 
@@ -442,8 +471,10 @@ def run_experiment(cfg: Config,
             batch_qids = query_data.query_ids[i:i + bs]
             print(f"[run] batch {i // bs + 1}/{(num_q + bs - 1) // bs} "
                   f"({len(batch_qs)} queries)")
+            # the pair functions mark their own spans with the same id
+            q0 = batch_qids[0]
 
-            with timer.phase("retrieve"):
+            with batch_context(q0), timer.phase("retrieve"):
                 retrieval = retriever.retrieve_batch(
                     batch_qs, max_k_needed=max_k_needed,
                     embed_batch_size=cfg.BATCH_SIZE_EMBED_Q)
@@ -453,7 +484,7 @@ def run_experiment(cfg: Config,
                 false_groups = query_data.false_answer_groups[i:i + bs]
                 mal_groups = query_data.malicious_doc_groups[i:i + bs]
             else:
-                with timer.phase("attack_content"):
+                with batch_context(q0), timer.phase("attack_content"):
                     false_groups, mal_groups = build_attack_content_for_batch(
                         None, None, need_attack_content, res.generator,
                         batch_qs,
@@ -461,7 +492,7 @@ def run_experiment(cfg: Config,
                         max_tokens_document=cfg.MAX_GEN_TOKENS_DOCUMENT,
                         batch_size=cfg.LLM_BATCH_SIZE)
 
-            with timer.phase("select_malicious"):
+            with batch_context(q0), timer.phase("select_malicious"):
                 chosen_mals = select_malicious_docs_for_batch(
                     res.ranker, retrieval.docs_texts_full, mal_groups,
                     strategy=cfg.MALICIOUS_DOC_SELECTION_STRATEGY,

@@ -14,6 +14,12 @@ its own CSR postings and heavy-term columns with LOCAL doc ids; the
 engines run per shard and merge (``parallel/collectives.py``).  Every rank
 builds every shard's CSR on the host (the windows and the heavy terms need
 all shards' dfs) and keeps its own on the device.
+
+While a torch.profiler collects, each query chunk records the spans
+``sdag.bm25.encode`` (analysis, slot order, the engine's choice) and
+``sdag.bm25.<engine>`` around the device call and its download, named by
+the engine the chunk took (``postings``, ``hybrid``, ``scan``, or their
+``sharded_`` forms); ``SparseRetriever`` adds ``sdag.bm25.materialize``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from sdag_tpu_torch.retrieval.analyzer import analyze_texts
 from sdag_tpu_torch.retrieval.retriever import Retriever, materialize_hits
 from sdag_tpu_torch.utils.device import resolve_device
 from sdag_tpu_torch.utils.mathutil import round_up as _round_up
+from sdag_tpu_torch.utils.profiling import span
 
 
 def _csr_from_packed(term_ids: np.ndarray, impacts: np.ndarray,
@@ -382,57 +389,66 @@ class BM25Index:
                      for i in range(0, len(queries), self.QUERY_CHUNK)]
             return (np.concatenate([p[0] for p in parts]),
                     np.concatenate([p[1] for p in parts]))
-        q_terms, q_weights = self.encode_queries(queries)
-        use_postings = self.engine == "postings"
-        use_heavy = False
-        if use_postings:
-            q_terms, q_weights, w_slots, q_heavy = self._order_slots_by_df(
-                q_terms, q_weights)
-            use_heavy = self.heavy_cols is not None and bool(
-                (q_heavy >= 0).any())
-            m_total = sum(w_slots) * self.POSTINGS_WINDOW
-            if m_total > self._candidate_budget():
-                print(f"[bm25] Note: batch query terms sum to {m_total} "
-                      f"postings candidates (> budget "
-                      f"{self._candidate_budget()}); the postings "
-                      "walk would be costlier than a flat scan — falling "
-                      "back to the scan engine for this batch.",
-                      flush=True)
-                use_postings = False
+        with span("sdag.bm25.encode"):
+            q_terms, q_weights = self.encode_queries(queries)
+            use_postings = self.engine == "postings"
+            use_heavy = False
+            if use_postings:
+                q_terms, q_weights, w_slots, q_heavy = \
+                    self._order_slots_by_df(q_terms, q_weights)
+                use_heavy = self.heavy_cols is not None and bool(
+                    (q_heavy >= 0).any())
+                m_total = sum(w_slots) * self.POSTINGS_WINDOW
+                if m_total > self._candidate_budget():
+                    print(f"[bm25] Note: batch query terms sum to {m_total} "
+                          f"postings candidates (> budget "
+                          f"{self._candidate_budget()}); the postings "
+                          "walk would be costlier than a flat scan — "
+                          "falling back to the scan engine for this batch.",
+                          flush=True)
+                    use_postings = False
+                else:
+                    w_slots = self._merge_window_profile(w_slots)
+        # the span of the device call names the engine this chunk took
+        engine = ("hybrid" if use_heavy else "postings") if use_postings \
+            else "scan"
+        if self.n_shards > 1:
+            engine = "sharded_" + engine
+        with span("sdag.bm25." + engine):
+            qt, qw = self._dev(q_terms), self._dev(q_weights)
+            if engine == "sharded_hybrid":
+                vals, idx = sharded_bm25_hybrid_topk(
+                    self.post_docs, self.post_imps, self.post_offsets,
+                    self.heavy_cols, self.heavy_rows, qt, qw,
+                    self._dev(q_heavy), top_k, w_slots=w_slots,
+                    window=self.POSTINGS_WINDOW, mesh=self.mesh,
+                    rows_per_shard=self.rows_per_shard)
+            elif engine == "sharded_postings":
+                vals, idx = sharded_bm25_postings_topk(
+                    self.post_docs, self.post_imps, self.post_offsets, qt,
+                    qw, top_k, w_slots=w_slots, window=self.POSTINGS_WINDOW,
+                    mesh=self.mesh, rows_per_shard=self.rows_per_shard)
+            elif engine == "sharded_scan":
+                vals, idx = sharded_bm25_topk(self.term_ids, self.impacts,
+                                              qt, qw, top_k,
+                                              valid_n=self.valid_n,
+                                              mesh=self.mesh)
+            elif engine == "hybrid":
+                vals, idx = bm25_hybrid_topk(
+                    self.post_docs, self.post_imps, self.post_offsets,
+                    self.heavy_cols, self.heavy_rows, qt, qw,
+                    self._dev(q_heavy), top_k, w_slots=w_slots,
+                    window=self.POSTINGS_WINDOW)
+            elif engine == "postings":
+                vals, idx = bm25_postings_topk(
+                    self.post_docs, self.post_imps, self.post_offsets, qt,
+                    qw, top_k, w_slots=w_slots, window=self.POSTINGS_WINDOW)
             else:
-                w_slots = self._merge_window_profile(w_slots)
-        qt, qw = self._dev(q_terms), self._dev(q_weights)
-        if use_postings and use_heavy and self.n_shards > 1:
-            vals, idx = sharded_bm25_hybrid_topk(
-                self.post_docs, self.post_imps, self.post_offsets,
-                self.heavy_cols, self.heavy_rows, qt, qw,
-                self._dev(q_heavy), top_k, w_slots=w_slots,
-                window=self.POSTINGS_WINDOW, mesh=self.mesh,
-                rows_per_shard=self.rows_per_shard)
-        elif use_postings and self.n_shards > 1:
-            vals, idx = sharded_bm25_postings_topk(
-                self.post_docs, self.post_imps, self.post_offsets, qt, qw,
-                top_k, w_slots=w_slots, window=self.POSTINGS_WINDOW,
-                mesh=self.mesh, rows_per_shard=self.rows_per_shard)
-        elif self.n_shards > 1:
-            vals, idx = sharded_bm25_topk(self.term_ids, self.impacts, qt,
-                                          qw, top_k, valid_n=self.valid_n,
-                                          mesh=self.mesh)
-        elif use_postings and use_heavy:
-            vals, idx = bm25_hybrid_topk(
-                self.post_docs, self.post_imps, self.post_offsets,
-                self.heavy_cols, self.heavy_rows, qt, qw,
-                self._dev(q_heavy), top_k, w_slots=w_slots,
-                window=self.POSTINGS_WINDOW)
-        elif use_postings:
-            vals, idx = bm25_postings_topk(
-                self.post_docs, self.post_imps, self.post_offsets, qt, qw,
-                top_k, w_slots=w_slots, window=self.POSTINGS_WINDOW)
-        else:
-            vals, idx = bm25_topk_dispatch(self.term_ids, self.impacts, qt,
-                                           qw, top_k, valid_n=self.valid_n)
-        vals = vals.cpu().numpy().copy()
-        idx = idx.cpu().numpy().copy()
+                vals, idx = bm25_topk_dispatch(self.term_ids, self.impacts,
+                                               qt, qw, top_k,
+                                               valid_n=self.valid_n)
+            vals = vals.cpu().numpy().copy()
+            idx = idx.cpu().numpy().copy()
         no_hit = vals <= 0.0
         idx[no_hit] = -1
         vals[no_hit] = float("-inf")
@@ -545,7 +561,8 @@ class SparseRetriever(Retriever):
     def retrieve_batch(self, queries: Sequence[str], max_k_needed: int,
                        embed_batch_size: int) -> RetrievalBatch:
         idx, scores = self.index.search(queries, top_k=max_k_needed)
-        texts, ids_, scs = self.index.materialize(idx, scores)
+        with span("sdag.bm25.materialize"):
+            texts, ids_, scs = self.index.materialize(idx, scores)
         return RetrievalBatch(q_embs=[None] * len(queries),
                               docs_texts_full=texts, ids_full=ids_,
                               scores_full=scs)

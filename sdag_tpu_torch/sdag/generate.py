@@ -39,6 +39,13 @@ decodes its own rows until its own EOS, and tokens and lengths are
 all-gathered.  Over NCCL the decode chunks stay captured CUDA graphs with
 the collectives inside; a gloo group cannot be captured, so a mesh with
 one runs the steps eagerly, chosen up front (``stats["decode_mode"]``).
+
+While a torch.profiler collects, a call records the spans
+``sdag.gen.pack`` (the prompts' masks, padding, uploads),
+``sdag.gen.prefill``, ``sdag.gen.decode`` with a ``.decode.launch`` and
+``.decode.wait`` per chunk, ``sdag.gen.unpack`` (download, detokenising)
+and, at a shape's first use, ``sdag.gen.capture`` (``utils/profiling.py``);
+the captured steps themselves hold no span.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
 from sdag_tpu_torch.sdag.spans import PromptPlan
 from sdag_tpu_torch.utils.device import resolve_device
 from sdag_tpu_torch.utils.mathutil import round_up as _round_up
+from sdag_tpu_torch.utils.profiling import span
 
 # prompts pad to this multiple (the JAX package pads to 512 on the TPU,
 # where wide tiles win on grid/DMA overhead; 128 elsewhere)
@@ -253,13 +261,14 @@ class Generator:
         """ISO path: generate with document-isolation prefill."""
         ids = [p.input_ids for p in plans]
         lp = self._pad_len(max(len(x) for x in ids))
-        metas = []
-        for i, p in enumerate(plans):
-            nbrs = doc_neighbors[i] if doc_neighbors is not None else None
-            metas.append(p.metadata(doc_neighbors=nbrs, pad_to=lp))
-        doc_id = np.stack([m[0] for m in metas])
-        nbr_bits = np.stack([m[1] for m in metas])
-        sys_user_len = np.asarray([m[2] for m in metas], np.int32)
+        with span("sdag.gen.pack"):
+            metas = []
+            for i, p in enumerate(plans):
+                nbrs = doc_neighbors[i] if doc_neighbors is not None else None
+                metas.append(p.metadata(doc_neighbors=nbrs, pad_to=lp))
+            doc_id = np.stack([m[0] for m in metas])
+            nbr_bits = np.stack([m[1] for m in metas])
+            sys_user_len = np.asarray([m[2] for m in metas], np.int32)
         return self._run(ids, doc_id, nbr_bits, sys_user_len, lp,
                          max_new_tokens)
 
@@ -282,18 +291,6 @@ class Generator:
         bp = _round_up(b, self.dp_n)
         if self.batch_bucket and bp < self.batch_bucket:
             bp = _round_up(self.batch_bucket, self.dp_n)
-        batch_ids = np.full((bp, lp), self.tokenizer.pad_token_id, np.int32)
-        valid_len = np.zeros((bp,), np.int32)
-        for i, x in enumerate(ids):
-            batch_ids[i, :len(x)] = x
-            valid_len[i] = len(x)
-        if bp != b:
-            doc_id = np.concatenate(
-                [doc_id, np.full((bp - b, lp), -1, np.int32)])
-            nbr_bits = np.concatenate(
-                [nbr_bits, np.zeros((bp - b, lp), np.int32)])
-            sys_user_len = np.concatenate(
-                [sys_user_len, np.zeros((bp - b,), np.int32)])
         dev = self.device
         rows = bp // self.dp_n
         r0 = rows * self.dp_rank
@@ -302,13 +299,28 @@ class Generator:
             return torch.from_numpy(np.ascontiguousarray(
                 a[r0:r0 + rows])).to(dev)
 
-        out, lengths = self._generate(t(batch_ids), t(doc_id), t(nbr_bits),
-                                      t(sys_user_len), t(valid_len),
-                                      max_new_tokens)
-        out, lengths = out.cpu().numpy(), lengths.cpu().numpy()
-        return [self.tokenizer.decode(out[i, :lengths[i]],
-                                      skip_special_tokens=True).strip()
-                for i in range(b)]
+        with span("sdag.gen.pack"):
+            batch_ids = np.full((bp, lp), self.tokenizer.pad_token_id,
+                                np.int32)
+            valid_len = np.zeros((bp,), np.int32)
+            for i, x in enumerate(ids):
+                batch_ids[i, :len(x)] = x
+                valid_len[i] = len(x)
+            if bp != b:
+                doc_id = np.concatenate(
+                    [doc_id, np.full((bp - b, lp), -1, np.int32)])
+                nbr_bits = np.concatenate(
+                    [nbr_bits, np.zeros((bp - b, lp), np.int32)])
+                sys_user_len = np.concatenate(
+                    [sys_user_len, np.zeros((bp - b,), np.int32)])
+            args = [t(a) for a in (batch_ids, doc_id, nbr_bits, sys_user_len,
+                                   valid_len)]
+        out, lengths = self._generate(*args, max_new_tokens)
+        with span("sdag.gen.unpack"):
+            out, lengths = out.cpu().numpy(), lengths.cpu().numpy()
+            return [self.tokenizer.decode(out[i, :lengths[i]],
+                                          skip_special_tokens=True).strip()
+                    for i in range(b)]
 
     @torch.inference_mode()
     def _generate(self, input_ids, doc_id, nbr_bits, sys_user_len,
@@ -318,52 +330,67 @@ class Generator:
         rows under a mesh.  ``graphs``: replay captured chunks (the
         default on CUDA unless a gloo group is in the mesh; a failed
         capture raises) or run the same steps eagerly (the default on the
-        CPU)."""
+        CPU).  Spans ``sdag.gen.prefill`` and ``sdag.gen.decode`` cover
+        what ``stats`` times as ``prefill_s`` and ``decode_s``; inside
+        decode, each chunk's ``sdag.gen.decode.launch`` (enqueue the graph,
+        or run the eager steps) and ``sdag.gen.decode.wait`` (the EOS
+        check, which waits for the chunk; after the chunk that reaches
+        max_new there is none)."""
         pad = int(self.tokenizer.pad_token_id)
         batch, lp = input_ids.shape
         if graphs is None:
             graphs = input_ids.device.type == "cuda" and self.graphs_ok
         buf = self._buffers(batch, lp, max_new, graphs)
+        # read here, where the device waits for the uploads anyway
+        n_in = int(valid_len.sum())
         self._sync()
         t0 = time.perf_counter()
-        logits, _ = prefill(self.params, self.cfg, input_ids, doc_id=doc_id,
-                            nbr_bits=nbr_bits, sys_user_len=sys_user_len,
-                            valid_len=valid_len, logits_last_only=True,
-                            cache=buf.cache, tp_group=self.tp_group)
-        cur = sample_tokens(self._gen, logits[:, 0, :], self.temperature,
-                            self.top_p)
-        buf.start(cur, doc_id, valid_len, pad, input_ids=input_ids)
-        self._sync()
+        with span("sdag.gen.prefill"):
+            logits, _ = prefill(self.params, self.cfg, input_ids,
+                                doc_id=doc_id, nbr_bits=nbr_bits,
+                                sys_user_len=sys_user_len,
+                                valid_len=valid_len, logits_last_only=True,
+                                cache=buf.cache, tp_group=self.tp_group)
+            cur = sample_tokens(self._gen, logits[:, 0, :], self.temperature,
+                                self.top_p)
+            buf.start(cur, doc_id, valid_len, pad, input_ids=input_ids)
+            self._sync()
         t1 = time.perf_counter()
 
-        step = self._round if self.speculative_draft else self._step
-        steps = 0
-        while steps < max_new and not bool(buf.done.all()):
-            n = min(buf.chunk, max_new - steps)
-            if self.temperature > 0.0:
-                buf.uniform.uniform_(0.0, 1.0, generator=self._gen)
-            if graphs:
-                buf.graphs[n].replay()
-            else:
-                for i in range(n):
-                    step(buf, i)
-            steps += n
-            self.stats["decode_chunks"] += 1
-        out = all_gather_cat(buf.out.clone(), self.dp_group)
-        lengths = all_gather_cat(buf.lengths.clone(), self.dp_group)
-        n_out = int(lengths.sum())
-        if self.speculative_draft:
-            # data ranks stop at their own rounds: the run took the most,
-            # and live rows add up
-            rounds = all_reduce_(buf.rounds.clone(), self.dp_group,
-                                 torch.distributed.ReduceOp.MAX)
-            row_rounds = all_reduce_(buf.row_rounds.clone(), self.dp_group)
-            self.last_spec_rounds = int(rounds)
-            self.spec_total_rounds += self.last_spec_rounds
-            self.spec_total_row_rounds += int(row_rounds)
-            self.spec_total_tokens += n_out
+        with span("sdag.gen.decode"):
+            step = self._round if self.speculative_draft else self._step
+            steps = 0
+            finished = max_new <= 0 or bool(buf.done.all())
+            while not finished:
+                n = min(buf.chunk, max_new - steps)
+                with span("sdag.gen.decode.launch"):
+                    if self.temperature > 0.0:
+                        buf.uniform.uniform_(0.0, 1.0, generator=self._gen)
+                    if graphs:
+                        buf.graphs[n].replay()
+                    else:
+                        for i in range(n):
+                            step(buf, i)
+                steps += n
+                self.stats["decode_chunks"] += 1
+                with span("sdag.gen.decode.wait"):
+                    finished = steps >= max_new or bool(buf.done.all())
+            out = all_gather_cat(buf.out.clone(), self.dp_group)
+            lengths = all_gather_cat(buf.lengths.clone(), self.dp_group)
+            n_out = int(lengths.sum())
+            if self.speculative_draft:
+                # data ranks stop at their own rounds: the run took the
+                # most, and live rows add up
+                rounds = all_reduce_(buf.rounds.clone(), self.dp_group,
+                                     torch.distributed.ReduceOp.MAX)
+                row_rounds = all_reduce_(buf.row_rounds.clone(),
+                                         self.dp_group)
+                self.last_spec_rounds = int(rounds)
+                self.spec_total_rounds += self.last_spec_rounds
+                self.spec_total_row_rounds += int(row_rounds)
+                self.spec_total_tokens += n_out
         t2 = time.perf_counter()
-        self.stats["prefill_tokens"] += int(valid_len.sum())
+        self.stats["prefill_tokens"] += n_in
         self.stats["prefill_s"] += t1 - t0
         self.stats["decode_tokens"] += n_out
         self.stats["decode_steps"] += steps
@@ -490,7 +517,8 @@ class Generator:
                                 n_kv_heads=self.n_kv_heads)
         self._live[key] = buf
         if graphs and not buf.graphs:
-            self._capture(buf)
+            with span("sdag.gen.capture"):
+                self._capture(buf)
         return buf
 
     def _capture(self, buf: DecodeBuffers) -> None:
