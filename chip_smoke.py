@@ -7,7 +7,8 @@ Phase 0  print the card (nvidia-smi name, power limit); build the kernels
          with nvcc, one process per source, all at once: K1
          (csrc/sdag_prefill.cu), K2 (csrc/bm25_scan_topk.cu), K3
          (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu), K6
-         (csrc/int8_matmul.cu); print ptxas' registers and spill bytes per
+         (csrc/int8_matmul.cu), K7 (csrc/decode_attention.cu); print
+         ptxas' registers and spill bytes per
          kernel body.
 Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
          the card: the L=4096 20-doc 2-NN layout, the same tensors fully
@@ -241,6 +242,30 @@ Phase 12 training on the card (the JAX package trains through its XLA
          (2 stages x 4 microbatches) at the 30M width on 8 rows (losses,
          gradients; GPipe's loss within 2e-5, JAX's own gate; the
          replicated leaves' gradients equal on both TP ranks).
+
+Phase 13 K7 (csrc/decode_attention.cu), a decode step's attention block:
+         (a) against its plain version (decode_attention_reference) at the
+         poison cells' shapes (bf16, B 8, Hq 32, Hkv 8, Dh 128, 928 and
+         3,232 slots), HF llama3 RoPE scaling, a TP=2 rank's heads (16 /
+         4), the HF 8B f32 tree's heads, qa_ckpt's (f32, Dh 32, group 1),
+         Dh 64 at groups 2 and 8, Dh 32 at group 1, slot counts off the
+         64-slot chunks; masks with prompt padding, holes, a masked chunk
+         and a row with the write slot alone: the caches it writes equal
+         the plain version's bit for bit, outputs within 2e-2 (bf16) /
+         1e-5 (f32), its attention entry on the plain rope's q equals the
+         step, and one row alone or over a longer cache (extra slots
+         masked) equals the batch; each timed (device time of a replayed
+         graph) beside the plain version, SDPA with enable_gqa and the
+         bound over the valid slots' K/V bytes; (b) decode_window at G = 1
+         equals decode_step bit for bit at 8B width (4 layers); (c) the
+         top-5 decode shape at 8B (B 8, 896 prompt slots, 32 new tokens):
+         kernels a step of the captured graph with K7 and with the plain
+         block, ms a step of both (K7 twice), K7's launches at capture,
+         graph against eager tokens; (d) greedy speculation (D = 4) against
+         plain greedy decode at 8B with int8 weights and the native cache:
+         equal with the f32 tree (K7's f32 body); with the bf16 tree the
+         tokens differing with K7 and with the plain block are reported
+         (rms_norm's row means depend on the row count, counted too).
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -891,6 +916,13 @@ def phase4(dev):
         raise AssertionError(f"phase 4: bad logits {rec['logits_shape']}")
     if st["graph_captures"] < 1:
         raise AssertionError("phase 4: decode captured no CUDA graph")
+    # K7 (bf16 body, native cache): two launches a layer and step, counted
+    # at capture; each capture runs at least one step
+    need_k7 = 2 * n_layers * st["graph_captures"]
+    if launches.get("decode_attention", 0) < need_k7:
+        raise AssertionError(
+            f"phase 4: K7 launched {launches.get('decode_attention', 0)} "
+            f"< {need_k7}")
     rec["profile"] = _profile_window(res.generator, dev)
     log(f"[phase4] profile {json.dumps(rec['profile'])}")
     rec["graph_vs_eager"], _ = _decode_graph_vs_eager(res.generator, dev)
@@ -2776,7 +2808,9 @@ def _p9_llama_int8(dev, root):
         raise AssertionError(f"phase 9(d): K6-f32 launched "
                              f"{launches.get('int8_matmul_f32', 0)} < 225 "
                              "(one round's products)")
-    for key in ("sdag_prefill_f32", "bm25_scan_topk"):
+    # the windows attend row by row through K7's f32 body (two launches a
+    # row and layer)
+    for key in ("sdag_prefill_f32", "bm25_scan_topk", "decode_attention"):
         if not launches.get(key, 0):
             raise AssertionError(f"phase 9(d): {key} never launched")
     if not rec["outputs_written"]:
@@ -4863,6 +4897,334 @@ def _first_batch_questions(cfg):
         :cfg.BATCH_SIZE_EMBED_Q]
 
 
+# ---------------------------------------------------------------- phase 13
+# K7 against its plain version: the K/V it writes bit for bit; outputs
+# within 4x the largest error read on the card over these cases (9.8e-4
+# bf16: p and the output round to bf16 at other sums; 4.0e-7 f32: sums in
+# another order over <= 4K terms, limit 25x), and each row within the
+# row-relative limits of K1 (a dropped chunk or a few leaked slots in a
+# long row sit under any absolute limit)
+K7_BF16_TOL, K7_F32_TOL = 4e-3, 1e-5
+# (name, dtype, B, Hq, Hkv, Dh, slots, rope theta, HF llama3 scaling)
+K7_CASES = (
+    ("a_top5_bf16", "bfloat16", 8, 32, 8, 128, 928, 1e6, None),
+    ("b_top20_bf16", "bfloat16", 8, 32, 8, 128, 3232, 1e6, None),
+    ("c_llama3_bf16", "bfloat16", 8, 32, 8, 128, 1056, 5e5,
+     (8.0, 1.0, 4.0, 8192)),
+    ("d_tp2_rank_bf16", "bfloat16", 8, 16, 4, 128, 928, 1e6, None),
+    ("e_hf8b_f32", "float32", 8, 32, 8, 128, 672, 5e5, (8.0, 1.0, 4.0, 8192)),
+    ("f_qa_ckpt_f32", "float32", 8, 6, 6, 32, 672, 5e5, None),
+    ("g_dh64_g2_bf16", "bfloat16", 3, 8, 4, 64, 200, 1e4, None),
+    ("h_dh64_g8_f32", "float32", 2, 16, 2, 64, 130, 1e4, None),
+    ("i_dh32_g1_bf16", "bfloat16", 5, 4, 4, 32, 65, 1e4, None),
+)
+
+
+def _k7_mask(g, dev, B, S, w):
+    """A decode step's valid slots: a ragged prompt (its tail padding and
+    a few holes masked), generated slots up to the write slot ``w``; row
+    0 with a whole masked chunk inside its prompt, the last row with the
+    write slot alone."""
+    import torch
+    lp = max(1, w - 16)
+    vl = torch.randint(max(1, lp // 2), lp + 1, (B,), generator=g,
+                       device=dev)
+    j = torch.arange(S, device=dev)[None, :]
+    mask = (j < vl[:, None]) & (torch.rand(B, S, generator=g, device=dev)
+                                > 0.05)
+    mask |= (j >= lp) & (j <= w)
+    if lp > 192:
+        mask[0, 64:128] = False
+    mask[-1] = j[0] == w
+    return mask
+
+
+def _k7_case(name, dtype, B, Hq, Hkv, Dh, S, theta, scaling, g, dev,
+             timed=True):
+    """One K7 case against its plain version on the card: the step's
+    caches bit-equal, outputs within the dtype's absolute and row-relative
+    limits, which must flag the attention entry run with one chunk of a
+    row's valid slots dropped (a planted fault); the attention entry over
+    the written cache, on q rotated by the plain rope, equal to the step
+    bit for bit; one row alone, and over a longer cache whose extra slots
+    are masked, equal too (row independence).  Timed: device
+    time of a replayed graph of K7, the plain version and SDPA (enable_gqa,
+    the yardstick), and the bound over the valid slots' K/V bytes."""
+    import torch
+    import torch.nn.functional as F
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.llama import rope_freqs
+    from sdag_tpu_torch.ops import attention as A
+    dt = getattr(torch, dtype)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dt)
+    q, k, v = rnd(B, Hq, Dh), rnd(B, Hkv, Dh), rnd(B, Hkv, Dh)
+    kc, vc = rnd(B, Hkv, S, Dh), rnd(B, Hkv, S, Dh)
+    w = S - 1 - int(torch.randint(0, min(S, 24), (1,), generator=g,
+                                  device=dev))
+    mask = _k7_mask(g, dev, B, S, w)
+    positions = torch.randint(0, 4096, (B,), generator=g, device=dev)
+    positions[0] = 30000
+    wi = torch.tensor([w], device=dev)
+    freqs = rope_freqs(Dh // 2, theta, scaling, dev)
+    kc_p, vc_p, kc_k, vc_k = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    out_p = A.decode_attention_reference(q, k, v, kc_p, vc_p, mask, wi,
+                                         positions, freqs)
+    before = LAUNCHES["decode_attention"]
+    out_k = A.decode_attention_cuda(q, kc_k, vc_k, mask,
+                                    new_kv=(k, v, wi, positions, freqs))
+    torch.cuda.synchronize()
+    launches = LAUNCHES["decode_attention"] - before
+    kv_equal = torch.equal(kc_k, kc_p) and torch.equal(vc_k, vc_p)
+    every_row = torch.ones(B, 1, dtype=torch.bool, device=dev)
+    err, row_err = _row_errors(out_k[:, :, None], out_p[:, :, None],
+                               every_row)
+    q_rot = A.apply_rope(q[:, :, None], positions[:, None], freqs)[:, :, 0]
+    entry = A.decode_attention_cuda(q_rot, kc_k, vc_k, mask)
+    # planted fault: the row with the most valid slots loses the chunk
+    # that holds most of them
+    f = int(mask.sum(1).argmax())
+    per_chunk = F.pad(mask[f], (0, -S % A.K7_CHUNK)).view(
+        -1, A.K7_CHUNK).sum(1)
+    c = int(per_chunk.argmax())
+    dropped = mask.clone()
+    dropped[f, c * A.K7_CHUNK:(c + 1) * A.K7_CHUNK] = False
+    fault_err, fault_row_err = _row_errors(
+        A.decode_attention_cuda(q_rot, kc_k, vc_k, dropped)[:, :, None],
+        out_p[:, :, None], every_row)
+    r = 1
+    alone = A.decode_attention_cuda(q_rot[r:r + 1], kc_k[r:r + 1].clone(),
+                                    vc_k[r:r + 1].clone(), mask[r:r + 1])
+    extra = 70
+    kl = torch.zeros(B, Hkv, S + extra, Dh, dtype=dt, device=dev)
+    vl = torch.zeros_like(kl)
+    kl[:, :, :S], vl[:, :, :S] = kc_k, vc_k
+    kl[:, :, S:], vl[:, :, S:] = rnd(B, Hkv, extra, Dh), rnd(B, Hkv, extra, Dh)
+    longer = A.decode_attention_cuda(q_rot, kl, vl, torch.cat(
+        [mask, torch.zeros(B, extra, dtype=torch.bool, device=dev)], 1))
+    torch.cuda.synchronize()
+    tol, row_tol = (K7_BF16_TOL, BF16_ROW_TOL) if dt == torch.bfloat16 \
+        else (K7_F32_TOL, F32_ROW_TOL)
+    rec = {"name": name, "dtype": dtype, "shape": [B, Hq, Hkv, S, Dh],
+           "launches": launches, "kv_bit_equal": kv_equal,
+           "max_abs_err": err, "tol": tol, "max_row_rel_err": row_err,
+           "row_tol": row_tol, "dropped_chunk_slots": int(per_chunk[c]),
+           "dropped_chunk_abs_err": fault_err,
+           "dropped_chunk_row_rel_err": fault_row_err,
+           "entry_equals_step": torch.equal(entry, out_k),
+           "row_alone_equal": torch.equal(alone[0], out_k[r]),
+           "longer_cache_equal": torch.equal(longer, out_k),
+           "valid_slots": int(mask.sum())}
+    if timed:
+        item = torch.tensor([], dtype=dt).element_size()
+        nbytes = 2 * int(mask.sum()) * Hkv * Dh * item
+        sdpa_mask = mask[:, None, None, :]
+        rec.update(
+            ms=device_ms(lambda: A.decode_attention_cuda(
+                q, kc_k, vc_k, mask, new_kv=(k, v, wi, positions, freqs)),
+                calls=20),
+            plain_ms=device_ms(lambda: A.decode_attention_reference(
+                q, k, v, kc_p, vc_p, mask, wi, positions, freqs), calls=20),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q_rot[:, :, None], kc_k, vc_k, attn_mask=sdpa_mask,
+                enable_gqa=True), calls=20),
+            bound_ms=1e3 * nbytes / H100_BYTES_PER_S, bound_by="bytes",
+            bound_all_slots_ms=1e3 * 2 * B * Hkv * S * Dh * item
+            / H100_BYTES_PER_S)
+        rec["roofline"] = rec["bound_ms"] / rec["ms"]
+    flagged = fault_err > tol or fault_row_err > row_tol
+    ok = kv_equal and err <= tol and row_err <= row_tol and flagged \
+        and launches == 2 and all(
+            rec[key] for key in ("entry_equals_step", "row_alone_equal",
+                                 "longer_cache_equal"))
+    log(f"[phase13] {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"phase 13: K7 case {name} failed: {rec}")
+    return rec
+
+
+def _k7_window_rows(dev, G, int8_weights):
+    """decode_window over G tokens against G decode steps on the same
+    cache (teacher-forced: the same tokens), at the 8B width (4 layers,
+    random bf16 weights; int8 ones, K6, where G > 1 needs a product's rows
+    independent of the row count): each row's logits and the caches bit
+    for bit (the window rotates by the plain rope and scatters, the steps
+    run K7's whole block)."""
+    import dataclasses
+    import torch
+    from sdag_tpu_torch.models.llama import (DecoderConfig, decode_step,
+                                             decode_window,
+                                             init_decoder_params,
+                                             make_kv_cache,
+                                             quantize_decoder_params_int8)
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    cfg = dataclasses.replace(DecoderConfig.llama3_8b(), n_layers=4)
+    params = init_decoder_params(g, cfg, device=dev)
+    if int8_weights:
+        params = quantize_decoder_params_int8(params, consume=True)
+    B, S, w = 8, 928, 900
+    cache = make_kv_cache(cfg, B, S, device=dev)
+    for key in ("k", "v"):
+        cache[key].copy_(torch.randn(cache[key].shape, generator=g,
+                                     device=dev))
+    mask = _k7_mask(g, dev, B, S, w)
+    j = torch.arange(S, device=dev)
+    masks = [mask | ((j >= w) & (j <= w + i))[None, :] for i in range(G)]
+    tokens = torch.randint(0, cfg.vocab_size, (B, G), generator=g,
+                           device=dev)
+    positions = torch.randint(0, 1000, (B, 1), generator=g, device=dev) \
+        + torch.arange(G, device=dev)
+    c_step = {k: t.clone() for k, t in cache.items()}
+    c_win = {k: t.clone() for k, t in cache.items()}
+    ls = torch.stack([decode_step(
+        params, cfg, tokens[:, i], positions[:, i], c_step,
+        torch.tensor([w + i], device=dev), masks[i])[0]
+        for i in range(G)], 1)
+    lw, _ = decode_window(params, cfg, tokens, positions, c_win,
+                          torch.full((B,), w, device=dev),
+                          torch.stack(masks, 1))
+    rec = {"G": G, "int8_weights": int8_weights,
+           "logits_equal": torch.equal(ls, lw),
+           "logits_max_abs_diff": float((ls - lw).abs().max()),
+           "caches_equal": all(torch.equal(c_step[k], c_win[k])
+                               for k in ("k", "v"))}
+    log(f"[phase13] window rows vs steps {json.dumps(rec)}")
+    del params, cache, c_step, c_win
+    torch.cuda.empty_cache()
+    if not (rec["logits_equal"] and rec["caches_equal"]):
+        raise AssertionError(f"phase 13: a window row differs from the "
+                             f"decode step: {rec}")
+    return rec
+
+
+def _graph_kernels(graph) -> int:
+    """Kernels (and memcpy / memset nodes) one replay of ``graph`` runs,
+    counted by torch.profiler (a replayed graph's nodes reach CUPTI one
+    by one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def _k7_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
+    """The top-5 cell's decode shape at the 8B width and depth (random
+    bf16 weights, batch 8, 896 prompt slots with 782 valid, 32 new
+    tokens): the captured 8-step graph with K7 and with the plain
+    attention block swapped in; kernels a step in one replay, ms a step
+    over replays (same card, same call), K7's launches at capture; then
+    graph against eager tokens through K7 (greedy and sampled)."""
+    import torch
+    import sdag_tpu_torch.models.llama as L
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.ops import attention as A
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = init_decoder_params(g, cfg, device=dev)
+    rec = {}
+    for name, attention in (("k7", A.decode_attention),
+                            ("plain", A.decode_attention_reference)):
+        L.decode_attention = attention
+        try:
+            gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
+                            batch_bucket=8, device=dev)
+            before = LAUNCHES["decode_attention"]
+            buf = gen._buffers(8, lp, max_new, graphs=True)
+            launches = LAUNCHES["decode_attention"] - before
+        finally:
+            L.decode_attention = A.decode_attention
+        buf.base_mask[:, :prompt] = True
+        graph = buf.graphs[gen.decode_chunk]
+        buf.t.zero_()
+        kernels = _graph_kernels(graph)
+        times = []
+        for _ in range(replays):
+            buf.t.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / gen.decode_chunk)
+        rec[name] = {"capture_launches": launches,
+                     "kernels_per_step": kernels / gen.decode_chunk,
+                     "ms_per_step": sorted(times)[len(times) // 2],
+                     "ms_per_step_all": times}
+        if name == "k7":
+            rec["graph_vs_eager"], _ = _decode_graph_vs_eager(gen, dev)
+        del gen, buf, graph
+        torch.cuda.empty_cache()
+    rec["kernels_fewer_per_step"] = (rec["plain"]["kernels_per_step"]
+                                     - rec["k7"]["kernels_per_step"])
+    log(f"[phase13] decode graphs {json.dumps(rec)}")
+    del params
+    torch.cuda.empty_cache()
+    if rec["k7"]["capture_launches"] < 2 * cfg.n_layers \
+            or rec["plain"]["capture_launches"] != 0:
+        raise AssertionError(f"phase 13: K7 launches at capture {rec}")
+    if rec["kernels_fewer_per_step"] < 28 * cfg.n_layers:
+        raise AssertionError(f"phase 13: the K7 step graph is not ~31 "
+                             f"kernels a layer smaller: {rec}")
+    return rec
+
+
+def _k7_speculation(dev):
+    """Greedy speculative decode (D = 4) against plain greedy decode at the
+    8B width and depth with int8 weights (K6 keeps a product's rows
+    independent), f32 activations and the native cache (K7's f32 body):
+    the plain steps run K7's whole block, the windows its attention entry;
+    tokens equal, graph against eager (``_p8_equality``)."""
+    import dataclasses
+    import torch
+    import sdag_tpu_torch.models.llama as L
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = dataclasses.replace(L.DecoderConfig.llama3_8b(),
+                              dtype=torch.float32)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = L.quantize_decoder_params_int8(
+        L.init_decoder_params(g, cfg, device=dev), consume=True)
+    gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
+                    batch_bucket=8, device=dev)
+    rec = {"f32": _p8_equality(gen, dev, kv_cache_dtype="native",
+                               tag="phase 13 f32")}
+    del gen, params
+    torch.cuda.empty_cache()
+    log(f"[phase13] speculation {json.dumps(rec)}")
+    return rec
+
+
+def phase13(dev):
+    """K7 (csrc/decode_attention.cu): (a) its cases against the plain
+    version; (b) window rows against decode steps at 8B width (G = 1 on
+    bf16 weights, G = 4 on int8 ones); (c) the top-5 decode graph with K7
+    and with the plain block; (d) greedy speculation against plain greedy
+    at 8B with f32 activations.  Returns the phase's record."""
+    import torch
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    rec = {"a": [_k7_case(*case, g, dev) for case in K7_CASES]}
+    rec["b"] = [_k7_window_rows(dev, 1, False),
+                _k7_window_rows(dev, 4, True)]
+    rec["c"] = _k7_decode_graphs(dev)
+    rec["d"] = _k7_speculation(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "sdag_tpu_torch")):
         print("chip_smoke: the sdag_tpu_torch package is not beside this "
@@ -4905,6 +5267,8 @@ def main() -> int:
     details["phase11"] = p11 = phase11(dev)
     _free_cuda()
     details["phase12"] = p12 = phase12(dev)
+    _free_cuda()
+    details["phase13"] = p13 = phase13(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -4992,6 +5356,18 @@ def main() -> int:
             max_abs_err=max(r["max_abs_err"] for r in p8["k6"]
                             if r["dtype"] == dtype),
             **{key: step[key] for key in keys}))
+    # K7: timed at the top-5 decode step's shape (phase 13 case a),
+    # counted over phase 4's llama3-8b run (its bf16 native cache; a
+    # captured graph's launches count at capture)
+    p13_top5 = {r["name"]: r for r in p13["a"]}["a_top5_bf16"]
+    kernels.append(dict(
+        name="decode_attention", route="cuda",
+        source="sdag_tpu_torch/csrc/decode_attention.cu",
+        replaces="none (XLA in sdag_tpu/ops/attention.py)",
+        launches=p4["launches"].get("decode_attention", 0),
+        max_abs_err=max(r["max_abs_err"] for r in p13["a"]
+                        if r["dtype"] == "bfloat16"),
+        **{key: p13_top5[key] for key in keys}))
     # each kernel at the shard shapes of phase 11 (timed in one process)
     # and its launches per rank in phase 11(b)
     shard = p11["shard_shapes"]
@@ -5115,7 +5491,18 @@ def main() -> int:
         f"{pc['first_losses'][0]:.3f} -> {pc['last_losses'][-1]:.3f}; (e) "
         f"two ranks {json.dumps(pe['errors'])}; phase "
         f"{p12['phase_s']:.1f} s on {card}")
-    log(f"[summary] phases 0-12 in {time.perf_counter() - t_start:.1f} s")
+    p13c = p13["c"]
+    log(f"[summary] phase 13 K7: {len(p13['a'])} cases, K/V bit-equal, "
+        f"outputs within {max(r['max_abs_err'] for r in p13['a']):.3g} "
+        f"(row-relative "
+        f"{max(r['max_row_rel_err'] for r in p13['a']):.3g}), a dropped "
+        f"chunk flagged; window rows = steps (G = 1, 4); top-5 step graph "
+        f"{p13c['k7']['kernels_per_step']:.0f} kernels a step "
+        f"(plain block {p13c['plain']['kernels_per_step']:.0f}), "
+        f"{p13c['k7']['ms_per_step']:.3f} ms a step (plain "
+        f"{p13c['plain']['ms_per_step']:.3f}); greedy speculation = plain "
+        f"greedy at 8B (f32 tree); phase {p13['phase_s']:.1f} s on {card}")
+    log(f"[summary] phases 0-13 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -52,7 +52,14 @@ that builds that tree's kernels with nvcc:
   step (round) (``--only k6`` needs trees with K6);
 * decode at llama3-8b of one 8 x 32 batch in the tree's configurations
   (native, int8 weights, + int8 KV cache, + speculation with D = 4;
-  native alone in a tree without them).
+  native alone in a tree without them);
+* K7 ``decode_attention_cuda`` (a decode step's RoPE, K/V write and
+  attention) at the poison cells' decode shapes (B = 8, Hq = 32, Hkv = 8,
+  Dh = 128, bf16; 928 / 1,056 and 3,104 / 3,232 slots, prompt lengths
+  from each cell's range), beside the plain block and SDPA with
+  enable_gqa, with its bound over the valid slots' K/V bytes and each
+  pass's device time (``--only k7``; a tree without K7 times the plain
+  block alone).
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
@@ -406,7 +413,95 @@ def decode_int8_times(c, dev, out):
         out[f"decode_8b_B8_new32_{name}_ms_per_step"] = rec["ms_per_step"]
 
 
-FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1", "k6", "decode_int8")
+# (cell, prompt slots, prompt lengths drawn from) of the poison cells
+K7_SHAPES = (("top5", 896, (656, 882)), ("top5", 1024, (656, 882)),
+             ("top20", 3072, (2535, 3072)), ("top20", 3200, (2535, 3161)))
+
+
+def k7_times(c, dev, out, new_tokens=32, generated=16, calls=20):
+    """K7, a decode step's attention block, at the poison cells' decode
+    shapes (bf16, B = 8, Hq = 32, Hkv = 8, Dh = 128, prompt slots + 32):
+    each row's prompt length drawn from its cell's range, 16 tokens
+    generated.  Device time a call of a replayed graph of ``calls``
+    calls, launches a call, the bound over the valid slots' K/V bytes
+    (and over every slot's), each pass's device time (torch.profiler),
+    the plain block and SDPA (enable_gqa, rotated q, the yardstick).  A
+    tree without K7 times its decode step's plain block alone."""
+    import torch
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.models import llama as L
+    from sdag_tpu_torch.ops import attention as A
+    B, Hq, Hkv, Dh, theta = 8, 32, 8, 128, 1e6
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    freqs = L.rope_freqs(Dh // 2, theta, None, dev)
+    has_k7 = hasattr(A, "decode_attention_cuda")
+    for cell, lp, (lo, hi) in K7_SHAPES:
+        S = lp + new_tokens
+        name = f"K7_{cell}_S{S}"
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(
+                torch.bfloat16)
+        q, k, v = rnd(B, Hq, Dh), rnd(B, Hkv, Dh), rnd(B, Hkv, Dh)
+        kc, vc = rnd(B, Hkv, S, Dh), rnd(B, Hkv, S, Dh)
+        vl = torch.randint(lo, min(hi, lp) + 1, (B,), generator=g, device=dev)
+        j = torch.arange(S, device=dev)[None, :]
+        mask = (j < vl[:, None]) | ((j >= lp) & (j <= lp + generated))
+        wi = torch.tensor([lp + generated], device=dev)
+        pos = vl + generated
+
+        def plain():
+            if has_k7:
+                return A.decode_attention_reference(q, k, v, kc, vc, mask, wi,
+                                                    pos, freqs)
+            qr = L.rope(q[:, :, None], pos[:, None], theta)
+            kc.index_copy_(2, wi, L.rope(k[:, :, None], pos[:, None], theta))
+            vc.index_copy_(2, wi, v[:, :, None])
+            return A.masked_decode_attention(qr[:, :, 0], kc, vc, mask)
+        valid = int(mask.sum())
+        out[name + "_bound_ms"] = 1e3 * 2 * valid * Hkv * Dh * 2 / \
+            c.H100_BYTES_PER_S
+        out[name + "_bound_all_slots_ms"] = 1e3 * 2 * B * Hkv * S * Dh * 2 / \
+            c.H100_BYTES_PER_S
+        out[name + "_plain_ms"] = graph_ms(plain, calls=calls)
+        qr = L.rope(q[:, :, None], pos[:, None], theta)
+        out[name + "_sdpa_ms"] = graph_ms(
+            lambda: F.scaled_dot_product_attention(
+                qr, kc, vc, attn_mask=mask[:, None, None, :],
+                enable_gqa=True), calls=calls)
+        if not has_k7:
+            continue
+
+        def k7():
+            return A.decode_attention_cuda(q, kc, vc, mask,
+                                           new_kv=(k, v, wi, pos, freqs))
+        before = _build.LAUNCHES["decode_attention"]
+        k7()
+        out[name + "_launches"] = _build.LAUNCHES["decode_attention"] - before
+        out[name + "_ms"] = graph_ms(k7, calls=calls)
+        out[name + "_roofline"] = out[name + "_bound_ms"] / out[name + "_ms"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                k7()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for pas in ("scores", "pv"):
+                if f"sdag_decode_attn_{pas}" in e.key:
+                    dev_us = getattr(e, "self_device_time_total", None)
+                    if dev_us is None:
+                        dev_us = e.self_cuda_time_total
+                    out[f"{name}_{pas}_ms"] = dev_us / 1e3 / e.count
+
+
+FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1", "k6", "decode_int8",
+            "k7")
 
 
 def worker(tree: str, families) -> int:

@@ -11,8 +11,9 @@ one nvcc per stale source, all at once, and waits for them; ptxas'
 register/shared-memory report lands in ``build/<name>.log``.  A failed
 build raises.  ``LAUNCHES`` counts kernel launches per kernel (per kernel
 body where one library holds several, as K1's f32 and bf16 bodies, K4/K5
-in ``topk_matmul.cu`` or K6's two in ``int8_matmul.cu``): each wrapper
-adds one where it launches its kernel, nowhere else.
+in ``topk_matmul.cu`` or K6's two in ``int8_matmul.cu``; K7,
+``decode_attention``, counts its two launches a call under one key): each
+wrapper adds one where it launches its kernel, nowhere else.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("sdag_prefill", "bm25_scan_topk", "encoder_attention",
-           "topk_matmul", "int8_matmul")
+           "topk_matmul", "int8_matmul", "decode_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -4,7 +4,8 @@ Counterpart of ``sdag_tpu/models/llama.py``: RMSNorm, RoPE (with HF
 "llama3" frequency scaling), GQA attention, SwiGLU MLP.  The prefill runs
 the SDAG block-sparse attention (kernel K1 on CUDA) with document metadata
 given, plain causal without; decode attends the whole KV cache causally
-(reference decode semantics).
+(reference decode semantics; over a native cache each layer's RoPE, K/V
+write and attention are kernel K7 on CUDA).
 
 Parameters are a plain dict with the JAX package's tree layout and weight
 orientation (``x @ w``, w: [in, out]), so ``params_from_numpy`` maps a JAX
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from sdag_tpu_torch.ops.attention import (
-    masked_decode_attention, masked_decode_attention_int8,
+    apply_rope, decode_attention, masked_decode_attention_int8,
     masked_decode_window_attention, masked_decode_window_attention_int8,
     prefill_dense_mask, prefill_mask_plan, quantize_kv_heads_int8,
     sdag_attention_dense, sdag_prefill_attention)
@@ -240,14 +241,8 @@ def rope_freqs(half: int, theta: float, rope_scaling,
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          rope_scaling=None) -> torch.Tensor:
     """Rotary embedding.  x: [B, H, L, Dh]; positions: [B, L]."""
-    dh = x.shape[-1]
-    half = dh // 2
-    freqs = rope_freqs(half, theta, rope_scaling, x.device)
-    angles = positions[:, None, :, None].float() * freqs
-    cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x[..., :half], x[..., half:]
-    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return rot.to(x.dtype)
+    return apply_rope(x, positions, rope_freqs(x.shape[-1] // 2, theta,
+                                               rope_scaling, x.device))
 
 
 def _project_qkv(attn: Dict[str, Any], x: torch.Tensor, cfg: DecoderConfig):
@@ -458,7 +453,9 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
     """One decode step: plain causal attention over all valid cache slots
     (reference decode semantics, no isolation after prefill).  Writes the
     step's K/V into ``cache`` in place (quantized per slot into an int8
-    cache); cache_mask must already include the written slot.
+    cache); cache_mask must already include the written slot.  Over a
+    native cache each layer's RoPE, K/V write and attention are one
+    ``decode_attention`` (kernel K7 on CUDA).
     ``write_index``: an int, or a one-element int64 tensor on the cache's
     device (a step captured in a CUDA graph reads the slot from device
     memory).  ``tp_group``: as in ``layer_forward``.  Returns (logits
@@ -468,14 +465,15 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
         write_index = torch.tensor([write_index], device=tokens.device)
     x = _embed_rows(params["embed"], tokens, cfg.dtype)[:, None, :]  # B,1,d
     pos = positions[:, None]
+    freqs = rope_freqs(cfg.head_dim // 2, cfg.rope_theta, cfg.rope_scaling,
+                       tokens.device)
     int8_kv = "k_scale" in cache
     for li, layer in enumerate(params["layers"]):
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
-        q = rope(q, pos, cfg.rope_theta, cfg.rope_scaling)
-        k = rope(k, pos, cfg.rope_theta, cfg.rope_scaling)
         if int8_kv:
-            kv_q, kv_s = _quantize_kv(k, v)
+            q = apply_rope(q, pos, freqs)
+            kv_q, kv_s = _quantize_kv(apply_rope(k, pos, freqs), v)
             for i, name in enumerate(("k", "v")):
                 cache[name][li].index_copy_(2, write_index, kv_q[i])
                 cache[f"{name}_scale"][li].index_copy_(2, write_index,
@@ -484,10 +482,10 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                 q[:, :, 0, :], cache["k"][li], cache["v"][li],
                 cache["k_scale"][li], cache["v_scale"][li], cache_mask)
         else:
-            cache["k"][li].index_copy_(2, write_index, k)
-            cache["v"][li].index_copy_(2, write_index, v)
-            attn_out = masked_decode_attention(q[:, :, 0, :], cache["k"][li],
-                                               cache["v"][li], cache_mask)
+            attn_out = decode_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                        cache["k"][li], cache["v"][li],
+                                        cache_mask, write_index, positions,
+                                        freqs)
         x = x + all_reduce_(_mm(attn_out.reshape(B, 1, -1),
                                 layer["attn"]["wo"]), tp_group)
         x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],

@@ -21,9 +21,14 @@ CUDA-core FMA (K/V tiles staged by cp.async, two q heads of an even GQA
 group sharing each K/V tile).
 
 Decode keeps reference semantics: generated tokens attend the whole cache
-with plain causal attention; it is plain PyTorch (XLA in the JAX package),
-over a native or an int8 cache (per-slot scales folded into the scores and
-the probabilities), one token or a speculative verification window a row.
+with plain causal attention (XLA in the JAX package).  Over a native cache
+a step's whole attention block -- RoPE of q and k, the K/V write, the
+attention -- is one hand-written CUDA kernel on CUDA,
+``csrc/decode_attention.cu`` (kernel K7, ``decode_attention``), whose
+attention entry also serves a verification window row by row; its plain
+version (``decode_attention_reference``) runs on the CPU.  The int8 cache
+(per-slot scales folded into the scores and the probabilities) stays
+plain PyTorch on every device.
 """
 
 from __future__ import annotations
@@ -597,13 +602,207 @@ def masked_decode_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
                            v_scale, cache_mask).to(q.dtype)
 
 
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               freqs: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding at the frequencies ``freqs`` [Dh / 2] f32 (the
+    model's ``rope_freqs``).  x: [B, H, L, Dh]; positions: [B, L].  Angles,
+    cosines, sines and the rotation in f32, rounded once to x's dtype."""
+    half = x.shape[-1] // 2
+    angles = positions[:, None, :, None].float() * freqs
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rot = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rot.to(x.dtype)
+
+
+def decode_attention_reference(q, k, v, k_cache, v_cache, cache_mask,
+                               write_index, positions, freqs):
+    """The plain version of kernel K7: a decode step's attention block.
+
+    q [B, Hq, Dh], k / v [B, Hkv, Dh] as the step's projections return
+    them (q and k not yet rotated); caches [B, Hkv, S, Dh]; cache_mask
+    [B, S]; write_index an int64 [1] tensor; positions [B] (RoPE);
+    freqs [Dh / 2] f32.  Rotates q and k at ``positions``, writes k and v
+    into slot ``write_index`` of the caches in place, and returns
+    ``masked_decode_attention`` of the rotated q over the caches, [B, Hq,
+    Dh] in the cache dtype."""
+    pos = positions[:, None]
+    q = apply_rope(q[:, :, None], pos, freqs)[:, :, 0]
+    k_cache.index_copy_(2, write_index, apply_rope(k[:, :, None], pos,
+                                                   freqs))
+    v_cache.index_copy_(2, write_index, v[:, :, None])
+    return masked_decode_attention(q, k_cache, v_cache, cache_mask)
+
+
+# K7 (csrc/decode_attention.cu): the slots of a chunk (boundaries fixed
+# from slot 0), the head dims and GQA group sizes it is built for, the
+# most slots it attends, the most chunks a pass-1 block takes, pass-1
+# blocks an SM
+K7_CHUNK = 64
+K7_HEAD_DIMS = (32, 64, 128)
+K7_GROUPS = (1, 2, 4, 8)
+K7_MAX_SLOTS = 65536
+K7_MAX_PER_BLOCK = 64
+K7_BLOCKS_PER_SM = 3
+_K7_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _k7_lib():
+    lib = _build.load("decode_attention")
+    if lib.decode_attention.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.decode_attention.argtypes = (
+            [p, ll, ll, p, p, ll, ll, p, p, p, p, p, p, ll, p, p, p, p, ll,
+             ll] + [i] * 8 + [ctypes.c_float, p])
+        lib.decode_attention.restype = i
+    return lib
+
+
+def k7_splits(n_chunks: int, rows: int, sm_count: int) -> int:
+    """Pass-1 blocks a (row, KV head) of K7: one wave of
+    ``K7_BLOCKS_PER_SM`` blocks an SM over the ``rows`` (row, KV head)
+    pairs, each block on at most ``K7_MAX_PER_BLOCK`` chunks.  Which block
+    scores a chunk does not change its bits."""
+    want = max(1, K7_BLOCKS_PER_SM * sm_count // rows)
+    return min(n_chunks, max(want, -(-n_chunks // K7_MAX_PER_BLOCK)))
+
+
+def _k7_rows(name: str, t: torch.Tensor, B: int, H: int, Dh: int,
+             dtype) -> None:
+    """K7 reads (or writes) ``t`` [B, H, Dh] by batch and head strides,
+    each row 16 bytes aligned."""
+    if t.dtype != dtype or tuple(t.shape) != (B, H, Dh):
+        raise ValueError(f"decode_attention_cuda: {name} {tuple(t.shape)} "
+                         f"{t.dtype}, expected ({B}, {H}, {Dh}) {dtype}")
+    if t.stride(2) != 1 or any(s * t.element_size() % 16
+                               for s in t.stride()[:2]) \
+            or t.data_ptr() % 16:
+        raise ValueError(f"decode_attention_cuda: {name} rows must be "
+                         "contiguous and 16-byte aligned")
+
+
+def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
+                          out=None):
+    """Kernel K7 (``csrc/decode_attention.cu``), two launches.
+
+    ``new_kv`` = (k, v, write_index, positions, freqs): the decode step's
+    whole block (``decode_attention_reference``'s function): q given
+    unrotated, k / v [B, Hkv, Dh], write_index int64 [1], positions [B]
+    integers, freqs [Dh / 2] f32; cache_mask must cover every cache slot.
+    None: the attention entry, q given rotated, nothing written.  q [B, Hq,
+    Dh] by batch / head strides (rows contiguous); caches [B, Hkv, S, Dh]
+    contiguous, float32 or bfloat16 like q, Dh in ``K7_HEAD_DIMS``, Hq /
+    Hkv in ``K7_GROUPS``; cache_mask bool [B, S'] (S' <= S, the slots
+    attended); ``out`` [B, Hq, Dh] of the cache dtype to write into (by
+    batch / head strides), else a new tensor.  A row with no valid slot
+    gives 0.  Each launch counts in ``_build.LAUNCHES["decode_attention"]``
+    (at capture, in a CUDA graph)."""
+    B, Hq, Dh = q.shape
+    dtype = k_cache.dtype
+    if dtype not in _K7_DTYPES:
+        raise ValueError(f"decode_attention_cuda: dtype {dtype} unsupported "
+                         "(float32 or bfloat16)")
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape \
+            or v_cache.dtype != dtype or k_cache.shape[0] != B \
+            or k_cache.shape[3] != Dh:
+        raise ValueError(f"decode_attention_cuda: caches {tuple(k_cache.shape)}"
+                         f" / {tuple(v_cache.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
+    Hkv, S_cache = k_cache.shape[1], k_cache.shape[2]
+    if Dh not in K7_HEAD_DIMS or Hq % Hkv or Hq // Hkv not in K7_GROUPS:
+        raise ValueError(f"decode_attention_cuda: head dim {Dh} or group "
+                         f"{Hq}/{Hkv} unsupported")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()) \
+            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError("decode_attention_cuda: caches must be contiguous "
+                         "and 16-byte aligned")
+    S = cache_mask.shape[-1]
+    if cache_mask.dtype != torch.bool or cache_mask.dim() != 2 \
+            or cache_mask.shape[0] != B or cache_mask.stride(1) != 1 \
+            or not 1 <= S <= min(S_cache, K7_MAX_SLOTS):
+        raise ValueError(f"decode_attention_cuda: cache_mask "
+                         f"{tuple(cache_mask.shape)} {cache_mask.dtype} must "
+                         f"be bool [{B}, 1..{min(S_cache, K7_MAX_SLOTS)}] "
+                         "with contiguous rows")
+    _k7_rows("q", q, B, Hq, Dh, dtype)
+    if out is None:
+        out = torch.empty((B, Hq, Dh), dtype=dtype, device=q.device)
+    elif out.dtype != dtype or tuple(out.shape) != (B, Hq, Dh) \
+            or out.stride(2) != 1:
+        raise ValueError("decode_attention_cuda: out must be [B, Hq, Dh] "
+                         "of the cache dtype with contiguous rows")
+    step = (None,) * 5
+    if new_kv is not None:
+        k, v, write_index, positions, freqs = new_kv
+        _k7_rows("k", k, B, Hkv, Dh, dtype)
+        _k7_rows("v", v, B, Hkv, Dh, dtype)
+        if k.stride() != v.stride():
+            raise ValueError("decode_attention_cuda: k and v strides differ")
+        if S != S_cache:
+            raise ValueError("decode_attention_cuda: a step's cache_mask "
+                             "must cover all the cache's slots")
+        if write_index.dtype != torch.int64 or write_index.numel() != 1:
+            raise ValueError("decode_attention_cuda: write_index must be one "
+                             "int64 element")
+        if positions.shape != (B,) or positions.dtype.is_floating_point:
+            raise ValueError("decode_attention_cuda: positions must be [B] "
+                             "integers")
+        if freqs.dtype != torch.float32 or freqs.shape != (Dh // 2,) \
+                or not freqs.is_contiguous():
+            raise ValueError("decode_attention_cuda: freqs must be "
+                             "contiguous float32 [Dh / 2]")
+        step = (k, v, write_index, positions.long().contiguous(), freqs)
+    tensors = [q, k_cache, v_cache, cache_mask, out] + [
+        t for t in step if t is not None]
+    if any(t.device != q.device for t in tensors) or q.device.type != "cuda":
+        raise ValueError("decode_attention_cuda: every tensor must be on "
+                         "q's CUDA device")
+    n_chunks = -(-S // K7_CHUNK)
+    n_split = k7_splits(n_chunks, B * Hkv, _build.sm_count(q.device))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    scores = torch.empty((B, Hq, n_chunks * K7_CHUNK), **f32)
+    bmax = torch.empty((B, Hq, n_split), **f32)
+    live = torch.empty((B, n_chunks), dtype=torch.uint8, device=q.device)
+    k, v, write_index, positions, freqs = step
+    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
+        None if t is None else t.data_ptr())
+    lib = _k7_lib()
+    rc = lib.decode_attention(
+        ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v),
+        0 if k is None else k.stride(0), 0 if k is None else k.stride(1),
+        ptr(positions), ptr(freqs), ptr(write_index), ptr(k_cache),
+        ptr(v_cache), ptr(cache_mask), cache_mask.stride(0), ptr(scores),
+        ptr(bmax), ptr(live), ptr(out), out.stride(0), out.stride(1), B, Hkv,
+        Hq // Hkv, Dh, S, S_cache, n_split, _K7_DTYPES[dtype], Dh ** -0.5,
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(lib, rc, "decode_attention")
+    _build.LAUNCHES["decode_attention"] += 2
+    return out
+
+
+def decode_attention(q, k, v, k_cache, v_cache, cache_mask, write_index,
+                     positions, freqs):
+    """A decode step's attention block over a native cache (arguments as
+    ``decode_attention_reference``): kernel K7 on CUDA, the plain version
+    on the CPU; any other device raises."""
+    if q.device.type == "cpu":
+        return decode_attention_reference(q, k, v, k_cache, v_cache,
+                                          cache_mask, write_index, positions,
+                                          freqs)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no path for device {q.device}")
+    return decode_attention_cuda(q, k_cache, v_cache, cache_mask,
+                                 new_kv=(k, v, write_index, positions, freqs))
+
+
 # A verification window attends row by row through the single-token
 # attention, on the same shapes as a decode step: a step and a window row
 # that see the same cache give the same bits on the card (one batched
 # product over the window's G rows would take other cuBLAS kernels, and
-# greedy speculation would then drift from plain greedy decode).  The
-# window reads the cache G times; the mask may cover a prefix of the
-# cache's slots, and only that prefix is attended.
+# greedy speculation would then drift from plain greedy decode; K7's sums
+# do not depend on the batch or the attended length either).  The window
+# reads the cache G times; the mask may cover a prefix of the cache's
+# slots, and only that prefix is attended.
 
 def masked_decode_window_attention(q, k_cache, v_cache, cache_mask):
     """Multi-token decode attention for speculative verification windows
@@ -612,8 +811,16 @@ def masked_decode_window_attention(q, k_cache, v_cache, cache_mask):
     q: [B, H, G, Dh]; caches [B, Hkv, S, Dh]; cache_mask [B, G, S'] (S' <=
     S), per window row the valid slots (history plus the window's causal
     prefix); the first S' slots are attended.  Output in the cache
-    dtype."""
+    dtype.  On CUDA each row goes through K7's attention entry (written
+    into its place of the output, the cache read where it lies); on the
+    CPU through the plain single-token attention."""
     G, S = q.shape[2], cache_mask.shape[-1]
+    if q.device.type == "cuda":
+        out = torch.empty(q.shape, dtype=v_cache.dtype, device=q.device)
+        for g in range(G):
+            decode_attention_cuda(q[:, :, g], k_cache, v_cache,
+                                  cache_mask[:, g], out=out[:, :, g])
+        return out
     k = k_cache[:, :, :S].contiguous()
     v = v_cache[:, :, :S].contiguous()
     return torch.stack([
