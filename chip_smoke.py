@@ -267,6 +267,23 @@ Phase 13 K7 (csrc/decode_attention.cu), a decode step's attention block:
          tokens differing with K7 and with the plain block are reported
          (rms_norm's row means depend on the row count, counted too).
 
+Phase 14 K8 (csrc/moe_experts.cu) and the windows of Mellum2-12B-A2.5B:
+         (a) K8 against its plain version (moe_experts_reference, given
+         K8's own routes) at the cell's decode shape (B 8, 64 experts, top
+         8, 2,304 x 896, bf16), two rows done, every row on the same
+         experts, B 1, B 32 on the same experts: rows within 1e-2 of their
+         RMS, routes and weights equal to the plain router's, the
+         distinct-expert counter exact, a captured replay equal to the
+         eager call; a dropped expert (its weights zeroed) must read over
+         the limit; timed beside the plain version, route + grouped
+         products, and the bound; (b) the windowed K1 plan and K7's
+         windowed step (YaRN scale) against the plain windowed versions at
+         ~3k tokens / 3,232 slots, bf16 and f32, each with a window one
+         slot too wide that must read over the f32 limits (q = 0 and v's
+         first dim the position: each row's mean over its keys); (c) one
+         period of the model at its widths (4 layers): 32 greedy tokens of
+         8 prompts past the window, captured graphs against eager steps.
+
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
 result.  The last two stdout lines are the kernels JSON and
@@ -5225,6 +5242,386 @@ def phase13(dev):
     return rec
 
 
+# --------------------------------------------------------------- phase 14
+# K8's output is rounded once to bf16 (0.4% of a value); a row's max error
+# over its RMS may read 2.5x that.  Dropping one of 8 routed experts moves
+# a row by about a third of its RMS.
+K8_ROW_TOL = 1e-2
+# the decode shape of mellum2.poison_top20 (B 8, 64 experts, top 8)
+K8_DIMS = (64, 8, 2304, 896)
+P14_WINDOW = 1024
+
+
+def _k8_weights(g, dev, E, d, f):
+    """A layer's router [d, E] and experts (N(0, 1/fan_in), bf16)."""
+    import torch
+
+    def rnd(shape, fan_in):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * fan_in ** -0.5).to(torch.bfloat16)
+    return {"router": rnd((d, E), d), "gate_up": rnd((E, 2 * f, d), d),
+            "down": rnd((E, d, f), f)}
+
+
+def _k8_case(name, x, moe, k, live=None, timed=False, plant=False):
+    """K8 against its plain version given K8's own routes (rows the plain
+    router routes elsewhere, near ties in f32, are counted apart), the
+    routes' weights, the distinct-expert counter, dead rows 0, a captured
+    replay equal to the eager call; planted: one routed expert's weights
+    zeroed must read over the limit; timed: device time of a replayed
+    graph, the bound, the plain version and route + grouped products."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.ops import moe as M
+    dev = x.device
+    B, d = x.shape
+    E, f = moe["gate_up"].shape[0], moe["down"].shape[2]
+    alive = torch.ones(B, dtype=torch.bool, device=dev) if live is None \
+        else live
+    args = (moe["router"], moe["gate_up"], moe["down"], k, True, live)
+    reads = torch.zeros(1, dtype=torch.int64, device=dev)
+    idx_k = torch.empty(B, k, dtype=torch.int32, device=dev)
+    w_k = torch.empty(B, k, dtype=torch.float32, device=dev)
+    before = LAUNCHES["moe_experts"]
+    out_k = M.moe_experts_cuda(x, *args, reads=reads, idx_out=idx_k,
+                               w_out=w_k)
+    launches = LAUNCHES["moe_experts"] - before
+    idx_k = idx_k.long()
+    w_p, idx_p = M.route(x, moe["router"], k)
+    sk, ok = idx_k.sort(-1)
+    sp, op = idx_p.sort(-1)
+    same = (sk == sp).all(-1) & alive
+    w_err = float((w_k.gather(1, ok) - w_p.gather(1, op))[same].abs().max()) \
+        if same.any() else 0.0
+    out_p = M.moe_experts_reference(x, *args, routes=(w_k, idx_k.clamp(
+        min=0)))
+
+    def row_rel(a, b):
+        err = (a.float() - b.float()).abs().amax(-1)
+        rms = b.float().pow(2).mean(-1).sqrt().clamp_min(1e-30)
+        return float((err / rms)[alive].max()), float(err[alive].max())
+    rel, err = row_rel(out_k, out_p)
+    distinct = int(idx_k[alive].unique().numel())
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        M.moe_experts_cuda(x, *args)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        out_g = M.moe_experts_cuda(x, *args)
+    graph.replay()
+    torch.cuda.synchronize()
+    rec = {"name": name, "B": B, "E": E, "k": k, "d": d, "f": f,
+           "launches": launches,
+           "route_rows_differ": int((~same & alive).sum()),
+           "route_weight_max_abs_err": w_err, "max_abs_err": err,
+           "max_row_rel_err": rel, "row_tol": K8_ROW_TOL,
+           "expert_reads": int(reads), "distinct_experts": distinct,
+           "dead_rows_zero": bool((out_k[~alive] == 0).all()),
+           "graph_equal": bool(torch.equal(out_g, out_k))}
+    if not (rel <= K8_ROW_TOL and rec["expert_reads"] == distinct
+            and rec["dead_rows_zero"] and rec["graph_equal"]
+            and w_err <= 1e-5 and launches == 4
+            and rec["route_rows_differ"] <= max(1, B // 8)):
+        raise AssertionError(f"K8 {name}: {json.dumps(rec)}")
+    if plant:
+        e0 = int(idx_k[int(alive.nonzero()[0])][0])
+        broken = dict(moe, gate_up=moe["gate_up"].clone())
+        broken["gate_up"][e0] = 0
+        fault = M.moe_experts_cuda(x, broken["router"], broken["gate_up"],
+                                   broken["down"], k, True, live)
+        rec["fault_max_row_rel_err"] = row_rel(fault, out_p)[0]
+        del broken
+        if not rec["fault_max_row_rel_err"] > K8_ROW_TOL:
+            raise AssertionError(f"K8 {name}: a dropped expert read "
+                                 f"{rec['fault_max_row_rel_err']}")
+    if timed:
+        es = 2
+        nbytes = distinct * 3 * d * f * es + 2 * int(alive.sum()) * d * es
+        flops = 2.0 * 3 * d * f * k * int(alive.sum())
+        t_ops, t_bytes = flops / PEAK_FLOPS["bfloat16"], \
+            nbytes / H100_BYTES_PER_S
+
+        def library():
+            w, i = M.route(x, moe["router"], k)
+            return M.expert_products(x, w, i, moe["gate_up"], moe["down"])
+        rec.update(ms=device_ms(lambda: M.moe_experts_cuda(x, *args),
+                                calls=10, replays=5),
+                   plain_ms=device_ms(lambda: M.moe_experts_reference(
+                       x, *args), calls=3, replays=2),
+                   library_ms=cuda_ms(library, iters=5, warmup=2),
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rec["roofline_share"] = rec["bound_ms"] / rec["ms"]
+    log(f"[phase14] {json.dumps(rec)}")
+    return rec
+
+
+def _p14_k8(dev):
+    """(a) K8 at the cell's decode shape and beside it."""
+    import torch
+    E, k, d, f = K8_DIMS
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    moe = _k8_weights(g, dev, E, d, f)
+
+    def rows(B):
+        return torch.randn(B, d, generator=g, device=dev).to(torch.bfloat16)
+    x = rows(8)
+    live = torch.ones(8, dtype=torch.bool, device=dev)
+    live[[2, 5]] = False
+    same8 = rows(1).expand(8, d).contiguous()
+    recs = [_k8_case("a_decode_b8", x, moe, k, timed=True, plant=True),
+            _k8_case("b_two_rows_done", x, moe, k, live=live),
+            _k8_case("c_every_row_the_same_experts", same8, moe, k),
+            _k8_case("e_b1", rows(1), moe, k),
+            _k8_case("f_b32_same_experts", rows(1).expand(32, d).contiguous(),
+                     moe, k)]
+    by = {r["name"]: r for r in recs}
+    if not by["a_decode_b8"]["distinct_experts"] < E:
+        raise AssertionError("K8: every expert got a row; no empty expert")
+    if by["c_every_row_the_same_experts"]["expert_reads"] != k:
+        raise AssertionError("K8: identical rows read more than k experts")
+    return recs
+
+
+def _p14_layout(L, vl, dev):
+    """An ISO layout of 25 passages with holes between some, ragged valid
+    lengths; (doc_id, nbr, sys_user_len, valid_len, positions)."""
+    import torch
+    from sdag_tpu_torch.models.llama import positions_from_doc_id
+    doc, nbr = _layout_docs(L, 180, 25, 112, False)
+    doc = torch.as_tensor(doc, device=dev)
+    for d in range(3, 25, 4):               # 4 holes after every 4th doc
+        s = 180 + d * 112
+        doc[s:s + 4] = -2
+    doc = doc[None].repeat(len(vl), 1).contiguous()
+    nbr = torch.zeros_like(doc)
+    sul = torch.full((len(vl),), 180, dtype=torch.int32, device=dev)
+    vlt = torch.tensor(vl, dtype=torch.int32, device=dev)
+    return doc, nbr, sul, vlt, positions_from_doc_id(doc)
+
+
+def _p14_k1_window(dev, dtype, uniform, window_k1=P14_WINDOW):
+    """K1 with the windowed plan against the plain windowed version at
+    ~3k tokens (Hq 32, Hkv 4, Dh 128).  ``uniform``: q = 0 and v's first
+    dim the key's position / 1000, so each row's output is the mean over
+    its visible keys and one key more or less shows."""
+    import torch
+    from sdag_tpu_torch.ops import attention as A
+    dt = getattr(torch, dtype)
+    L, B, Hq, Hkv, Dh = 3072, 2, 32, 4, 128
+    doc, nbr, sul, vl, pos = _p14_layout(L, [3000, 2600], dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(141)
+    q = torch.randn(B, Hq, L, Dh, generator=g, device=dev).to(dt)
+    k = torch.randn(B, Hkv, L, Dh, generator=g, device=dev).to(dt)
+    v = torch.randn(B, Hkv, L, Dh, generator=g, device=dev).to(dt)
+    if uniform:
+        q.zero_()
+        v[..., 0] = (pos.float() / 1000)[:, None, :].to(dt)
+    plan = A.prefill_mask_plan(doc, nbr, sul, vl, window=window_k1,
+                               positions=pos)
+    out_k = A.sdag_prefill_cuda(q, k, v, plan)
+    out_p = A.sdag_attention_reference(q, k, v, doc, nbr, sul, valid_len=vl,
+                                       window=P14_WINDOW, positions=pos)
+    torch.cuda.synchronize()
+    rows = (torch.arange(L, device=dev)[None] < vl[:, None]) & (doc != -2)
+    err, row_err = _row_errors(out_k, out_p, rows)
+    full = A.prefill_mask_plan(doc, nbr, sul, vl)
+    return {"dtype": dtype, "uniform": uniform, "window_k1": window_k1,
+            "max_abs_err": err, "max_row_rel_err": row_err,
+            "live_tiles": int((plan["kinds"] > 0).sum()),
+            "live_tiles_without_window": int((full["kinds"] > 0).sum()),
+            "partial_tiles": int((plan["kinds"] == A.BLOCK_PARTIAL).sum())}
+
+
+def _p14_k7_window(dev, dtype, uniform, window_k7=P14_WINDOW, timed=False):
+    """K7's step at a windowed layer (the mask as the Generator builds it
+    from each slot's RoPE position, the YaRN scale) against the plain
+    block at the cell's decode shape (B 8, Hq 32, Hkv 4, Dh 128, 3,232
+    slots); ``uniform`` as in ``_p14_k1_window``."""
+    import torch
+    from sdag_tpu_torch.models.llama import DecoderConfig, layer_freqs
+    from sdag_tpu_torch.ops import attention as A
+    dt = getattr(torch, dtype)
+    cfg = DecoderConfig.mellum2_12b_a2p5b()
+    B, Hq, Hkv, Dh, lp, t = 8, 32, 4, 128, 3200, 17
+    S = lp + 32
+    g = torch.Generator(device=dev)
+    g.manual_seed(142)
+    doc, _, _, vl, _ = _p14_layout(lp, [3100 - 60 * i for i in range(B)],
+                                   dev)
+    slot = torch.arange(S, device=dev)[None]
+    visible = (slot[:, :lp] < vl[:, None]) & (doc != -2)
+    real = visible.sum(1)
+    spos = torch.cat([visible.cumsum(1) - 1, real[:, None] + slot[:, lp:]
+                      - lp], 1)
+    mask = torch.cat([visible, (slot[:, lp:] <= lp + t).expand(B, -1)], 1)
+    qpos = real + t
+    wmask = mask & (spos > (qpos - window_k7)[:, None])
+    wmask_p = mask & (spos > (qpos - P14_WINDOW)[:, None])
+    q = torch.randn(B, Hq, Dh, generator=g, device=dev).to(dt)
+    kn, vn = (torch.randn(B, Hkv, Dh, generator=g, device=dev).to(dt)
+              for _ in range(2))
+    kc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dt)
+    vc = torch.randn(B, Hkv, S, Dh, generator=g, device=dev).to(dt)
+    if uniform:
+        q.zero_()
+        vc[..., 0] = (spos.float() / 1000)[:, None, :].to(dt)
+        vn[..., 0] = (qpos.float() / 1000)[:, None].to(dt)
+    wi = torch.tensor([lp + t], device=dev)
+    freqs = layer_freqs(cfg, 0, dev)
+    scale = cfg.attn_scale(3)
+    kc_p, vc_p = kc.clone(), vc.clone()
+    out_p = A.decode_attention_reference(q, kn, vn, kc_p, vc_p, wmask_p, wi,
+                                         qpos, freqs, scale)
+    out_k = A.decode_attention_cuda(q, kc, vc, wmask,
+                                    new_kv=(kn, vn, wi, qpos, freqs),
+                                    scale=scale)
+    torch.cuda.synchronize()
+    every = torch.ones(B, 1, dtype=torch.bool, device=dev)
+    err, row_err = _row_errors(out_k[:, :, None], out_p[:, :, None], every)
+    rec = {"dtype": dtype, "uniform": uniform, "window_k7": window_k7,
+           "slots": S, "valid_slots": int(mask.sum()),
+           "window_slots": int(wmask.sum()), "max_abs_err": err,
+           "max_row_rel_err": row_err}
+    if timed:
+        rec["ms_window"] = device_ms(lambda: A.decode_attention_cuda(
+            q, kc, vc, wmask, new_kv=(kn, vn, wi, qpos, freqs), scale=scale))
+        rec["ms_full"] = device_ms(lambda: A.decode_attention_cuda(
+            q, kc, vc, mask, new_kv=(kn, vn, wi, qpos, freqs)))
+    return rec
+
+
+def _p14_windows(dev):
+    """(b) the windowed K1 plan and K7 against their plain versions; a
+    window one slot off must read over the limits."""
+    out = {}
+    for kern, fn in (("k1", _p14_k1_window), ("k7", _p14_k7_window)):
+        tol = {"bfloat16": (BF16_TOL, BF16_ROW_TOL),
+               "float32": (F32_TOL, F32_ROW_TOL)}
+        for dtype, uniform in (("bfloat16", False), ("float32", True)):
+            kw = {"timed": True} if kern == "k7" and dtype == "bfloat16" \
+                else {}
+            rec = fn(dev, dtype, uniform, **kw)
+            lim, row_lim = tol[dtype]
+            rec.update(tol=lim, row_tol=row_lim)
+            log(f"[phase14] {kern} window {json.dumps(rec)}")
+            if not (rec["max_abs_err"] <= lim
+                    and rec["max_row_rel_err"] <= row_lim):
+                raise AssertionError(f"{kern} window: {json.dumps(rec)}")
+            out[f"{kern}_{dtype}"] = rec
+        fault = fn(dev, "float32", True, P14_WINDOW + 1)
+        log(f"[phase14] {kern} window one slot off {json.dumps(fault)}")
+        if fault["max_abs_err"] <= F32_TOL \
+                and fault["max_row_rel_err"] <= F32_ROW_TOL:
+            raise AssertionError(f"{kern}: a window one slot off passed")
+        out[f"{kern}_fault_one_slot_off"] = fault
+    return out
+
+
+def _p14_decode(dev):
+    """(c) Mellum2-12B-A2.5B whole, as mellum2.poison_top20 serves it (28
+    layers, random bf16 weights, 24.3 GB): a NO-ISO batch of 8 prompts of
+    ~3k tokens (past the window), 32 greedy tokens in captured graphs,
+    the launches counted from zero over that decode (a captured graph's
+    count at capture; each capture holds at least one step): K8 at least
+    4 x 28 and K7 at least 2 x 28 a capture.  Then the eager steps and the
+    graphs again: tokens and expert reads equal; ms a step."""
+    import numpy as np
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.llama import (DecoderConfig,
+                                             init_decoder_params)
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.mellum2_12b_a2p5b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(143)
+    params = init_decoder_params(g, cfg, device=dev)
+
+    class Tok:
+        pad_token_id, eos_token_id = 0, 1
+    gen = Generator(params, cfg, Tok(), temperature=0.0, device=dev)
+    rng = np.random.default_rng(143)
+    lens = [3100 - 37 * i for i in range(8)]
+    lp = 3200
+    ids = torch.zeros(8, lp, dtype=torch.int32)
+    for i, n in enumerate(lens):
+        ids[i, :n] = torch.from_numpy(rng.integers(300, cfg.vocab_size, n))
+    ids = ids.to(dev)
+    doc = torch.full((8, lp), -1, dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(doc)
+    vl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    sul = torch.zeros(8, dtype=torch.int32, device=dev)
+    runs = []
+    for mode in (True, False, True):
+        LAUNCHES.clear()
+        captures = gen.stats["graph_captures"]
+        before = (gen.stats["decode_s"], gen.stats["decode_steps"],
+                  gen.stats["moe_decode_expert_reads"])
+        out, lengths = gen._generate(ids, doc, zeros, sul, vl, 32,
+                                     graphs=mode)
+        runs.append({
+            "tokens": out.cpu().tolist(), "lengths": lengths.cpu().tolist(),
+            "launches": {k: LAUNCHES[k] for k in ("moe_experts",
+                                                  "decode_attention")},
+            "captures": gen.stats["graph_captures"] - captures,
+            "steps": gen.stats["decode_steps"] - before[1],
+            "ms_a_step": 1e3 * (gen.stats["decode_s"] - before[0])
+            / max(1, gen.stats["decode_steps"] - before[1]),
+            "expert_reads": gen.stats["moe_decode_expert_reads"]
+            - before[2]})
+    graph, eager, again = runs
+    n_l = cfg.n_layers
+    rec = {"layers": n_l, "prompt_lens": lens,
+           "graphs_equal_eager": graph["tokens"] == eager["tokens"]
+           == again["tokens"],
+           "expert_reads_graph": graph["expert_reads"],
+           "expert_reads_eager": eager["expert_reads"],
+           "graph_ms_a_step": again["ms_a_step"],
+           "eager_ms_a_step": eager["ms_a_step"],
+           "graph_captures": graph["captures"],
+           "launches": graph["launches"],
+           "k8_launches_eager": eager["launches"]["moe_experts"],
+           "moe_prefill_rows": gen.stats["moe_prefill_rows"],
+           "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    log(f"[phase14] decode {json.dumps(rec)}")
+    need_k8, need_k7 = 4 * n_l * graph["captures"], \
+        2 * n_l * graph["captures"]
+    if not (rec["graphs_equal_eager"] and graph["expert_reads"]
+            == eager["expert_reads"] == again["expert_reads"] > 0
+            and graph["captures"] >= 1
+            and graph["launches"]["moe_experts"] >= need_k8
+            and graph["launches"]["decode_attention"] >= need_k7
+            and rec["k8_launches_eager"] == 4 * n_l * eager["steps"] > 0):
+        raise AssertionError(f"phase 14 decode (K8 >= {need_k8}, K7 >= "
+                             f"{need_k7} launches): {json.dumps(rec)}")
+    del gen, params
+    _free_cuda()
+    return rec
+
+
+def phase14(dev):
+    """K8 (csrc/moe_experts.cu) and the windows: (a) K8 against its plain
+    version at the cell's decode shape (B 8, 64 experts, top 8, 2,304 x
+    896) and beside it (a step where two rows are done, every row on the
+    same experts, B 1, B 32), a dropped expert
+    planted; (b) the windowed K1 plan and K7 against their plain versions
+    at ~3k slots, a window one slot off planted; (c) the whole model at
+    its widths: captured decode (K7 and K8 launches counted) against
+    eager.  Returns the phase's record."""
+    t0 = time.perf_counter()
+    rec = {"a": _p14_k8(dev)}
+    _free_cuda()
+    rec["b"] = _p14_windows(dev)
+    _free_cuda()
+    rec["c"] = _p14_decode(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(REPO, "sdag_tpu_torch")):
         print("chip_smoke: the sdag_tpu_torch package is not beside this "
@@ -5269,6 +5666,8 @@ def main() -> int:
     details["phase12"] = p12 = phase12(dev)
     _free_cuda()
     details["phase13"] = p13 = phase13(dev)
+    _free_cuda()
+    details["phase14"] = p14 = phase14(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -5368,6 +5767,16 @@ def main() -> int:
         max_abs_err=max(r["max_abs_err"] for r in p13["a"]
                         if r["dtype"] == "bfloat16"),
         **{key: p13_top5[key] for key in keys}))
+    # K8: timed at mellum2.poison_top20's decode shape (phase 14 case a),
+    # counted over phase 14(c)'s captured decode of the whole model
+    p14_a = p14["a"][0]
+    kernels.append(dict(
+        name="moe_experts", route="cuda",
+        source="sdag_tpu_torch/csrc/moe_experts.cu",
+        replaces="none (no expert layer in sdag_tpu)",
+        launches=p14["c"]["launches"]["moe_experts"],
+        max_abs_err=max(r["max_abs_err"] for r in p14["a"]),
+        **{key: p14_a[key] for key in keys}))
     # each kernel at the shard shapes of phase 11 (timed in one process)
     # and its launches per rank in phase 11(b)
     shard = p11["shard_shapes"]
@@ -5502,7 +5911,19 @@ def main() -> int:
         f"{p13c['k7']['ms_per_step']:.3f} ms a step (plain "
         f"{p13c['plain']['ms_per_step']:.3f}); greedy speculation = plain "
         f"greedy at 8B (f32 tree); phase {p13['phase_s']:.1f} s on {card}")
-    log(f"[summary] phases 0-13 in {time.perf_counter() - t_start:.1f} s")
+    k8, p14c = p14["a"][0], p14["c"]
+    log(f"[summary] phase 14 K8: {len(p14['a'])} cases within "
+        f"{max(r['max_row_rel_err'] for r in p14['a']):.3g} of a row's RMS, "
+        f"a dropped expert {k8['fault_max_row_rel_err']:.3g}; "
+        f"{k8['ms']:.4f} ms a call at the cell's shape (bound "
+        f"{k8['bound_ms']:.4f}); windowed K1 / K7 within their limits, a "
+        f"window one slot off flagged; the whole Mellum2 graph = eager, "
+        f"{p14c['graph_ms_a_step']:.2f} ms a step, K8 "
+        f"{p14c['launches']['moe_experts']} / K7 "
+        f"{p14c['launches']['decode_attention']} launches over "
+        f"{p14c['graph_captures']} captures; phase "
+        f"{p14['phase_s']:.1f} s on {card}")
+    log(f"[summary] phases 0-14 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -59,7 +59,12 @@ that builds that tree's kernels with nvcc:
   from each cell's range), beside the plain block and SDPA with
   enable_gqa, with its bound over the valid slots' K/V bytes and each
   pass's device time (``--only k7``; a tree without K7 times the plain
-  block alone).
+  block alone);
+* K8 ``moe_experts_cuda`` (a decode step's expert layer) at
+  mellum2.poison_top20's decode shape, beside its plain version and the
+  library's grouped products, with its bound and each kernel's device
+  time, and the prefill's expert products grouped and per expert
+  (``--only k8``; a tree without K8 times nothing).
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
@@ -500,8 +505,76 @@ def k7_times(c, dev, out, new_tokens=32, generated=16, calls=20):
                     out[f"{name}_{pas}_ms"] = dev_us / 1e3 / e.count
 
 
+def k8_times(c, dev, out, calls=10):
+    """K8, a decode step's expert layer, at mellum2.poison_top20's decode
+    shape (B = 8, 64 experts, top 8, d = 2,304, F = 896, bf16; one layer's
+    experts, 792 MB, so every call reads its weights from device memory):
+    device time a call of a replayed graph, launches, the bound (the
+    distinct experts' bytes and the rows in and out, or the routed rows'
+    operations at 989 TFLOP/s), each kernel's device time
+    (torch.profiler), the plain version's and the library's (route +
+    ``torch._grouped_mm`` over the picks sorted by expert).  Then the
+    prefill's expert products at a top-20 LLM batch's routed rows (23,200
+    tokens x 8) both ways (``ops/moe.py`` ``_expert_products``).  A tree
+    without K8 times nothing."""
+    import importlib.util
+    if importlib.util.find_spec("sdag_tpu_torch.ops.moe") is None:
+        return
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.ops import moe as M
+    E, k, d, f = c.K8_DIMS
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    moe = c._k8_weights(g, dev, E, d, f)
+    w3 = (moe["router"], moe["gate_up"], moe["down"], k)
+    x = torch.randn(8, d, generator=g, device=dev).to(torch.bfloat16)
+    reads = torch.zeros(1, dtype=torch.int64, device=dev)
+    before = _build.LAUNCHES["moe_experts"]
+    M.moe_experts_cuda(x, *w3, reads=reads)
+    out["K8_b8_launches"] = _build.LAUNCHES["moe_experts"] - before
+    out["K8_b8_expert_reads"] = int(reads)
+    nbytes = int(reads) * 3 * d * f * 2 + 2 * 8 * d * 2
+    flops = 2.0 * 3 * d * f * k * 8
+    out["K8_b8_bound_ms"] = 1e3 * max(nbytes / c.H100_BYTES_PER_S,
+                                      flops / c.PEAK_FLOPS["bfloat16"])
+    out["K8_b8_ms"] = graph_ms(lambda: M.moe_experts_cuda(x, *w3),
+                               calls=calls)
+    out["K8_b8_roofline"] = out["K8_b8_bound_ms"] / out["K8_b8_ms"]
+    out["K8_b8_plain_ms"] = graph_ms(
+        lambda: M.moe_experts_reference(x, *w3), calls=3)
+
+    def library():
+        w, i = M.route(x, moe["router"], k)
+        return M.expert_products(x, w, i, moe["gate_up"], moe["down"])
+    out["K8_b8_library_ms"] = c.cuda_ms(library, iters=5, warmup=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            M.moe_experts_cuda(x, *w3)
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and "sdag_moe" in e.key:
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = e.self_cuda_time_total
+            name = e.key.split("sdag_moe_")[1].split("<")[0].split("(")[0]
+            out[f"K8_b8_{name}_ms"] = dev_us / 1e3 / e.count
+    T = 23200
+    u = torch.randn(T, d, generator=g, device=dev).to(torch.bfloat16)
+    w, i = M.route(u, moe["router"], k)
+    out["K8_prefill_bound_ms"] = 1e3 * 2.0 * 3 * d * f * k * T / \
+        c.PEAK_FLOPS["bfloat16"]
+    for way in ("grouped", "per_expert"):
+        out[f"K8_prefill_{way}_ms"] = c.cuda_ms(
+            lambda: M._expert_products(u, w, i, moe["gate_up"], moe["down"],
+                                       way == "grouped"), iters=5, warmup=2)
+
+
 FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1", "k6", "decode_int8",
-            "k7")
+            "k7", "k8")
 
 
 def worker(tree: str, families) -> int:

@@ -12,7 +12,8 @@ register/shared-memory report lands in ``build/<name>.log``.  A failed
 build raises.  ``LAUNCHES`` counts kernel launches per kernel (per kernel
 body where one library holds several, as K1's f32 and bf16 bodies, K4/K5
 in ``topk_matmul.cu`` or K6's two in ``int8_matmul.cu``; K7,
-``decode_attention``, counts its two launches a call under one key): each
+``decode_attention``, counts its two launches a call under one key, K8,
+``moe_experts``, its four): each
 wrapper adds one where it launches its kernel, nowhere else.
 """
 
@@ -30,7 +31,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("sdag_prefill", "bm25_scan_topk", "encoder_attention",
-           "topk_matmul", "int8_matmul", "decode_attention")
+           "topk_matmul", "int8_matmul", "decode_attention", "moe_experts")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

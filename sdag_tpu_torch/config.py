@@ -35,6 +35,10 @@ _KEY_ALIASES: Dict[str, str] = {
 _IGNORED_REFERENCE_KEYS = {"DEVICE", "RAGDEFENDER_DEVICE", "SPARSE_THREADS"}
 
 
+# LLM_ARCH presets whose layers hold sparse experts
+EXPERT_LLM_ARCHS = frozenset({"mellum2-12b-a2.5b"})
+
+
 @dataclass
 class Config:
     # --- reproducibility ---------------------------------------------------
@@ -79,7 +83,7 @@ class Config:
     RANKER_CHECKPOINT: str = ""
     LLM_CHECKPOINT: str = ""
     # Architecture preset when no checkpoint: tiny | e5-large-v2 (ranker),
-    # tiny | llama3-8b (LLM).
+    # tiny | llama3-8b | mellum2-12b-a2.5b (LLM; the last has experts).
     RANKER_ARCH: str = "tiny"
     LLM_ARCH: str = "tiny"
     # Corpus JSONL ({"id":..., "text":...} per line) used to build indexes
@@ -197,6 +201,19 @@ class Config:
                 "DENSE_INT8_RESCORE (same scan cost) unless the recall "
                 "loss is deliberate.",
                 stacklevel=2)
+        if self.LLM_ARCH in EXPERT_LLM_ARCHS:
+            for bad, what in (
+                    (self.LLM_WEIGHTS_DTYPE == "int8",
+                     "LLM_WEIGHTS_DTYPE='int8'"),
+                    (self.KV_CACHE_DTYPE == "int8", "KV_CACHE_DTYPE='int8'"),
+                    (self.SPECULATIVE_DRAFT_LEN > 0,
+                     "SPECULATIVE_DRAFT_LEN > 0"),
+                    (self.MESH_MODEL > 1 or self.MESH_DATA > 1,
+                     "MESH_MODEL or MESH_DATA > 1")):
+                if bad:
+                    raise ValueError(f"LLM_ARCH={self.LLM_ARCH!r} has sparse "
+                                     f"experts, which are not served with "
+                                     f"{what}")
         if self.SPECULATIVE_DRAFT_LEN:
             if not 0 < self.SPECULATIVE_DRAFT_LEN <= 15:
                 raise ValueError("SPECULATIVE_DRAFT_LEN must be in [0, 15]")

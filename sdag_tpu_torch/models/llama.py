@@ -36,6 +36,7 @@ from sdag_tpu_torch.ops.attention import (
     prefill_dense_mask, prefill_mask_plan, quantize_kv_heads_int8,
     sdag_attention_dense, sdag_prefill_attention)
 from sdag_tpu_torch.ops.int8_matmul import int8_matmul
+from sdag_tpu_torch.ops.moe import moe_decode, moe_prefill
 from sdag_tpu_torch.parallel.collectives import (all_reduce_, copy_to_group,
                                                  gather_from_group,
                                                  reduce_from_group)
@@ -58,10 +59,70 @@ class DecoderConfig:
     # HF "llama3" RoPE frequency scaling (Llama-3.1+): (factor,
     # low_freq_factor, high_freq_factor, original_max_position). None = off.
     rope_scaling: Optional[Tuple[float, float, float, int]] = None
+    # a head's width where the model sets it apart from d_model // n_heads
+    # (0: that quotient; the q width is n_heads * head_dim)
+    head_dim: int = 0
+    # each layer's attention, "full_attention" or "sliding_attention"
+    # (None: every layer full).  A windowed layer's query i sees key j only
+    # where the SDAG (or causal) rule allows it and pos_i - pos_j <
+    # sliding_window, positions being the RoPE positions (HF's convention:
+    # its own key is one of the window's keys)
+    layer_types: Optional[Tuple[str, ...]] = None
+    sliding_window: int = 0
+    # HF "yarn" RoPE of the full layers (factor, original_max_position,
+    # beta_fast, beta_slow, attention_factor); windowed layers take plain
+    # RoPE at rope_theta.  HF multiplies cos and sin by the attention
+    # factor; here its square multiplies the layer's softmax scale, which
+    # gives the same scores
+    rope_yarn: Optional[Tuple[float, int, float, float, float]] = None
+    # sparse experts in every layer's MLP (0: the dense SwiGLU): a router
+    # [d, n_experts], softmax in f32, the top experts_per_token (divided by
+    # their sum with norm_topk_prob), each a SwiGLU of width expert_ff
+    n_experts: int = 0
+    experts_per_token: int = 0
+    expert_ff: int = 0
+    norm_topk_prob: bool = True
+
+    def __post_init__(self) -> None:
+        if not self.head_dim:
+            object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.layer_types is not None:
+            if len(self.layer_types) != self.n_layers or not set(
+                    self.layer_types) <= {"full_attention",
+                                          "sliding_attention"}:
+                raise ValueError(f"layer_types {self.layer_types!r}: one of "
+                                 "'full_attention' / 'sliding_attention' a "
+                                 "layer")
+            if "sliding_attention" in self.layer_types \
+                    and self.sliding_window < 1:
+                raise ValueError("sliding layers need sliding_window >= 1")
+
+    def windowed(self, li: int) -> bool:
+        """Layer ``li`` attends a sliding window."""
+        return self.layer_types is not None \
+            and self.layer_types[li] == "sliding_attention"
 
     @property
-    def head_dim(self) -> int:
-        return self.d_model // self.n_heads
+    def has_windows(self) -> bool:
+        return self.layer_types is not None \
+            and "sliding_attention" in self.layer_types
+
+    def window(self, li: int) -> int:
+        """Keys a query of layer ``li`` may see back (0: no window)."""
+        return self.sliding_window if self.windowed(li) else 0
+
+    def layer_rope(self, li: int):
+        """(theta, llama3 scaling, yarn) of layer ``li``'s RoPE."""
+        if self.windowed(li):
+            return self.rope_theta, None, None
+        return self.rope_theta, self.rope_scaling, self.rope_yarn
+
+    def attn_scale(self, li: int) -> Optional[float]:
+        """Layer ``li``'s softmax scale where it is not head_dim ** -0.5
+        (YaRN's attention factor squared), else None."""
+        if self.rope_yarn is None or self.windowed(li):
+            return None
+        return self.rope_yarn[4] ** 2 * self.head_dim ** -0.5
 
     @staticmethod
     def tiny() -> "DecoderConfig":
@@ -78,6 +139,22 @@ class DecoderConfig:
                              tie_embeddings=False,
                              rope_scaling=(8.0, 1.0, 4.0, 8192))
 
+    @staticmethod
+    def mellum2_12b_a2p5b() -> "DecoderConfig":
+        """JetBrains/Mellum2-12B-A2.5B-Instruct's config.json: 28 layers,
+        three windowed (1,024 keys) to one full, YaRN on the full ones, 64
+        experts of width 896, 8 a token, head dim 128 beside a 2,304
+        hidden size; no MTP head (the config declares none)."""
+        return DecoderConfig(
+            vocab_size=98304, d_model=2304, n_layers=28, n_heads=32,
+            n_kv_heads=4, d_ff=7168, rope_theta=500000.0, norm_eps=1e-6,
+            dtype=torch.bfloat16, tie_embeddings=False, head_dim=128,
+            layer_types=(("sliding_attention",) * 3
+                         + ("full_attention",)) * 7, sliding_window=1024,
+            rope_yarn=(16.0, 8192, 32.0, 1.0, 1.2772588722239782),
+            n_experts=64, experts_per_token=8, expert_ff=896,
+            norm_topk_prob=True)
+
 
 def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
                         device="cuda") -> Dict[str, Any]:
@@ -88,9 +165,9 @@ def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
     d, hd = cfg.d_model, cfg.head_dim
     n_q, n_kv = cfg.n_heads, cfg.n_kv_heads
 
-    def dense(shape):
+    def dense(shape, fan_in=None):
         w = torch.empty(shape, dtype=cfg.dtype, device=dev)
-        w.normal_(0.0, shape[0] ** -0.5, generator=generator)
+        w.normal_(0.0, (fan_in or shape[0]) ** -0.5, generator=generator)
         return w
 
     def ones():
@@ -98,13 +175,22 @@ def init_decoder_params(generator: torch.Generator, cfg: DecoderConfig,
 
     layers = []
     for _ in range(cfg.n_layers):
-        layers.append({
+        layer = {
             "attn": {"wq": dense((d, n_q * hd)), "wk": dense((d, n_kv * hd)),
                      "wv": dense((d, n_kv * hd)), "wo": dense((n_q * hd, d))},
-            "mlp": {"gate": dense((d, cfg.d_ff)), "up": dense((d, cfg.d_ff)),
-                    "down": dense((cfg.d_ff, d))},
             "ln1": ones(), "ln2": ones(),
-        })
+        }
+        if cfg.n_experts:
+            # experts [E, out, in] (ops/moe.py): fan_in is the last axis
+            e, f = cfg.n_experts, cfg.expert_ff
+            layer["moe"] = {"router": dense((d, e)),
+                            "gate_up": dense((e, 2 * f, d), d),
+                            "down": dense((e, d, f), f)}
+        else:
+            layer["mlp"] = {"gate": dense((d, cfg.d_ff)),
+                            "up": dense((d, cfg.d_ff)),
+                            "down": dense((cfg.d_ff, d))}
+        layers.append(layer)
     params: Dict[str, Any] = {"embed": dense((cfg.vocab_size, d)),
                               "layers": layers, "final_norm": ones()}
     if not cfg.tie_embeddings:
@@ -225,24 +311,55 @@ def _llama3_scale_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
     return torch.where(is_medium, smoothed, scaled)
 
 
+def yarn_ramp_bounds(half: int, theta: float, yarn) -> Tuple[float, float]:
+    """HF ``_compute_yarn_parameters``' correction range (low, high) over
+    the ``half`` frequencies: the dims where beta_fast and beta_slow
+    rotations fit the original context, floored and ceiled."""
+    _, orig, beta_fast, beta_slow, _ = yarn
+    dim = 2 * half
+
+    def corr(rot):
+        return dim * math.log(orig / (rot * 2 * math.pi)) / (
+            2 * math.log(theta))
+
+    low = max(math.floor(corr(beta_fast)), 0)
+    high = min(math.ceil(corr(beta_slow)), dim - 1)
+    return low, (high + 0.001 if low == high else high)
+
+
 @functools.lru_cache(maxsize=16)
 def rope_freqs(half: int, theta: float, rope_scaling,
-               device: torch.device) -> torch.Tensor:
+               device: torch.device, yarn=None) -> torch.Tensor:
     """RoPE frequencies [half] f32, computed once per (geometry, device):
     a decode step, captured in a CUDA graph, reads them and rebuilds
-    nothing."""
+    nothing.  ``yarn``: HF's YaRN blend of the frequencies (extrapolated)
+    and the frequencies over ``factor`` (interpolated), by a linear ramp
+    between ``yarn_ramp_bounds``."""
     exps = torch.arange(0, half, dtype=torch.float32, device=device) / half
     freqs = 1.0 / (theta ** exps)
     if rope_scaling is not None:
         freqs = _llama3_scale_freqs(freqs, rope_scaling)
+    if yarn is not None:
+        low, high = yarn_ramp_bounds(half, theta, yarn)
+        ramp = ((torch.arange(half, dtype=torch.float32, device=device)
+                 - low) / (high - low)).clamp(0, 1)
+        interp = 1.0 / (yarn[0] * theta ** exps)
+        freqs = interp * ramp + freqs * (1 - ramp)
     return freqs
 
 
+def layer_freqs(cfg: DecoderConfig, li: int,
+                device: torch.device) -> torch.Tensor:
+    """Layer ``li``'s RoPE frequencies (``DecoderConfig.layer_rope``)."""
+    theta, scaling, yarn = cfg.layer_rope(li)
+    return rope_freqs(cfg.head_dim // 2, theta, scaling, device, yarn)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
-         rope_scaling=None) -> torch.Tensor:
+         rope_scaling=None, yarn=None) -> torch.Tensor:
     """Rotary embedding.  x: [B, H, L, Dh]; positions: [B, L]."""
     return apply_rope(x, positions, rope_freqs(x.shape[-1] // 2, theta,
-                                               rope_scaling, x.device))
+                                               rope_scaling, x.device, yarn))
 
 
 def _project_qkv(attn: Dict[str, Any], x: torch.Tensor, cfg: DecoderConfig):
@@ -278,22 +395,35 @@ def _unembed(params: Dict[str, Any], cfg: DecoderConfig,
 
 
 def layer_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
-                    attn_impl: str = "auto"):
-    """The layer-invariant attention metadata of one forward: K1's plan
-    (``attn_impl="auto"``; None on the CPU) or the dense mask of the
-    differentiable path (``"xla"``)."""
+                    attn_impl: str = "auto", window: int = 0,
+                    positions=None):
+    """The attention metadata of one forward that every layer of a kind
+    shares: K1's plan (``attn_impl="auto"``; None on the CPU) or the dense
+    mask of the differentiable path (``"xla"``); ``window`` > 0 (with the
+    RoPE ``positions``) for the windowed layers."""
     if attn_impl == "auto":
-        return prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len)
+        return prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
+                                 window=window, positions=positions)
     if attn_impl == "xla":
-        return prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len)
+        return prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len,
+                                  window=window, positions=positions)
     raise ValueError(f"attn_impl {attn_impl!r}: expected 'auto' or 'xla'")
+
+
+def token_rows(doc_id: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
+    """The prompt's tokens, neither right padding nor holes, as int64
+    indices into the B * L rows (the rows an expert layer routes)."""
+    cols = torch.arange(doc_id.shape[1], device=doc_id.device)[None, :]
+    valid = (cols < valid_len[:, None]) & (doc_id != HOLE_DOC_ID)
+    return valid.reshape(-1).nonzero()[:, 0]
 
 
 def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   doc_id: torch.Tensor, nbr_bits: torch.Tensor,
                   sys_user_len: torch.Tensor, valid_len: torch.Tensor,
-                  mask_plan=None, tp_group=None, attn_impl: str = "auto"):
+                  mask_plan=None, tp_group=None, attn_impl: str = "auto",
+                  li: int = 0, rows=None, stats=None, routes=None):
     """One decoder layer (attention + MLP with residuals).
     Returns (x, (k, v)).
 
@@ -306,24 +436,39 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
     runs on this rank's heads, the MLP on its ff slice, and the wo / down
     products are all-reduced; q/k/v and the KV cache are the local heads.
     Under autograd the collectives are Megatron's Functions (the norms'
-    outputs all-reduce their gradients), so the layer trains."""
+    outputs all-reduce their gradients), so the layer trains.
+    li: the layer's index (its kind sets RoPE, window and softmax scale;
+    ``mask_plan`` must be one of its kind).  An expert layer routes the
+    ``rows`` rows only (``token_rows``; built here when None), adds its
+    (token, expert) rows to ``stats["moe_prefill_rows"]`` and (rows,
+    picks) to the list ``routes``."""
     B, L, _ = x.shape
+    window = cfg.window(li)
     if mask_plan is None:
         mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len,
-                                    valid_len, attn_impl)
+                                    valid_len, attn_impl, window=window,
+                                    positions=positions)
     h = copy_to_group(rms_norm(x, layer["ln1"], cfg.norm_eps), tp_group)
     q, k, v = _project_qkv(layer["attn"], h, cfg)
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    theta, scaling, yarn = cfg.layer_rope(li)
+    q = rope(q, positions, theta, scaling, yarn)
+    k = rope(k, positions, theta, scaling, yarn)
+    scale = cfg.attn_scale(li)
     if attn_impl == "xla":
-        attn_out = sdag_attention_dense(q, k, v, mask_plan)
+        attn_out = sdag_attention_dense(q, k, v, mask_plan, scale=scale)
     else:
-        attn_out = sdag_prefill_attention(q, k, v, doc_id, nbr_bits,
-                                          sys_user_len, valid_len=valid_len,
-                                          mask_plan=mask_plan)
+        attn_out = sdag_prefill_attention(
+            q, k, v, doc_id, nbr_bits, sys_user_len, valid_len=valid_len,
+            scale=scale, mask_plan=mask_plan, window=window,
+            positions=positions)
     attn_out = attn_out.transpose(1, 2).reshape(B, L, -1)
     x = x + reduce_from_group(_mm(attn_out, layer["attn"]["wo"]), tp_group)
     h = copy_to_group(rms_norm(x, layer["ln2"], cfg.norm_eps), tp_group)
+    if cfg.n_experts:
+        if rows is None:
+            rows = token_rows(doc_id, valid_len)
+        return x + moe_prefill(layer["moe"], cfg, h, rows, stats,
+                               routes), (k, v)
     x = x + reduce_from_group(_mlp(layer["mlp"], h), tp_group)
     return x, (k, v)
 
@@ -384,7 +529,7 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             logits_last_only: bool = False,
             cache: Optional[Dict[str, torch.Tensor]] = None,
             kv_dtype: str = "native", tp_group=None,
-            attn_impl: str = "auto",
+            attn_impl: str = "auto", stats=None, routes=None,
             ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Full-prompt forward.  input_ids: [B, L] right-padded.
 
@@ -395,7 +540,10 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     of at least L slots to write the prompt's K/V into (slots past L keep
     what they held) instead of a fresh one of ``kv_dtype``; an int8 cache
     takes the K/V quantized per slot.  ``tp_group``, ``attn_impl``: as
-    in ``layer_forward`` ("xla" trains; "auto" serves through K1)."""
+    in ``layer_forward`` ("xla" trains; "auto" serves through K1).
+    ``stats``: a dict an expert model counts its routed rows in
+    (``layer_forward``).  ``routes``: a list an expert model appends each
+    layer's (rows, picks) to (``moe_prefill``)."""
     B, L = input_ids.shape
     dev = input_ids.device
     cache_size = cache_size or L
@@ -411,10 +559,13 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
         positions = positions_from_doc_id(doc_id)
     x = _embed_rows(params["embed"], input_ids, cfg.dtype)
 
-    # layer-invariant metadata (K1's block kinds and live-tile worklists,
-    # or the dense mask): computed once per prefill, shared by every layer
-    mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
-                                attn_impl)
+    # the metadata every layer of a kind shares (K1's block kinds and
+    # live-tile worklists, or the dense mask): computed once per prefill
+    # and kind (full, windowed)
+    plans = {w: layer_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len,
+                                attn_impl, window=w, positions=positions)
+             for w in sorted({cfg.window(li) for li in range(cfg.n_layers)})}
+    rows = token_rows(doc_id, valid_len) if cfg.n_experts else None
 
     if cache is None and with_cache:
         cache = make_kv_cache(cfg, B, cache_size, device=dev,
@@ -423,8 +574,10 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
     for li, layer in enumerate(params["layers"]):
         x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
                                   nbr_bits, sys_user_len, valid_len,
-                                  mask_plan=mask_plan, tp_group=tp_group,
-                                  attn_impl=attn_impl)
+                                  mask_plan=plans[cfg.window(li)],
+                                  tp_group=tp_group, attn_impl=attn_impl,
+                                  li=li, rows=rows, stats=stats,
+                                  routes=routes)
         if cache is not None and "k_scale" in cache:
             kv_q, kv_s = _quantize_kv(k, v)
             for i, name in enumerate(("k", "v")):
@@ -448,7 +601,8 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                 cache: Dict[str, torch.Tensor],
                 write_index,                   # cache slot to write
                 cache_mask: torch.Tensor,      # [B, S] valid cache slots
-                tp_group=None,
+                tp_group=None, window_mask=None, moe_reads=None,
+                row_live=None, moe_routes=None,
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step: plain causal attention over all valid cache slots
     (reference decode semantics, no isolation after prefill).  Writes the
@@ -458,17 +612,27 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
     ``decode_attention`` (kernel K7 on CUDA).
     ``write_index``: an int, or a one-element int64 tensor on the cache's
     device (a step captured in a CUDA graph reads the slot from device
-    memory).  ``tp_group``: as in ``layer_forward``.  Returns (logits
-    [B, V] f32, cache)."""
+    memory).  ``tp_group``: as in ``layer_forward``.  ``window_mask``
+    [B, S]: the windowed layers' slots (cache_mask less the slots a
+    window's width or more behind the step's position; needed when the
+    model has such layers).  An expert model runs each layer's routing and
+    experts as one ``moe_decode`` (kernel K8 on CUDA) over the rows
+    ``row_live`` marks (all when None), counting the experts it reads in
+    ``moe_reads`` (int64 [1], on the device) and writing its picks to
+    ``moe_routes`` (int32 [layers, B, k], -1 for a row not live) where
+    given.  Returns (logits [B, V] f32, cache)."""
     B = tokens.shape[0]
     if not isinstance(write_index, torch.Tensor):
         write_index = torch.tensor([write_index], device=tokens.device)
     x = _embed_rows(params["embed"], tokens, cfg.dtype)[:, None, :]  # B,1,d
     pos = positions[:, None]
-    freqs = rope_freqs(cfg.head_dim // 2, cfg.rope_theta, cfg.rope_scaling,
-                       tokens.device)
     int8_kv = "k_scale" in cache
+    if cfg.has_windows and window_mask is None:
+        raise ValueError("decode_step: a model with windowed layers needs "
+                         "window_mask")
     for li, layer in enumerate(params["layers"]):
+        freqs = layer_freqs(cfg, li, tokens.device)
+        mask = window_mask if cfg.windowed(li) else cache_mask
         h = rms_norm(x, layer["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
         if int8_kv:
@@ -480,17 +644,22 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                                                        kv_s[i])
             attn_out = masked_decode_attention_int8(
                 q[:, :, 0, :], cache["k"][li], cache["v"][li],
-                cache["k_scale"][li], cache["v_scale"][li], cache_mask)
+                cache["k_scale"][li], cache["v_scale"][li], mask,
+                cfg.attn_scale(li))
         else:
             attn_out = decode_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0],
                                         cache["k"][li], cache["v"][li],
-                                        cache_mask, write_index, positions,
-                                        freqs)
+                                        mask, write_index, positions,
+                                        freqs, scale=cfg.attn_scale(li))
         x = x + all_reduce_(_mm(attn_out.reshape(B, 1, -1),
                                 layer["attn"]["wo"]), tp_group)
-        x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
-                                                        cfg.norm_eps)),
-                            tp_group)
+        h = rms_norm(x, layer["ln2"], cfg.norm_eps)
+        if cfg.n_experts:
+            x = x + moe_decode(layer["moe"], cfg, h[:, 0], moe_reads,
+                               row_live, None if moe_routes is None
+                               else moe_routes[li])[:, None]
+        else:
+            x = x + all_reduce_(_mlp(layer["mlp"], h), tp_group)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x, tp_group)[:, 0, :].float(), cache
 

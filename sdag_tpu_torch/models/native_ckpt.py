@@ -26,6 +26,10 @@ MANIFEST = "native_decoder.json"
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _NAMES = {v: k for k, v in _DTYPES.items()}
+# DecoderConfig fields the JAX package's has not (a model needs them only
+# where it sets them apart from their defaults)
+_PORT_ONLY = ("head_dim", "layer_types", "sliding_window", "rope_yarn",
+              "n_experts", "experts_per_token", "expert_ff", "norm_topk_prob")
 
 
 def save_decoder(params: Dict[str, Any], cfg: DecoderConfig, out_dir: str,
@@ -35,6 +39,12 @@ def save_decoder(params: Dict[str, Any], cfg: DecoderConfig, out_dir: str,
     os.makedirs(out_dir, exist_ok=True)
     cfg_dict = dataclasses.asdict(cfg)
     cfg_dict["dtype"] = _NAMES[cfg.dtype]
+    if cfg == dataclasses.replace(cfg, **{
+            f.name: f.default for f in dataclasses.fields(cfg)
+            if f.name in _PORT_ONLY}):
+        # a plain decoder's manifest keeps the JAX package's keys only
+        for key in _PORT_ONLY:
+            del cfg_dict[key]
     with open(os.path.join(out_dir, MANIFEST), "w") as fh:
         json.dump({"config": cfg_dict, "extra": extra or {}}, fh, indent=1)
     flat = {k: v.detach().float().cpu().numpy()
@@ -52,8 +62,9 @@ def load_config(ckpt_dir: str) -> DecoderConfig:
     cfg_dict = dict(man["config"])
     cfg_dict["dtype"] = _DTYPES.get(cfg_dict.get("dtype", "float32"),
                                     torch.float32)
-    if cfg_dict.get("rope_scaling") is not None:
-        cfg_dict["rope_scaling"] = tuple(cfg_dict["rope_scaling"])
+    for key in ("rope_scaling", "layer_types", "rope_yarn"):
+        if cfg_dict.get(key) is not None:
+            cfg_dict[key] = tuple(cfg_dict[key])
     return DecoderConfig(**cfg_dict)
 
 

@@ -20,6 +20,12 @@ two q heads of a GQA group sharing each K/V tile); f32 inputs stay f32 on
 CUDA-core FMA (K/V tiles staged by cp.async, two q heads of an even GQA
 group sharing each K/V tile).
 
+A windowed layer (``window`` > 0, with the RoPE ``positions``) sees key j
+from query i only where the rule allows it and pos_i - pos_j < window:
+K1 takes that from its plan alone (tiles wholly behind the window drop
+out of the worklists, tiles it cuts become PARTIAL with the window in
+their bits), and a decode step from its cache mask.
+
 Decode keeps reference semantics: generated tokens attend the whole cache
 with plain causal attention (XLA in the JAX package).  Over a native cache
 a step's whole attention block -- RoPE of q and k, the K/V write, the
@@ -82,9 +88,18 @@ def _per_batch(x, B: int, default: int, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device).expand(B)
 
 
+def _check_window(window: int, positions, doc_id_q, q_offset) -> None:
+    if window and (positions is None or doc_id_q is not None
+                   or (q_offset is not None and not (
+                       torch.as_tensor(q_offset) == 0).all())):
+        raise ValueError("a windowed prefill needs the RoPE positions and "
+                         "serves whole sequences only (no q rows apart)")
+
+
 def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
                              valid_len=None, scale: Optional[float] = None,
-                             q_offset=0, doc_id_q=None, nbr_bits_q=None):
+                             q_offset=0, doc_id_q=None, nbr_bits_q=None,
+                             window: int = 0, positions=None):
     """Dense-mask attention: the plain version of kernel K1.
 
     q: [B, H, Lq, Dh]; k/v: [B, Hkv, Lk, Dh] (GQA groups repeated here);
@@ -94,7 +109,9 @@ def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
     probabilities cast to v's dtype before the value product (as the JAX
     reference).  Rows are processed _ROW_CHUNK at a time so the dense mask
     stays bounded at long L; rows are independent, so chunking does not
-    change the result."""
+    change the result.  ``window`` > 0: keys at ``positions`` [B, L] a
+    window or more behind the row's are masked too."""
+    _check_window(window, positions, doc_id_q, q_offset)
     B, H, Lq, Dh = q.shape
     Lk = k.shape[2]
     dev = q.device
@@ -119,6 +136,9 @@ def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
             mask = _tile_mask(i, j, doc_id_q[b, r0:r1, None],
                               doc_id[b, None, :], nbr_bits_q[b, r0:r1, None],
                               sys_user_len[b], valid_len[b])
+            if window:
+                mask = mask & (positions[b, r0:r1, None]
+                               - positions[b, None, :] < window)
             scores = (q[b, :, r0:r1].float() @ kf[b].transpose(-1, -2)
                       ) * scale
             scores = torch.where(mask[None], scores,
@@ -129,10 +149,13 @@ def sdag_attention_reference(q, k, v, doc_id, nbr_bits, sys_user_len,
     return out
 
 
-def prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len=None):
+def prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len=None,
+                       window: int = 0, positions=None):
     """The SDAG rule for every (q row, key) pair of a prefill, [B, 1, L, L]
     bool: the training path's mask, built once a forward and shared by
-    every layer (the JAX package hoists its plan the same way)."""
+    every layer of a kind (the JAX package hoists its plan the same way);
+    ``window`` as in ``sdag_attention_reference``."""
+    _check_window(window, positions, None, None)
     B, L = doc_id.shape
     dev = doc_id.device
     sul = _per_batch(sys_user_len, B, 0, dev)
@@ -141,6 +164,8 @@ def prefill_dense_mask(doc_id, nbr_bits, sys_user_len, valid_len=None):
     m = _tile_mask(r[None, :, None], r[None, None, :], doc_id[:, :, None],
                    doc_id[:, None, :], nbr_bits[:, :, None],
                    sul[:, None, None], vl[:, None, None])
+    if window:
+        m = m & (positions[:, :, None] - positions[:, None, :] < window)
     return m[:, None]
 
 
@@ -304,7 +329,8 @@ def _pack_kv_lists(kinds: torch.Tensor):
 
 
 def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
-                       sys_user_len, valid_len, q_offset):
+                       sys_user_len, valid_len, q_offset, window: int = 0,
+                       positions=None):
     """The SDAG token rule on the PARTIAL tiles only, as bits: both of K1's
     bodies test these instead of evaluating the rule per layer and head (a
     tile's mask depends on neither).
@@ -314,7 +340,8 @@ def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
     of word c // 32 of row r is the rule for q row r and key c of the P-th
     PARTIAL tile in (batch, q-tile, kv-tile) order; mask_slot int32
     [B, nQ, nK]: parallel to ``kv_list``, the tile's index into mask_bits,
-    -1 where the tile is not PARTIAL)."""
+    -1 where the tile is not PARTIAL).  ``window`` > 0: the window over
+    the tile-padded ``positions`` too."""
     dev = kinds.device
     B, nq, nk = kinds.shape
     part = kinds == BLOCK_PARTIAL
@@ -338,6 +365,10 @@ def partial_tile_masks(kinds, kv_list, doc_id, doc_id_q, nbr_bits_q,
         m = _tile_mask(i, j, dq[:, :, None], dkk[:, None, :], nbq[:, :, None],
                        sys_user_len[b][:, None, None],
                        valid_len[b][:, None, None])
+        if window:
+            pq = positions.reshape(B, nq, K1_BLOCK_Q)[b, qi]
+            pk = positions.reshape(B, nk, K1_BLOCK_K)[b, ki]
+            m = m & (pq[:, :, None] - pk[:, None, :] < window)
         weight = 1 << torch.arange(32, dtype=torch.int64, device=dev)
         packed = (m.reshape(n_part, K1_BLOCK_Q, words, 32).to(torch.int64)
                   * weight).sum(-1)
@@ -387,25 +418,45 @@ def _pad_cols(x: torch.Tensor, n: int, value: int) -> torch.Tensor:
 
 
 def prefill_mask_plan(doc_id, nbr_bits, sys_user_len, valid_len=None,
-                      doc_id_q=None, nbr_bits_q=None, q_offset=None):
+                      doc_id_q=None, nbr_bits_q=None, q_offset=None,
+                      window: int = 0, positions=None):
     """Layer-invariant prefill metadata for kernel K1, computed once per
     prefill and passed to every layer's ``sdag_prefill_attention``.
 
     Pads the metadata to K1's tile multiples (padded keys get doc_id -1 and
     sit at j >= L >= valid_len, so no rule can see them), computes the
     block kinds at K1's tile sizes and packs the live-tile worklists.
+    ``window`` > 0 (the windowed layers' plan): the window at the RoPE
+    ``positions`` as well (``window_block_kinds``).
     Returns None on the CPU, where the plain version builds its own mask.
     """
     if doc_id.device.type == "cpu":
         return None
     return k1_plan(doc_id, nbr_bits, sys_user_len, valid_len,
                    doc_id_q=doc_id_q, nbr_bits_q=nbr_bits_q,
-                   q_offset=q_offset)
+                   q_offset=q_offset, window=window, positions=positions)
+
+
+def window_block_kinds(kinds, positions, window: int):
+    """Block kinds under a window as well: a tile whose every pair lies a
+    window or more apart in position is SKIP; one the window cuts (some
+    pair out, some in) is PARTIAL; one wholly inside keeps its kind.
+    ``positions`` [B, L] nondecreasing along L, tile-padded."""
+    B, nq, nk = kinds.shape
+    pq = positions.reshape(B, nq, -1)
+    pk = positions.reshape(B, nk, -1)
+    qmin, qmax = pq.amin(-1)[:, :, None], pq.amax(-1)[:, :, None]
+    kmin, kmax = pk.amin(-1)[:, None, :], pk.amax(-1)[:, None, :]
+    out = qmin - kmax >= window
+    inside = qmax - kmin < window
+    cut = torch.where(inside | (kinds == BLOCK_SKIP), kinds, BLOCK_PARTIAL)
+    return torch.where(out, BLOCK_SKIP, cut).to(torch.int32)
 
 
 def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
-            nbr_bits_q=None, q_offset=None):
+            nbr_bits_q=None, q_offset=None, window: int = 0, positions=None):
     """The metadata K1 reads, on doc_id's device (see prefill_mask_plan)."""
+    _check_window(window, positions, doc_id_q, q_offset)
     dev = doc_id.device
     B, L = doc_id.shape
     doc_id_q = doc_id if doc_id_q is None else doc_id_q
@@ -422,9 +473,16 @@ def k1_plan(doc_id, nbr_bits, sys_user_len, valid_len=None, doc_id_q=None,
     qo = _per_batch(q_offset, B, 0, dev).contiguous()
     kinds = compute_block_kinds(dk, nbk, sul, vl, K1_BLOCK_Q, K1_BLOCK_K,
                                 doc_id_q=dq, nbr_bits_q=nbq, q_offset=qo)
+    pos = None
+    if window:
+        # padded keys and rows lie past valid_len: any position serves
+        pos = torch.cat([positions.to(torch.int32), positions[:, -1:].to(
+            torch.int32).expand(B, nk * K1_BLOCK_K - L)], dim=1)
+        kinds = window_block_kinds(kinds, pos, window)
     counts, kv_list, kind_list = _pack_kv_lists(kinds)
     mask_bits, mask_slot = partial_tile_masks(kinds, kv_list, dk, dq, nbq,
-                                              sul, vl, qo)
+                                              sul, vl, qo, window=window,
+                                              positions=pos)
     return {"Lq": Lq, "Lk": L, "nq": nq, "nk": nk, "doc_id": dk,
             "order": heavy_first_order(counts),
             "mask_bits": mask_bits, "mask_slot": mask_slot,
@@ -510,17 +568,18 @@ def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
 def sdag_prefill_attention(q, k, v, doc_id, nbr_bits, sys_user_len,
                            valid_len=None, scale: Optional[float] = None,
                            q_offset=None, doc_id_q=None, nbr_bits_q=None,
-                           mask_plan=None):
+                           mask_plan=None, window: int = 0, positions=None):
     """Dispatch by device: kernel K1 on CUDA, the plain dense-mask version
     on the CPU; any other device raises.
 
-    mask_plan: a ``prefill_mask_plan`` result for this metadata (multi-
-    layer callers compute it once); built here when None on CUDA."""
+    mask_plan: a ``prefill_mask_plan`` result for this metadata and window
+    (multi-layer callers compute it once); built here when None on CUDA."""
     if q.device.type == "cpu":
         return sdag_attention_reference(
             q, k, v, doc_id, nbr_bits, sys_user_len, valid_len=valid_len,
             scale=scale, q_offset=0 if q_offset is None else q_offset,
-            doc_id_q=doc_id_q, nbr_bits_q=nbr_bits_q)
+            doc_id_q=doc_id_q, nbr_bits_q=nbr_bits_q, window=window,
+            positions=positions)
     if q.device.type != "cuda":
         raise ValueError(f"sdag_prefill_attention: no path for device "
                          f"{q.device}")
@@ -528,11 +587,13 @@ def sdag_prefill_attention(q, k, v, doc_id, nbr_bits, sys_user_len,
         mask_plan = prefill_mask_plan(doc_id, nbr_bits, sys_user_len,
                                       valid_len, doc_id_q=doc_id_q,
                                       nbr_bits_q=nbr_bits_q,
-                                      q_offset=q_offset)
+                                      q_offset=q_offset, window=window,
+                                      positions=positions)
     return sdag_prefill_cuda(q, k, v, mask_plan, scale=scale)
 
 
-def masked_decode_attention(q, k_cache, v_cache, cache_mask):
+def masked_decode_attention(q, k_cache, v_cache, cache_mask,
+                            scale: Optional[float] = None):
     """Single-step decode attention over a KV cache (plain PyTorch).
 
     q: [B, H, Dh]; caches: [B, Hkv, S, Dh] with Hkv dividing H (GQA groups
@@ -541,9 +602,10 @@ def masked_decode_attention(q, k_cache, v_cache, cache_mask):
     contracted as it is, with f32 products out, as the JAX op's
     preferred_element_type: on CUDA no f32 copy of the cache is made),
     probabilities cast to the cache dtype before the value product (as
-    the JAX op).  No host value enters: a CUDA graph can capture it."""
+    the JAX op).  No host value enters: a CUDA graph can capture it.
+    ``scale``: the softmax scale (None: Dh ** -0.5)."""
     B, H, Dh = q.shape
-    scores = decode_scores(q, k_cache)
+    scores = decode_scores(q, k_cache, scale)
     scores = scores.masked_fill(~cache_mask[:, None, None, :],
                                 DEFAULT_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1)
@@ -551,14 +613,15 @@ def masked_decode_attention(q, k_cache, v_cache, cache_mask):
     return out.reshape(B, H, Dh)
 
 
-def decode_scores(q, k_cache):
+def decode_scores(q, k_cache, scale: Optional[float] = None):
     """Scaled f32 scores [B, Hkv, H / Hkv, S] of ``masked_decode_attention``
     (same shapes): on CUDA a bf16 cache is contracted as it is with f32
     out; elsewhere both operands go to f32 first."""
     B, H, Dh = q.shape
     hkv = k_cache.shape[1]
     return _group_bmm(q.reshape(B, hkv, H // hkv, Dh),
-                      k_cache.transpose(-1, -2)) * Dh ** -0.5
+                      k_cache.transpose(-1, -2)) * (
+                          Dh ** -0.5 if scale is None else scale)
 
 
 def _group_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -574,7 +637,8 @@ def _group_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, G, R, -1)
 
 
-def _int8_attention(q, k_t, v_t, k_scale, v_scale, cache_mask):
+def _int8_attention(q, k_t, v_t, k_scale, v_scale, cache_mask,
+                    scale: Optional[float] = None):
     """``masked_decode_attention_int8`` with the int8 K/V already cast to
     q's dtype (exact): k_t/v_t [B, Hkv, S, Dh], scales [B, Hkv, S], mask
     [B, S]; f32 products, the k scale times the scores, the v scale folded
@@ -583,7 +647,8 @@ def _int8_attention(q, k_t, v_t, k_scale, v_scale, cache_mask):
     hkv = k_t.shape[1]
     qg = q.reshape(B, hkv, H // hkv, Dh)
     scores = _group_bmm(qg, k_t.transpose(-1, -2))
-    scores = scores * k_scale[:, :, None, :] * Dh ** -0.5
+    scores = scores * k_scale[:, :, None, :] * (
+        Dh ** -0.5 if scale is None else scale)
     scores = scores.masked_fill(~cache_mask[:, None, None, :],
                                 DEFAULT_MASK_VALUE)
     probs = torch.softmax(scores, dim=-1) * v_scale[:, :, None, :]
@@ -591,15 +656,16 @@ def _int8_attention(q, k_t, v_t, k_scale, v_scale, cache_mask):
 
 
 def masked_decode_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
-                                 cache_mask):
+                                 cache_mask, scale: Optional[float] = None):
     """``masked_decode_attention`` over an int8 cache (the JAX
     ``masked_decode_attention_int8``): k_i8/v_i8 int8 [B, Hkv, S, Dh],
     k_scale/v_scale f32 [B, Hkv, S] (absmax over Dh per slot).  The int8
     values are cast to q's dtype (a copy in q's dtype, not f32), the k
     scale multiplies the f32 scores, the v scale folds into the
-    probabilities before the value product; output in q's dtype."""
+    probabilities before the value product; output in q's dtype.
+    ``scale``: the softmax scale (None: Dh ** -0.5)."""
     return _int8_attention(q, k_i8.to(q.dtype), v_i8.to(q.dtype), k_scale,
-                           v_scale, cache_mask).to(q.dtype)
+                           v_scale, cache_mask, scale).to(q.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -616,7 +682,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def decode_attention_reference(q, k, v, k_cache, v_cache, cache_mask,
-                               write_index, positions, freqs):
+                               write_index, positions, freqs,
+                               scale: Optional[float] = None):
     """The plain version of kernel K7: a decode step's attention block.
 
     q [B, Hq, Dh], k / v [B, Hkv, Dh] as the step's projections return
@@ -624,14 +691,14 @@ def decode_attention_reference(q, k, v, k_cache, v_cache, cache_mask,
     [B, S]; write_index an int64 [1] tensor; positions [B] (RoPE);
     freqs [Dh / 2] f32.  Rotates q and k at ``positions``, writes k and v
     into slot ``write_index`` of the caches in place, and returns
-    ``masked_decode_attention`` of the rotated q over the caches, [B, Hq,
-    Dh] in the cache dtype."""
+    ``masked_decode_attention`` of the rotated q over the caches at
+    ``scale`` (None: Dh ** -0.5), [B, Hq, Dh] in the cache dtype."""
     pos = positions[:, None]
     q = apply_rope(q[:, :, None], pos, freqs)[:, :, 0]
     k_cache.index_copy_(2, write_index, apply_rope(k[:, :, None], pos,
                                                    freqs))
     v_cache.index_copy_(2, write_index, v[:, :, None])
-    return masked_decode_attention(q, k_cache, v_cache, cache_mask)
+    return masked_decode_attention(q, k_cache, v_cache, cache_mask, scale)
 
 
 # K7 (csrc/decode_attention.cu): the slots of a chunk (boundaries fixed
@@ -682,7 +749,7 @@ def _k7_rows(name: str, t: torch.Tensor, B: int, H: int, Dh: int,
 
 
 def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
-                          out=None):
+                          out=None, scale: Optional[float] = None):
     """Kernel K7 (``csrc/decode_attention.cu``), two launches.
 
     ``new_kv`` = (k, v, write_index, positions, freqs): the decode step's
@@ -694,9 +761,10 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
     contiguous, float32 or bfloat16 like q, Dh in ``K7_HEAD_DIMS``, Hq /
     Hkv in ``K7_GROUPS``; cache_mask bool [B, S'] (S' <= S, the slots
     attended); ``out`` [B, Hq, Dh] of the cache dtype to write into (by
-    batch / head strides), else a new tensor.  A row with no valid slot
-    gives 0.  Each launch counts in ``_build.LAUNCHES["decode_attention"]``
-    (at capture, in a CUDA graph)."""
+    batch / head strides), else a new tensor; ``scale`` the softmax scale
+    (None: Dh ** -0.5).  A row with no valid slot gives 0.  Each launch
+    counts in ``_build.LAUNCHES["decode_attention"]`` (at capture, in a
+    CUDA graph)."""
     B, Hq, Dh = q.shape
     dtype = k_cache.dtype
     if dtype not in _K7_DTYPES:
@@ -773,7 +841,8 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
         ptr(positions), ptr(freqs), ptr(write_index), ptr(k_cache),
         ptr(v_cache), ptr(cache_mask), cache_mask.stride(0), ptr(scores),
         ptr(bmax), ptr(live), ptr(out), out.stride(0), out.stride(1), B, Hkv,
-        Hq // Hkv, Dh, S, S_cache, n_split, _K7_DTYPES[dtype], Dh ** -0.5,
+        Hq // Hkv, Dh, S, S_cache, n_split, _K7_DTYPES[dtype],
+        Dh ** -0.5 if scale is None else scale,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(lib, rc, "decode_attention")
     _build.LAUNCHES["decode_attention"] += 2
@@ -781,18 +850,19 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
 
 
 def decode_attention(q, k, v, k_cache, v_cache, cache_mask, write_index,
-                     positions, freqs):
+                     positions, freqs, scale: Optional[float] = None):
     """A decode step's attention block over a native cache (arguments as
     ``decode_attention_reference``): kernel K7 on CUDA, the plain version
     on the CPU; any other device raises."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, k_cache, v_cache,
                                           cache_mask, write_index, positions,
-                                          freqs)
+                                          freqs, scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no path for device {q.device}")
     return decode_attention_cuda(q, k_cache, v_cache, cache_mask,
-                                 new_kv=(k, v, write_index, positions, freqs))
+                                 new_kv=(k, v, write_index, positions, freqs),
+                                 scale=scale)
 
 
 # A verification window attends row by row through the single-token

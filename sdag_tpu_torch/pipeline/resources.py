@@ -63,10 +63,12 @@ def _encoder_config(arch: str) -> EncoderConfig:
 def _decoder_config(arch: str) -> DecoderConfig:
     if arch == "llama3-8b":
         return DecoderConfig.llama3_8b()
+    if arch == "mellum2-12b-a2.5b":
+        return DecoderConfig.mellum2_12b_a2p5b()
     if arch == "tiny":
         return DecoderConfig.tiny()
-    raise ValueError(f"Unknown LLM_ARCH {arch!r}: expected 'llama3-8b' "
-                     "or 'tiny'")
+    raise ValueError(f"Unknown LLM_ARCH {arch!r}: expected 'llama3-8b', "
+                     "'mellum2-12b-a2.5b' or 'tiny'")
 
 
 def check_supported(cfg: Config) -> None:

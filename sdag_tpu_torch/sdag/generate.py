@@ -40,6 +40,22 @@ all-gathered.  Over NCCL the decode chunks stay captured CUDA graphs with
 the collectives inside; a gloo group cannot be captured, so a mesh with
 one runs the steps eagerly, chosen up front (``stats["decode_mode"]``).
 
+A model with windowed layers (``DecoderConfig.layer_types``) decodes with
+two cache masks a step, the whole history and its windowed part (the
+slots a window's width or more behind the step's RoPE position left
+out); an expert model runs each layer's experts through K8 in the
+captured step, over the rows not yet done, and counts the distinct
+experts it reads on the device (``stats["moe_decode_expert_reads"]``,
+read with the lengths at the end of the decode; prefill's routed
+(token, expert) rows in ``stats["moe_prefill_rows"]``).  Experts are
+served with the native cache, greedy or sampled, on one device, in bf16
+weights on CUDA (K8's only body) and bf16 or f32 on the CPU: f32 weights
+on CUDA, int8 weights, the int8 cache, speculation and meshes raise at
+construction.  Where ``Generator.route_log`` is a list, each call
+appends the experts every token was routed to (``_log_routes``): the
+prefill's, and the decode's, which K8 writes into the step's buffer
+whether or not a log is kept, so the captured graphs are the same.
+
 While a torch.profiler collects, a call records the spans
 ``sdag.gen.pack`` (the prompts' masks, padding, uploads),
 ``sdag.gen.prefill``, ``sdag.gen.decode`` with a ``.decode.launch`` and
@@ -101,6 +117,9 @@ class DecodeBuffers:
     def __init__(self, cfg: DecoderConfig, batch: int, lp: int, max_new: int,
                  chunk: int, device: torch.device, kv_dtype: str = "native",
                  draft: int = 0, n_kv_heads: Optional[int] = None) -> None:
+        # windowed layers: each slot's RoPE position (the window's test);
+        # experts: the distinct experts K8 reads, summed over the decode
+        self.window = cfg.sliding_window if cfg.has_windows else 0
         self.G = draft + 1 if draft else 0
         size = lp + max_new + self.G
         self.lp, self.max_new, self.chunk = lp, max_new, chunk
@@ -116,6 +135,14 @@ class DecodeBuffers:
         self.real_len = torch.zeros(batch, **i32)
         self.base_mask = torch.zeros(batch, size, dtype=torch.bool,
                                      device=device)
+        self.slot_pos = torch.zeros(batch, size, **i32) if self.window \
+            else None
+        self.moe_reads = torch.zeros(1, dtype=torch.int64, device=device) \
+            if cfg.n_experts else None
+        # experts: step i of a chunk's picks, [chunk, layers, B, k]
+        self.moe_routes = torch.full(
+            (chunk, cfg.n_layers, batch, cfg.experts_per_token), -1,
+            **i32) if cfg.n_experts else None
         self.uniform = torch.zeros((chunk, batch) + ((self.G,) if draft
                                                      else ()),
                                    dtype=torch.float32, device=device)
@@ -152,6 +179,14 @@ class DecodeBuffers:
         self.base_mask.zero_()
         self.base_mask[:, :lp] = visible
         self.real_len.copy_(visible.sum(1))
+        if self.slot_pos is not None:
+            # prompt slots count the visible tokens before them (hole and
+            # padding slots are never attended); slot lp + t holds step t
+            self.slot_pos[:, :lp] = visible.cumsum(1) - 1
+            self.slot_pos[:, lp:] = self.real_len[:, None] + (
+                self.slot_iota[:, lp:] - lp)
+        if self.moe_reads is not None:
+            self.moe_reads.zero_()
         self.t.zero_()
         self.out.fill_(pad)
         self.lengths.zero_()
@@ -164,6 +199,26 @@ class DecodeBuffers:
             self.prev.copy_(torch.gather(input_ids, 1, last)[:, 0])
             self.rounds.zero_()
             self.row_rounds.zero_()
+
+
+def _check_experts_served(params, kv_cache_dtype: str, speculative_draft: int,
+                          mesh, device: torch.device) -> None:
+    """Raise for what an expert model is not served with."""
+    wq = params["layers"][0]["attn"]["wq"]
+    gate_up = params["layers"][0].get("moe", {}).get("gate_up")
+    for bad, what in ((isinstance(wq, dict), "int8 weights"),
+                      (device.type == "cuda" and gate_up is not None
+                       and gate_up.dtype != torch.bfloat16,
+                       f"{getattr(gate_up, 'dtype', None)} weights on CUDA "
+                       "(K8 takes bf16)"),
+                      (kv_cache_dtype == "int8", "the int8 KV cache"),
+                      (int(speculative_draft) > 0, "speculative decoding"),
+                      (mesh is not None, "a mesh (tensor or data "
+                                         "parallelism)")):
+        if bad:
+            raise ValueError(f"an expert model is not served with {what}: "
+                             "use bf16 weights (f32 on the CPU), the native "
+                             "cache, no speculation, one device")
 
 
 def _bigram_continuation(seq, match, pos, limit, cur, iota):
@@ -189,6 +244,9 @@ class Generator:
                  speculative_draft: int = 0, device="cuda",
                  mesh=None) -> None:
         self.device = resolve_device(device)
+        if cfg.n_experts:
+            _check_experts_served(params, kv_cache_dtype, speculative_draft,
+                                  mesh, self.device)
         if kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"Unknown kv_cache_dtype {kv_cache_dtype!r}")
         if not 0 <= int(speculative_draft) <= 15:
@@ -238,8 +296,12 @@ class Generator:
                       "decode_tokens": 0, "decode_s": 0.0,
                       "decode_steps": 0, "decode_chunks": 0,
                       "graph_captures": 0, "capture_s": 0.0,
+                      "moe_prefill_rows": 0, "moe_decode_expert_reads": 0,
                       "decode_mode": ("graphs" if self.graphs_ok else
                                       f"eager: gloo group on {gloo}")}
+        # an expert model's routes, one entry a call, where a list
+        # (``_log_routes``); None keeps none
+        self.route_log: Optional[list] = None
         # speculation, under the JAX package's names: verification rounds
         # of the last call (rounds with a live row), and cumulative rounds,
         # live rows summed over rounds, emitted tokens (tokens / row_rounds
@@ -341,6 +403,11 @@ class Generator:
         if graphs is None:
             graphs = input_ids.device.type == "cuda" and self.graphs_ok
         buf = self._buffers(batch, lp, max_new, graphs)
+        log = None if self.route_log is None or buf.moe_routes is None \
+            else {"ids": input_ids, "prefill": [],
+                  "decode": torch.full((max_new,) + buf.moe_routes.shape[1:],
+                                       -1, dtype=torch.int32,
+                                       device=input_ids.device)}
         # read here, where the device waits for the uploads anyway
         n_in = int(valid_len.sum())
         self._sync()
@@ -350,7 +417,10 @@ class Generator:
                                 doc_id=doc_id, nbr_bits=nbr_bits,
                                 sys_user_len=sys_user_len,
                                 valid_len=valid_len, logits_last_only=True,
-                                cache=buf.cache, tp_group=self.tp_group)
+                                cache=buf.cache, tp_group=self.tp_group,
+                                stats=self.stats,
+                                routes=None if log is None
+                                else log["prefill"])
             cur = sample_tokens(self._gen, logits[:, 0, :], self.temperature,
                                 self.top_p)
             buf.start(cur, doc_id, valid_len, pad, input_ids=input_ids)
@@ -371,13 +441,22 @@ class Generator:
                     else:
                         for i in range(n):
                             step(buf, i)
+                    if log is not None:
+                        log["decode"][steps:steps + n].copy_(
+                            buf.moe_routes[:n])
                 steps += n
                 self.stats["decode_chunks"] += 1
                 with span("sdag.gen.decode.wait"):
                     finished = steps >= max_new or bool(buf.done.all())
             out = all_gather_cat(buf.out.clone(), self.dp_group)
             lengths = all_gather_cat(buf.lengths.clone(), self.dp_group)
-            n_out = int(lengths.sum())
+            if buf.moe_reads is None:
+                n_out = int(lengths.sum())
+            else:
+                # one download for both (the device is done already)
+                n_out, reads = torch.cat([lengths.sum().reshape(1),
+                                          buf.moe_reads]).tolist()
+                self.stats["moe_decode_expert_reads"] += reads
             if self.speculative_draft:
                 # data ranks stop at their own rounds: the run took the
                 # most, and live rows add up
@@ -395,7 +474,23 @@ class Generator:
         self.stats["decode_tokens"] += n_out
         self.stats["decode_steps"] += steps
         self.stats["decode_s"] += t2 - t1
+        if log is not None:
+            self._log_routes(log)
         return out, lengths
+
+    def _log_routes(self, log: dict) -> None:
+        """Append a call's routes to ``route_log``, on the device: the
+        prompt ``ids`` [B, lp], the routed ``rows`` (indices into the B *
+        lp prompt slots, in order), the prefill's picks ``prefill``
+        [layers, rows, k] (uint8 up to 256 experts) and the decode's
+        ``decode`` int32 [max_new, layers, B, k] (step t routes the token
+        served t-th; -1 for a row done or a step not run)."""
+        picks = log["prefill"]
+        small = torch.uint8 if self.cfg.n_experts <= 256 else torch.int32
+        self.route_log.append({
+            "ids": log["ids"], "rows": picks[0][0],
+            "prefill": torch.stack([i.to(small) for _, i in picks]),
+            "decode": log["decode"]})
 
     def _step(self, buf: DecodeBuffers, i: int) -> None:
         """One decode step on ``buf`` in place, the JAX body's order:
@@ -411,10 +506,18 @@ class Generator:
         slot = t + lp
         mask = buf.base_mask | ((buf.slot_iota >= lp)
                                 & (buf.slot_iota <= slot))
-        logits, _ = decode_step(self.params, self.cfg, cur,
-                                buf.real_len + t, buf.cache,
+        pos = buf.real_len + t
+        window_mask = None if buf.slot_pos is None else \
+            mask & (buf.slot_pos > (pos - buf.window)[:, None])
+        logits, _ = decode_step(self.params, self.cfg, cur, pos, buf.cache,
                                 write_index=slot, cache_mask=mask,
-                                tp_group=self.tp_group)
+                                tp_group=self.tp_group,
+                                window_mask=window_mask,
+                                moe_reads=buf.moe_reads,
+                                row_live=~done if buf.moe_reads is not None
+                                else None,
+                                moe_routes=None if buf.moe_routes is None
+                                else buf.moe_routes[i])
         nxt = sample_tokens(None, logits, self.temperature, self.top_p,
                             uniform=buf.uniform[i])
         cur.copy_(torch.where(done, eos, nxt))
