@@ -7,7 +7,8 @@ Phase 0  print the card (nvidia-smi name, power limit); build the kernels
          with nvcc, one process per source, all at once: K1
          (csrc/sdag_prefill.cu), K2 (csrc/bm25_scan_topk.cu), K3
          (csrc/encoder_attention.cu), K4/K5 (csrc/topk_matmul.cu), K6
-         (csrc/int8_matmul.cu), K7 (csrc/decode_attention.cu); print
+         (csrc/int8_matmul.cu), K7 (csrc/decode_attention.cu), K8
+         (csrc/moe_experts.cu), K9 (csrc/rms_norm.cu); print
          ptxas' registers and spill bytes per
          kernel body.
 Phase 1  K1 against its plain PyTorch version (sdag_attention_reference) on
@@ -43,8 +44,9 @@ Phase 3  run_experiment on experiments/data/qa_ckpt (trained decoder):
 Phase 4  the main path at full width: run_experiment with LLM_ARCH=llama3-8b
          (random bf16 weights, 32 layers), BM25_ENGINE=scan, 36 queries;
          launch counts are zeroed before and read after, and both kernels
-         must have launched (K1 at least 32 layers x ISO+NO-ISO batches).
-         Phase 3 counts its own run the same way.  Decode runs as
+         must have launched (K1 at least 32 layers x ISO+NO-ISO batches;
+         K7 two and K9 65 launches a graph capture).  Phase 3 counts its
+         own run the same way (K1, K2 and K9 launched).  Decode runs as
          captured CUDA graphs (at least one capture, or it fails):
          reports decode tok/s, ms a step, captures and their seconds,
          peak memory, and the device busy share of a profiled NO-ISO
@@ -282,7 +284,30 @@ Phase 14 K8 (csrc/moe_experts.cu) and the windows of Mellum2-12B-A2.5B:
          slot too wide that must read over the f32 limits (q = 0 and v's
          first dim the position: each row's mean over its keys); (c) one
          period of the model at its widths (4 layers): 32 greedy tokens of
-         8 prompts past the window, captured graphs against eager steps.
+         8 prompts past the window, captured graphs against eager steps
+         (K7, K8 and K9 launches counted).
+
+Phase 15 K9 (csrc/rms_norm.cu), a layer's residual add and the RMSNorm
+         after it: (a) against its plain version (add_rms_norm_reference)
+         at the poison cells' decode and prefill rows (Mistral-7B 8 x 1,
+         8 x 896 and 8 x 3,200 at d 4,096; Mellum2 at d 2,304), the HF 8B
+         f32 tree's and qa_ckpt's (f32, d 192), each at unit RMS and at an
+         embedding row's, with and without the residual: s bit for bit, h
+         the gain times the plain composition's bf16 cast of s * r or a
+         neighbour of it (the count of elements differing from the plain h
+         reported) or within 1e-6 relative (f32); a dropped residual and a
+         wrong eps must
+         fail the same comparison; timed beside the plain version, x +
+         delta then F.rms_norm, and the byte bound; (b) rows of a
+         25,600-row call equal the same rows alone and among 8, bit for
+         bit (the plain composition's f32 row means at 1, 8 and 40 rows
+         against 25,600 counted beside); (c) the top-5 decode shape at 8B:
+         kernels a step of the captured graph with K9 and with the plain
+         composition, ms a step of both, 2 x 32 + 1 K9 launches a step at
+         capture and no rsqrt or mean kernel left, graph against eager
+         tokens; (d) greedy speculation (D = 4) against plain greedy at 8B
+         with int8 weights and bf16 activations: equal with K9, the tokens
+         differing with the plain composition reported.
 
 Any failure raises (exit code 1).  Without CUDA, or without the
 sdag_tpu_torch package beside this script, it exits 2 and prints no
@@ -854,7 +879,8 @@ def phase3(dev):
         raise AssertionError(f"phase 3: clean ACC below 0.5: {rec}")
     if not asr_iso + asr_noiso > 0.0:
         raise AssertionError(f"phase 3: attack never bit: {rec}")
-    if not (LAUNCHES["sdag_prefill_f32"] and LAUNCHES["bm25_scan_topk"]):
+    if not (LAUNCHES["sdag_prefill_f32"] and LAUNCHES["bm25_scan_topk"]
+            and LAUNCHES["rms_norm"]):
         raise AssertionError(f"phase 3: a kernel never launched: {rec}")
     return rec
 
@@ -940,6 +966,12 @@ def phase4(dev):
         raise AssertionError(
             f"phase 4: K7 launched {launches.get('decode_attention', 0)} "
             f"< {need_k7}")
+    # K9: a layer's two norms and the final norm, counted at capture
+    need_k9 = (2 * n_layers + 1) * st["graph_captures"]
+    if launches.get("rms_norm", 0) < need_k9:
+        raise AssertionError(
+            f"phase 4: K9 launched {launches.get('rms_norm', 0)} "
+            f"< {need_k9}")
     rec["profile"] = _profile_window(res.generator, dev)
     log(f"[phase4] profile {json.dumps(rec['profile'])}")
     rec["graph_vs_eager"], _ = _decode_graph_vs_eager(res.generator, dev)
@@ -5116,10 +5148,11 @@ def _k7_window_rows(dev, G, int8_weights):
     return rec
 
 
-def _graph_kernels(graph) -> int:
-    """Kernels (and memcpy / memset nodes) one replay of ``graph`` runs,
+def _graph_kernel_names(graph):
+    """Kernel (and memcpy / memset) names of one replay of ``graph``,
     counted by torch.profiler (a replayed graph's nodes reach CUPTI one
     by one)."""
+    import collections
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -5127,7 +5160,13 @@ def _graph_kernels(graph) -> int:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         graph.replay()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return collections.Counter(e.name for e in prof.events()
+                               if e.device_type == DeviceType.CUDA)
+
+
+def _graph_kernels(graph) -> int:
+    """Kernels (and memcpy / memset nodes) one replay of ``graph`` runs."""
+    return sum(_graph_kernel_names(graph).values())
 
 
 def _k7_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
@@ -5528,8 +5567,9 @@ def _p14_decode(dev):
     ~3k tokens (past the window), 32 greedy tokens in captured graphs,
     the launches counted from zero over that decode (a captured graph's
     count at capture; each capture holds at least one step): K8 at least
-    4 x 28 and K7 at least 2 x 28 a capture.  Then the eager steps and the
-    graphs again: tokens and expert reads equal; ms a step."""
+    4 x 28, K7 at least 2 x 28 and K9 at least 2 x 28 + 1 a capture.
+    Then the eager steps and the graphs again: tokens and expert reads
+    equal; ms a step."""
     import numpy as np
     import torch
     from sdag_tpu_torch._build import LAUNCHES
@@ -5566,7 +5606,8 @@ def _p14_decode(dev):
         runs.append({
             "tokens": out.cpu().tolist(), "lengths": lengths.cpu().tolist(),
             "launches": {k: LAUNCHES[k] for k in ("moe_experts",
-                                                  "decode_attention")},
+                                                  "decode_attention",
+                                                  "rms_norm")},
             "captures": gen.stats["graph_captures"] - captures,
             "steps": gen.stats["decode_steps"] - before[1],
             "ms_a_step": 1e3 * (gen.stats["decode_s"] - before[0])
@@ -5588,16 +5629,18 @@ def _p14_decode(dev):
            "moe_prefill_rows": gen.stats["moe_prefill_rows"],
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     log(f"[phase14] decode {json.dumps(rec)}")
-    need_k8, need_k7 = 4 * n_l * graph["captures"], \
-        2 * n_l * graph["captures"]
+    need_k8, need_k7, need_k9 = (k * graph["captures"] for k in (
+        4 * n_l, 2 * n_l, 2 * n_l + 1))
     if not (rec["graphs_equal_eager"] and graph["expert_reads"]
             == eager["expert_reads"] == again["expert_reads"] > 0
             and graph["captures"] >= 1
             and graph["launches"]["moe_experts"] >= need_k8
             and graph["launches"]["decode_attention"] >= need_k7
+            and graph["launches"]["rms_norm"] >= need_k9
             and rec["k8_launches_eager"] == 4 * n_l * eager["steps"] > 0):
         raise AssertionError(f"phase 14 decode (K8 >= {need_k8}, K7 >= "
-                             f"{need_k7} launches): {json.dumps(rec)}")
+                             f"{need_k7}, K9 >= {need_k9} launches): "
+                             f"{json.dumps(rec)}")
     del gen, params
     _free_cuda()
     return rec
@@ -5618,6 +5661,342 @@ def phase14(dev):
     rec["b"] = _p14_windows(dev)
     _free_cuda()
     rec["c"] = _p14_decode(dev)
+    rec["phase_s"] = time.perf_counter() - t0
+    return rec
+
+
+# --------------------------------------------------------------- phase 15
+# K9 against the plain composition: s bit for bit; in bf16 h is the plain
+# h, or the gain times a neighbour (one step either way) of the plain
+# composition's bf16 cast of s * r (the row's sum, taken in another order,
+# moves r by an f32 step or so, and that may move the cast across a
+# rounding point; the gain's product rounds again, so h itself may then
+# lie two steps off); in f32 h within 1e-6 of each element
+K9_F32_TOL = 1e-6
+# name, dtype, rows shape, d: the poison cells' decode and prefill rows
+# (Mistral-7B, Mellum2), the HF 8B f32 tree's, qa_ckpt's
+K9_CASES = (
+    ("a_decode_bf16", "bfloat16", (8, 1), 4096),
+    ("b_top5_prefill_bf16", "bfloat16", (8, 896), 4096),
+    ("c_top20_prefill_bf16", "bfloat16", (8, 3200), 4096),
+    ("d_mellum2_decode_bf16", "bfloat16", (8, 1), 2304),
+    ("e_mellum2_prefill_bf16", "bfloat16", (8, 3200), 2304),
+    ("f_hf8b_decode_f32", "float32", (8, 1), 4096),
+    ("g_hf8b_prefill_f32", "float32", (8, 384), 4096),
+    ("h_qa_ckpt_decode_f32", "float32", (8, 1), 192),
+    ("i_qa_ckpt_prefill_f32", "float32", (8, 640), 192),
+)
+# the residual stream's RMS deep in a layer stack, and at its first norm
+# (an embedding row of N(0, 1 / vocab) entries), where eps weighs
+K9_SCALES = (("unit", 1.0), ("embedding", 0.005))
+
+
+def _bf16_line(t):
+    """bf16 values as integers in order, one a representable step."""
+    import torch
+    i = t.view(torch.int16).int()
+    return torch.where(i < 0, -(i & 0x7FFF), i)
+
+
+def _bf16_from_line(m):
+    import torch
+    return torch.where(m < 0, (-m) | 0x8000, m).to(torch.int16).view(
+        torch.bfloat16)
+
+
+def _k9_compare(got, want, w, eps, dtype):
+    """(s, h) of K9 against the plain composition's (s, h) for gains w and
+    eps: s equal, and h's differing elements, its largest distance in bf16
+    steps and the elements that are not the gain times the plain cast or
+    one of its neighbours (bf16), or its largest relative error (f32);
+    ``ok`` by the phase's limits."""
+    import torch
+    (s, h), (ws, wh) = got, want
+    rec = {"s_bit_equal": torch.equal(s, ws),
+           "h_differing": int((h != wh).sum()), "h_elements": h.numel(),
+           "h_max_abs_err": float((h.float() - wh.float()).abs().max())}
+    if dtype == torch.bfloat16:
+        rec["h_max_ulps"] = int((_bf16_line(h) - _bf16_line(wh)).abs().max())
+        s32 = ws.float()
+        cast = _bf16_line((s32 * torch.rsqrt((s32 * s32).mean(
+            -1, keepdim=True) + eps)).to(torch.bfloat16))
+        near = torch.zeros_like(h, dtype=torch.bool)
+        for k in (-1, 0, 1):
+            near |= h == _bf16_from_line(cast + k) * w
+        rec["h_off_neighbours"] = int((~near).sum())
+        rec["ok"] = rec["s_bit_equal"] and rec["h_off_neighbours"] == 0
+    else:
+        rel = (h - wh).abs() / wh.abs().clamp_min(1e-30)
+        rec["h_max_rel_err"] = float(rel.max())
+        rec["ok"] = rec["s_bit_equal"] and rec["h_max_rel_err"] <= K9_F32_TOL
+    return rec
+
+
+def _k9_inputs(g, dev, dt, lead, d, scale):
+    import torch
+    x = (scale * torch.randn(*lead, d, generator=g, device=dev)).to(dt)
+    delta = (0.3 * scale * torch.randn(*lead, d, generator=g,
+                                       device=dev)).to(dt)
+    w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dt)
+    return x, delta, w
+
+
+def _k9_case(name, dtype, lead, d, g, dev, eps=1e-5):
+    """One K9 shape against its plain version (add_rms_norm_reference) at
+    both scales, with and without the residual; each launch counted; at
+    the decode shapes two planted faults (the residual dropped, eps 1e-5
+    where the model's is 1e-6, at the embedding scale) must fail the same
+    comparison.  Timed at unit scale with the residual: device time of a
+    replayed graph of K9, of the plain version and of ``x + delta`` then
+    ``torch.nn.functional.rms_norm`` (the library yardstick), the byte
+    bound (read x, delta and w, write s and h)."""
+    import torch
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.ops import norm as N
+    dt = getattr(torch, dtype)
+    rec = {"name": name, "dtype": dtype, "shape": [*lead, d],
+           "checks": {}}
+    for tag, scale in K9_SCALES:
+        x, delta, w = _k9_inputs(g, dev, dt, lead, d, scale)
+        for with_delta in (True, False):
+            dd = delta if with_delta else None
+            before = LAUNCHES["rms_norm"]
+            got = N.add_rms_norm_cuda(x, dd, w, eps)
+            torch.cuda.synchronize()
+            chk = _k9_compare(got, N.add_rms_norm_reference(x, dd, w, eps),
+                              w, eps, dt)
+            chk["launches"] = LAUNCHES["rms_norm"] - before
+            chk["s_is_x"] = with_delta or got[0] is x
+            rec["checks"][f"{tag}_{'add' if with_delta else 'alone'}"] = chk
+        if lead[1] == 1 and tag == "embedding":
+            want = N.add_rms_norm_reference(x, delta, w, 1e-6)
+            rec["fault_dropped_delta"] = _k9_compare(
+                N.add_rms_norm_cuda(x, None, w, 1e-6), want, w, 1e-6, dt)
+            rec["fault_wrong_eps"] = _k9_compare(
+                N.add_rms_norm_cuda(x, delta, w, 1e-5), want, w, 1e-6, dt)
+        if tag == "unit":
+            item = x.element_size()
+            rows = x.numel() // d
+            rec["bound_ms"] = 1e3 * (4 * rows + 1) * d * item \
+                / H100_BYTES_PER_S
+            rec["bound_by"] = "bytes"
+            calls = 20 if rows <= 64 else 5
+            rec["ms"] = device_ms(
+                lambda: N.add_rms_norm_cuda(x, delta, w, eps), calls=calls)
+            rec["plain_ms"] = device_ms(
+                lambda: N.add_rms_norm_reference(x, delta, w, eps),
+                calls=calls)
+            rec["library_ms"] = device_ms(
+                lambda: torch.nn.functional.rms_norm(x + delta, (d,), w, eps),
+                calls=calls)
+            rec["roofline"] = rec["bound_ms"] / rec["ms"]
+        del x, delta, w
+    rec["max_abs_err"] = max(c["h_max_abs_err"]
+                             for c in rec["checks"].values())
+    ok = all(c["ok"] and c["launches"] == 1 and c["s_is_x"]
+             for c in rec["checks"].values())
+    if lead[1] == 1:
+        ok = ok and not rec["fault_dropped_delta"]["ok"] \
+            and not rec["fault_wrong_eps"]["ok"]
+    log(f"[phase15] {json.dumps(rec)}")
+    if not ok:
+        raise AssertionError(f"phase 15: K9 case {name} failed: {rec}")
+    _free_cuda()
+    return rec
+
+
+def _k9_rows(dev, dtype, d, g):
+    """A row alone, among 8 and among a prefill's 25,600 ([8, 3,200, d]):
+    K9's s and h equal bit for bit.  Beside it the plain composition's f32
+    row means of the same rows at 1, 8, 40 (a verification window of 8 x
+    5) and 25,600 rows: the rows whose mean differs from the 25,600-row
+    one (ROADMAP Queue C's row-count suspect)."""
+    import torch
+    from sdag_tpu_torch.ops import norm as N
+    dt = getattr(torch, dtype)
+    x, delta, w = _k9_inputs(g, dev, dt, (8, 3200), d, 1.0)
+    flat_x, flat_d = x.reshape(-1, d), delta.reshape(-1, d)
+    idx = torch.arange(8, device=dev) * 3203 + 17
+    big_s, big_h = N.add_rms_norm_cuda(x, delta, w, 1e-5)
+    big_s, big_h = big_s.reshape(-1, d)[idx], big_h.reshape(-1, d)[idx]
+    s8, h8 = N.add_rms_norm_cuda(flat_x[idx].contiguous(),
+                                 flat_d[idx].contiguous(), w, 1e-5)
+    alone = [N.add_rms_norm_cuda(flat_x[i:i + 1].contiguous(),
+                                 flat_d[i:i + 1].contiguous(), w, 1e-5)
+             for i in idx.tolist()]
+    s1, h1 = torch.cat([a[0] for a in alone]), torch.cat([a[1] for a in alone])
+    rec = {"dtype": dtype, "d": d, "rows": int(x.numel() // d),
+           "among_8_equal": torch.equal(s8, big_s) and torch.equal(h8, big_h),
+           "alone_equal": torch.equal(s1, big_s) and torch.equal(h1, big_h)}
+
+    def means(t):
+        t32 = t.float()
+        return (t32 * t32).mean(-1)
+    s_all = (flat_x + flat_d)
+    m_big = means(s_all)[idx]
+    picked = s_all[idx].contiguous()
+    window = s_all[torch.cat([idx + j for j in range(5)])].contiguous()
+    rec["plain_mean_rows_differing"] = {
+        "alone": int(sum(int(means(picked[i:i + 1])[0] != m_big[i])
+                         for i in range(8))),
+        "among_8": int((means(picked) != m_big).sum()),
+        "among_40": int((means(window)[:8] != m_big).sum())}
+    log(f"[phase15] rows {json.dumps(rec)}")
+    del x, delta, s_all, window
+    _free_cuda()
+    if not (rec["among_8_equal"] and rec["alone_equal"]):
+        raise AssertionError(f"phase 15: K9 rows depend on the row count: "
+                             f"{rec}")
+    return rec
+
+
+def _k9_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
+    """The top-5 cell's decode shape at the 8B width and depth (random
+    bf16 weights, batch 8, 896 prompt slots with 782 valid, 32 new tokens,
+    K7 in both): the captured graph with K9 and with the plain composition
+    swapped in; kernels a step in one replay, ms a step over replays (same
+    card, same call), K9's launches a step run at capture (the eager
+    warm-up step and the captured ones), the norm kernels (rsqrt, mean)
+    left in a replay; then graph against eager tokens through K9."""
+    import torch
+    import sdag_tpu_torch.models.llama as L
+    from sdag_tpu_torch._build import LAUNCHES
+    from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.ops import norm as N
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = init_decoder_params(g, cfg, device=dev)
+    rec = {}
+    for name, norm in (("k9", N.add_rms_norm),
+                       ("plain", N.add_rms_norm_reference)):
+        L.add_rms_norm = norm
+        try:
+            gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
+                            batch_bucket=8, device=dev)
+            before = LAUNCHES["rms_norm"]
+            buf = gen._buffers(8, lp, max_new, graphs=True)
+            launches = LAUNCHES["rms_norm"] - before
+        finally:
+            L.add_rms_norm = N.add_rms_norm
+        steps = 1 + sum(buf.step_counts())
+        buf.base_mask[:, :prompt] = True
+        graph = buf.graphs[gen.decode_chunk]
+        buf.t.zero_()
+        names = _graph_kernel_names(graph)
+        times = []
+        for _ in range(replays):
+            buf.t.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / gen.decode_chunk)
+        norm_kernels = sum(n for k, n in names.items()
+                           if "rsqrt" in k or "MeanOps" in k)
+        rec[name] = {"capture_launches": launches, "steps_run": steps,
+                     "launches_per_step": launches / steps,
+                     "kernels_per_step": sum(names.values())
+                     / gen.decode_chunk,
+                     "norm_kernels_per_step": norm_kernels / gen.decode_chunk,
+                     "k9_kernels_per_step": sum(
+                         n for k, n in names.items() if "sdag_rms_norm" in k)
+                     / gen.decode_chunk,
+                     "ms_per_step": sorted(times)[len(times) // 2],
+                     "ms_per_step_all": times}
+        if name == "k9":
+            rec["graph_vs_eager"], _ = _decode_graph_vs_eager(
+                gen, dev, tag="phase 15")
+        del gen, buf, graph
+        torch.cuda.empty_cache()
+    rec["kernels_fewer_per_step"] = (rec["plain"]["kernels_per_step"]
+                                     - rec["k9"]["kernels_per_step"])
+    log(f"[phase15] decode graphs {json.dumps(rec)}")
+    del params
+    _free_cuda()
+    # the counter is exact; torch.profiler may drop a few of a long
+    # replay's ~4,300 events (36 seen after the earlier phases), so the
+    # kernels it names are held to within one a step
+    want = 2 * cfg.n_layers + 1
+    if rec["k9"]["launches_per_step"] != want \
+            or not want - 1 <= rec["k9"]["k9_kernels_per_step"] <= want \
+            or rec["k9"]["norm_kernels_per_step"] != 0 \
+            or rec["plain"]["capture_launches"] != 0:
+        raise AssertionError(f"phase 15: K9 launches at capture (want "
+                             f"{want} a step) or norm kernels left: {rec}")
+    if rec["kernels_fewer_per_step"] < 16 * cfg.n_layers:
+        raise AssertionError(f"phase 15: the K9 step graph is not ~16 "
+                             f"kernels a layer smaller: {rec}")
+    return rec
+
+
+def _k9_speculation(dev):
+    """Phase 13(d)'s count with K9 in place: greedy speculative decode (D
+    = 4) against plain greedy decode at the 8B width and depth with int8
+    weights, bf16 activations and the native cache, on the main path's
+    NO-ISO batch (8 x 32 tokens), with K9 and with the plain composition:
+    the tokens that differ (the plain composition's row sums depend on
+    the row count, a window's 40 rows against a step's 8; 4 of 256 tokens
+    differed with it on the card).  With K9 they must be equal."""
+    import torch
+    import sdag_tpu_torch.models.llama as L
+    from sdag_tpu_torch.models.tokenizer import load_tokenizer
+    from sdag_tpu_torch.ops import norm as N
+    from sdag_tpu_torch.sdag.generate import Generator
+    cfg = L.DecoderConfig.llama3_8b()
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = L.quantize_decoder_params_int8(
+        L.init_decoder_params(g, cfg, device=dev), consume=True)
+    tok = load_tokenizer("")
+    rec = {}
+    for name, norm in (("k9", N.add_rms_norm),
+                       ("plain", N.add_rms_norm_reference)):
+        L.add_rms_norm = norm
+        try:
+            out = {}
+            for draft in (0, 4):
+                gen = Generator(params, cfg, tok, temperature=0.0,
+                                batch_bucket=8, speculative_draft=draft,
+                                device=dev)
+                out[draft] = gen._generate(*_no_iso_batch(gen, dev), 32,
+                                           graphs=True)[0].cpu()
+                del gen
+                torch.cuda.empty_cache()
+        finally:
+            L.add_rms_norm = N.add_rms_norm
+        rec[name] = {"tokens": int(out[0].numel()),
+                     "tokens_differing": int((out[0] != out[4]).sum())}
+    log(f"[phase15] speculation bf16 {json.dumps(rec)}")
+    del params
+    _free_cuda()
+    if rec["k9"]["tokens_differing"]:
+        raise AssertionError(f"phase 15: greedy speculative tokens differ "
+                             f"from plain greedy decode's with K9: {rec}")
+    return rec
+
+
+def phase15(dev):
+    """K9 (csrc/rms_norm.cu): (a) its cases against the plain composition,
+    planted faults at the decode shapes; (b) row independence at 25,600
+    rows, beside the plain composition's row-count count; (c) the top-5
+    decode graph with K9 and with the plain composition; (d) phase 13(d)'s
+    bf16 speculation count with K9 in place.  Returns the phase's
+    record."""
+    import torch
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(15)
+    rec = {"a": [_k9_case(*case, g, dev) for case in K9_CASES]}
+    rec["b"] = [_k9_rows(dev, dt, d, g) for dt, d in (
+        ("bfloat16", 4096), ("bfloat16", 2304), ("float32", 4096),
+        ("float32", 192))]
+    rec["c"] = _k9_decode_graphs(dev)
+    rec["d"] = _k9_speculation(dev)
     rec["phase_s"] = time.perf_counter() - t0
     return rec
 
@@ -5668,6 +6047,8 @@ def main() -> int:
     details["phase13"] = p13 = phase13(dev)
     _free_cuda()
     details["phase14"] = p14 = phase14(dev)
+    _free_cuda()
+    details["phase15"] = p15 = phase15(dev)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:
         json.dump(details, fh, indent=1)
@@ -5777,6 +6158,16 @@ def main() -> int:
         launches=p14["c"]["launches"]["moe_experts"],
         max_abs_err=max(r["max_abs_err"] for r in p14["a"]),
         **{key: p14_a[key] for key in keys}))
+    # K9: timed at the top-20 prefill's rows (phase 15 case c), counted
+    # over phase 4's llama3-8b run
+    p15_c = {r["name"]: r for r in p15["a"]}["c_top20_prefill_bf16"]
+    kernels.append(dict(
+        name="rms_norm", route="cuda",
+        source="sdag_tpu_torch/csrc/rms_norm.cu",
+        replaces="none (XLA fuses sdag_tpu/models/llama.py rms_norm)",
+        launches=p4["launches"].get("rms_norm", 0),
+        max_abs_err=max(r["max_abs_err"] for r in p15["a"]),
+        **{key: p15_c[key] for key in keys}))
     # each kernel at the shard shapes of phase 11 (timed in one process)
     # and its launches per rank in phase 11(b)
     shard = p11["shard_shapes"]
@@ -5923,7 +6314,19 @@ def main() -> int:
         f"{p14c['launches']['decode_attention']} launches over "
         f"{p14c['graph_captures']} captures; phase "
         f"{p14['phase_s']:.1f} s on {card}")
-    log(f"[summary] phases 0-14 in {time.perf_counter() - t_start:.1f} s")
+    p15c = p15["c"]
+    log(f"[summary] phase 15 K9: {len(p15['a'])} shapes, s bit-equal, h "
+        f"the gain times a neighbour of the plain cast (bf16) / within "
+        f"{K9_F32_TOL} (f32), both planted faults "
+        f"flagged; rows = the row alone at 25,600; top-5 step graph "
+        f"{p15c['k9']['kernels_per_step']:.0f} kernels a step (plain "
+        f"{p15c['plain']['kernels_per_step']:.0f}), "
+        f"{p15c['k9']['ms_per_step']:.3f} ms a step (plain "
+        f"{p15c['plain']['ms_per_step']:.3f}), "
+        f"{p15c['k9']['launches_per_step']:.0f} K9 launches a step; bf16 "
+        f"speculation tokens differing {json.dumps(p15['d'])}; phase "
+        f"{p15['phase_s']:.1f} s on {card}")
+    log(f"[summary] phases 0-15 in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"ptxas": ptxas}))
     log(card)
     log(json.dumps({"kernels": kernels}))

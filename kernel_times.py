@@ -64,7 +64,13 @@ that builds that tree's kernels with nvcc:
   mellum2.poison_top20's decode shape, beside its plain version and the
   library's grouped products, with its bound and each kernel's device
   time, and the prefill's expert products grouped and per expert
-  (``--only k8``; a tree without K8 times nothing).
+  (``--only k8``; a tree without K8 times nothing);
+* K9 ``add_rms_norm_cuda`` (a layer's residual add and the RMSNorm after
+  it) at a decode step's rows (8 x 4,096 bf16), the top-20 prefill's
+  (25,600 x 4,096), Mellum2's prefill (25,600 x 2,304) and qa_ckpt's in
+  f32 (d 192: 8 and 5,120 rows), beside the plain composition, with its
+  byte bound (read x, delta and w; write s and h) and launches a call
+  (``--only k9``; a tree without K9 times its plain composition alone).
 
 Prints the card (nvidia-smi name and power limit), one JSON line per turn,
 and one JSON line ``{"kernel_times": {shape: {"old_ms": [..], "new_ms":
@@ -573,8 +579,58 @@ def k8_times(c, dev, out, calls=10):
                                        way == "grouped"), iters=5, warmup=2)
 
 
+# K9's shapes: (name, rows, d, dtype)
+K9_SHAPES = (("decode", 8, 4096, "bfloat16"),
+             ("top20_prefill", 25600, 4096, "bfloat16"),
+             ("mellum2_prefill", 25600, 2304, "bfloat16"),
+             ("qa_ckpt_decode", 8, 192, "float32"),
+             ("qa_ckpt_prefill", 5120, 192, "float32"))
+
+
+def k9_times(c, dev, out, calls=20):
+    """K9, a layer's residual add and RMSNorm, at ``K9_SHAPES``: device
+    time a call of a replayed graph (``calls`` calls a graph at a decode
+    step's rows, 5 at a prefill's), the plain composition's, launches a
+    call, and the bound over the bytes read and written once (x, delta, w
+    in; s, h out).  A tree without K9 times ``x + delta`` then its
+    ``rms_norm`` alone."""
+    import importlib.util
+    import torch
+    from sdag_tpu_torch import _build
+    from sdag_tpu_torch.models import llama as L
+    has_k9 = importlib.util.find_spec("sdag_tpu_torch.ops.norm") is not None
+    if has_k9:
+        from sdag_tpu_torch.ops import norm as N
+    g = torch.Generator(device=dev)
+    g.manual_seed(20)
+    for cell, rows, d, dtype in K9_SHAPES:
+        dt = getattr(torch, dtype)
+        x = torch.randn(rows, d, generator=g, device=dev).to(dt)
+        delta = (0.3 * torch.randn(rows, d, generator=g, device=dev)).to(dt)
+        w = (1 + 0.1 * torch.randn(d, generator=g, device=dev)).to(dt)
+        name = f"K9_{cell}_{rows}x{d}"
+        n = calls if rows <= 64 else 5
+        out[name + "_bound_ms"] = 1e3 * (4 * rows + 1) * d * \
+            x.element_size() / c.H100_BYTES_PER_S
+        if has_k9:
+            out[name + "_plain_ms"] = graph_ms(
+                lambda: N.add_rms_norm_reference(x, delta, w, 1e-5), calls=n)
+        else:
+            out[name + "_plain_ms"] = graph_ms(
+                lambda: L.rms_norm(x + delta, w, 1e-5), calls=n)
+            continue
+        before = _build.LAUNCHES["rms_norm"]
+        N.add_rms_norm_cuda(x, delta, w, 1e-5)
+        out[name + "_launches"] = _build.LAUNCHES["rms_norm"] - before
+        out[name + "_ms"] = graph_ms(
+            lambda: N.add_rms_norm_cuda(x, delta, w, 1e-5), calls=n)
+        out[name + "_roofline"] = out[name + "_bound_ms"] / out[name + "_ms"]
+        del x, delta
+        torch.cuda.empty_cache()
+
+
 FAMILIES = ("k3", "k3_f32", "decode", "k2", "k4", "k1", "k6", "decode_int8",
-            "k7", "k8")
+            "k7", "k8", "k9")
 
 
 def worker(tree: str, families) -> int:

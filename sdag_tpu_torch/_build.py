@@ -13,7 +13,7 @@ build raises.  ``LAUNCHES`` counts kernel launches per kernel (per kernel
 body where one library holds several, as K1's f32 and bf16 bodies, K4/K5
 in ``topk_matmul.cu`` or K6's two in ``int8_matmul.cu``; K7,
 ``decode_attention``, counts its two launches a call under one key, K8,
-``moe_experts``, its four): each
+``moe_experts``, its four, K9, ``rms_norm``, its one): each
 wrapper adds one where it launches its kernel, nowhere else.
 """
 
@@ -31,7 +31,8 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
 KERNELS = ("sdag_prefill", "bm25_scan_topk", "encoder_attention",
-           "topk_matmul", "int8_matmul", "decode_attention", "moe_experts")
+           "topk_matmul", "int8_matmul", "decode_attention", "moe_experts",
+           "rms_norm")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 

@@ -37,6 +37,7 @@ from sdag_tpu_torch.ops.attention import (
     sdag_attention_dense, sdag_prefill_attention)
 from sdag_tpu_torch.ops.int8_matmul import int8_matmul
 from sdag_tpu_torch.ops.moe import moe_decode, moe_prefill
+from sdag_tpu_torch.ops.norm import add_rms_norm, rms_norm  # noqa: F401
 from sdag_tpu_torch.parallel.collectives import (all_reduce_, copy_to_group,
                                                  gather_from_group,
                                                  reduce_from_group)
@@ -292,12 +293,6 @@ def _embed_rows(embed, ids: torch.Tensor, dtype) -> torch.Tensor:
     return embed[ids].to(dtype)
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
-
-
 def _llama3_scale_freqs(freqs: torch.Tensor, scaling) -> torch.Tensor:
     """HF 'llama3' rope_type frequency rescaling (Llama-3.1)."""
     factor, low_ff, high_ff, orig_max = scaling
@@ -423,9 +418,16 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   doc_id: torch.Tensor, nbr_bits: torch.Tensor,
                   sys_user_len: torch.Tensor, valid_len: torch.Tensor,
                   mask_plan=None, tp_group=None, attn_impl: str = "auto",
-                  li: int = 0, rows=None, stats=None, routes=None):
+                  li: int = 0, rows=None, stats=None, routes=None,
+                  residual: Optional[torch.Tensor] = None):
     """One decoder layer (attention + MLP with residuals).
-    Returns (x, (k, v)).
+    Returns (x, mlp_out, (k, v)): the layer's output is x + mlp_out, an add
+    left to the caller's next norm (the next layer's ``residual``, or the
+    final norm), so that each residual add shares a launch with the norm
+    after it (``add_rms_norm``, kernel K9 on CUDA).
+
+    residual: the previous layer's MLP output not yet added to ``x`` (None
+    for the first layer); its add runs in this layer's first norm.
 
     attn_impl: "auto" runs ``sdag_prefill_attention`` (kernel K1 on CUDA,
     which has no backward and raises under autograd); "xla" the
@@ -448,7 +450,8 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
         mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len,
                                     valid_len, attn_impl, window=window,
                                     positions=positions)
-    h = copy_to_group(rms_norm(x, layer["ln1"], cfg.norm_eps), tp_group)
+    x, h = add_rms_norm(x, residual, layer["ln1"], cfg.norm_eps)
+    h = copy_to_group(h, tp_group)
     q, k, v = _project_qkv(layer["attn"], h, cfg)
     theta, scaling, yarn = cfg.layer_rope(li)
     q = rope(q, positions, theta, scaling, yarn)
@@ -461,16 +464,17 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
             q, k, v, doc_id, nbr_bits, sys_user_len, valid_len=valid_len,
             scale=scale, mask_plan=mask_plan, window=window,
             positions=positions)
-    attn_out = attn_out.transpose(1, 2).reshape(B, L, -1)
-    x = x + reduce_from_group(_mm(attn_out, layer["attn"]["wo"]), tp_group)
-    h = copy_to_group(rms_norm(x, layer["ln2"], cfg.norm_eps), tp_group)
+    attn_out = reduce_from_group(_mm(attn_out.transpose(1, 2).reshape(
+        B, L, -1), layer["attn"]["wo"]), tp_group)
+    x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
+    h = copy_to_group(h, tp_group)
     if cfg.n_experts:
         if rows is None:
             rows = token_rows(doc_id, valid_len)
-        return x + moe_prefill(layer["moe"], cfg, h, rows, stats,
-                               routes), (k, v)
-    x = x + reduce_from_group(_mlp(layer["mlp"], h), tp_group)
-    return x, (k, v)
+        out = moe_prefill(layer["moe"], cfg, h, rows, stats, routes)
+    else:
+        out = reduce_from_group(_mlp(layer["mlp"], h), tp_group)
+    return x, out, (k, v)
 
 
 def make_kv_cache(cfg: DecoderConfig, batch: int, size: int,
@@ -571,13 +575,13 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
         cache = make_kv_cache(cfg, B, cache_size, device=dev,
                               kv_dtype=kv_dtype,
                               n_kv_heads=local_kv_heads(params, cfg))
+    pending = None     # a layer's MLP output, added in the next norm
     for li, layer in enumerate(params["layers"]):
-        x, (k, v) = layer_forward(layer, cfg, x, positions, doc_id,
-                                  nbr_bits, sys_user_len, valid_len,
-                                  mask_plan=plans[cfg.window(li)],
-                                  tp_group=tp_group, attn_impl=attn_impl,
-                                  li=li, rows=rows, stats=stats,
-                                  routes=routes)
+        x, pending, (k, v) = layer_forward(
+            layer, cfg, x, positions, doc_id, nbr_bits, sys_user_len,
+            valid_len, mask_plan=plans[cfg.window(li)], tp_group=tp_group,
+            attn_impl=attn_impl, li=li, rows=rows, stats=stats,
+            routes=routes, residual=pending)
         if cache is not None and "k_scale" in cache:
             kv_q, kv_s = _quantize_kv(k, v)
             for i, name in enumerate(("k", "v")):
@@ -587,7 +591,7 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             cache["k"][li, :, :, :L] = k
             cache["v"][li, :, :, :L] = v
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
     if logits_last_only:
         last = (valid_len.long() - 1).clamp(min=0)
         x = x[torch.arange(B, device=dev), last][:, None, :]
@@ -630,10 +634,11 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
     if cfg.has_windows and window_mask is None:
         raise ValueError("decode_step: a model with windowed layers needs "
                          "window_mask")
+    pending = None     # a layer's MLP output, added in the next norm
     for li, layer in enumerate(params["layers"]):
         freqs = layer_freqs(cfg, li, tokens.device)
         mask = window_mask if cfg.windowed(li) else cache_mask
-        h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+        x, h = add_rms_norm(x, pending, layer["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
         if int8_kv:
             q = apply_rope(q, pos, freqs)
@@ -651,16 +656,16 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
                                         cache["k"][li], cache["v"][li],
                                         mask, write_index, positions,
                                         freqs, scale=cfg.attn_scale(li))
-        x = x + all_reduce_(_mm(attn_out.reshape(B, 1, -1),
-                                layer["attn"]["wo"]), tp_group)
-        h = rms_norm(x, layer["ln2"], cfg.norm_eps)
+        attn_out = all_reduce_(_mm(attn_out.reshape(B, 1, -1),
+                                   layer["attn"]["wo"]), tp_group)
+        x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
         if cfg.n_experts:
-            x = x + moe_decode(layer["moe"], cfg, h[:, 0], moe_reads,
-                               row_live, None if moe_routes is None
-                               else moe_routes[li])[:, None]
+            pending = moe_decode(layer["moe"], cfg, h[:, 0], moe_reads,
+                                 row_live, None if moe_routes is None
+                                 else moe_routes[li])[:, None]
         else:
-            x = x + all_reduce_(_mlp(layer["mlp"], h), tp_group)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            pending = all_reduce_(_mlp(layer["mlp"], h), tp_group)
+    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x, tp_group)[:, 0, :].float(), cache
 
 
@@ -712,8 +717,9 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
     B, G = tokens.shape
     x = _embed_rows(params["embed"], tokens, cfg.dtype)   # [B, G, d]
     int8_kv = "k_scale" in cache
+    pending = None     # a layer's MLP output, added in the next norm
     for li, layer in enumerate(params["layers"]):
-        h = rms_norm(x, layer["ln1"], cfg.norm_eps)
+        x, h = add_rms_norm(x, pending, layer["ln1"], cfg.norm_eps)
         q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H|Hkv, G, hd]
         q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
         k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
@@ -731,10 +737,9 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
             _update_rows_at(cache["v"][li], v, write_slots)
             attn_out = masked_decode_window_attention(
                 q, cache["k"][li], cache["v"][li], cache_mask)
-        attn_out = attn_out.transpose(1, 2).reshape(B, G, -1)
-        x = x + all_reduce_(_mm(attn_out, layer["attn"]["wo"]), tp_group)
-        x = x + all_reduce_(_mlp(layer["mlp"], rms_norm(x, layer["ln2"],
-                                                        cfg.norm_eps)),
-                            tp_group)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        attn_out = all_reduce_(_mm(attn_out.transpose(1, 2).reshape(B, G, -1),
+                                   layer["attn"]["wo"]), tp_group)
+        x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
+        pending = all_reduce_(_mlp(layer["mlp"], h), tp_group)
+    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
     return _unembed(params, cfg, x, tp_group).float(), cache

@@ -32,7 +32,8 @@ import torch.distributed as dist
 from sdag_tpu_torch.core.mesh import Mesh
 from sdag_tpu_torch.models.llama import (DecoderConfig, _embed_rows,
                                          layer_forward, layer_mask_plan,
-                                         positions_from_doc_id, rms_norm)
+                                         positions_from_doc_id)
+from sdag_tpu_torch.ops.norm import add_rms_norm
 from sdag_tpu_torch.parallel.checkpoint import _slice
 from sdag_tpu_torch.parallel.collectives import (all_reduce_,
                                                  all_reduce_grads_,
@@ -158,15 +159,17 @@ def make_pp_train_step(cfg: DecoderConfig, mesh: Mesh, n_micro: int,
             else:
                 x = recv_from((mbsz, L, cfg.d_model), cfg.dtype,
                               mesh.device, pipe, prev_rank)
+            pending = None   # a layer's MLP output, added in the next norm
             for i in range(n_local):
-                x, _ = layer_forward(
+                x, pending, _ = layer_forward(
                     tree_map(lambda t: t[i], stacked["layers"]), cfg, x,
                     positions, *meta, mask_plan=plan, tp_group=tp_group,
-                    attn_impl=attn_impl)
+                    attn_impl=attn_impl, residual=pending)
             if not last:
-                terminals.append(send_to(x, pipe, next_rank))
+                terminals.append(send_to(x + pending, pipe, next_rank))
                 continue
-            xn = rms_norm(x, stacked["final_norm"], cfg.norm_eps)
+            _, xn = add_rms_norm(x, pending, stacked["final_norm"],
+                                 cfg.norm_eps)
             w = stacked["embed"].T if head is None else head
             logp = torch.log_softmax((xn @ w).float(), dim=-1)
             tgt = logp.gather(-1, d["targets"].long()[..., None])[..., 0]
