@@ -5169,40 +5169,45 @@ def _graph_kernels(graph) -> int:
     return sum(_graph_kernel_names(graph).values())
 
 
-def _k7_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
+def _decode_graphs(dev, tag, swap, kernel, plain, count_key, names=None,
+                   lp=896, max_new=32, prompt=782, replays=10):
     """The top-5 cell's decode shape at the 8B width and depth (random
     bf16 weights, batch 8, 896 prompt slots with 782 valid, 32 new
-    tokens): the captured 8-step graph with K7 and with the plain
-    attention block swapped in; kernels a step in one replay, ms a step
-    over replays (same card, same call), K7's launches at capture; then
-    graph against eager tokens through K7 (greedy and sampled)."""
+    tokens): the captured 8-step graph with ``models.llama``'s global
+    ``swap`` set to ``kernel`` (record ``tag``, "k7" or "k9") and to its
+    ``plain`` version; for each, kernels a step in one replay, ms a step
+    over replays (same card, same call), ``LAUNCHES[count_key]`` at
+    capture (the eager warm-up step and the captured ones) and a step,
+    and for each ``names`` key the kernels a step whose name holds one of
+    its substrings; then graph against eager tokens through the
+    kernel."""
     import torch
     import sdag_tpu_torch.models.llama as L
     from sdag_tpu_torch._build import LAUNCHES
     from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
     from sdag_tpu_torch.models.tokenizer import load_tokenizer
-    from sdag_tpu_torch.ops import attention as A
     from sdag_tpu_torch.sdag.generate import Generator
     cfg = DecoderConfig.llama3_8b()
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     params = init_decoder_params(g, cfg, device=dev)
-    rec = {}
-    for name, attention in (("k7", A.decode_attention),
-                            ("plain", A.decode_attention_reference)):
-        L.decode_attention = attention
+    phase = {"k7": "phase 13", "k9": "phase 15"}[tag]
+    rec = {"n_layers": cfg.n_layers}
+    for name, fn in ((tag, kernel), ("plain", plain)):
+        setattr(L, swap, fn)
         try:
             gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
                             batch_bucket=8, device=dev)
-            before = LAUNCHES["decode_attention"]
+            before = LAUNCHES[count_key]
             buf = gen._buffers(8, lp, max_new, graphs=True)
-            launches = LAUNCHES["decode_attention"] - before
+            launches = LAUNCHES[count_key] - before
         finally:
-            L.decode_attention = A.decode_attention
+            setattr(L, swap, kernel)
+        steps = 1 + sum(buf.step_counts())
         buf.base_mask[:, :prompt] = True
         graph = buf.graphs[gen.decode_chunk]
         buf.t.zero_()
-        kernels = _graph_kernels(graph)
+        kernels = _graph_kernel_names(graph)
         times = []
         for _ in range(replays):
             buf.t.zero_()
@@ -5213,25 +5218,26 @@ def _k7_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end) / gen.decode_chunk)
-        rec[name] = {"capture_launches": launches,
-                     "kernels_per_step": kernels / gen.decode_chunk,
+        rec[name] = {"capture_launches": launches, "steps_run": steps,
+                     "launches_per_step": launches / steps,
+                     "kernels_per_step": sum(kernels.values())
+                     / gen.decode_chunk,
                      "ms_per_step": sorted(times)[len(times) // 2],
                      "ms_per_step_all": times}
-        if name == "k7":
-            rec["graph_vs_eager"], _ = _decode_graph_vs_eager(gen, dev)
+        for key, subs in (names or {}).items():
+            rec[name][key] = sum(n for k, n in kernels.items()
+                                 if any(x in k for x in subs)) \
+                / gen.decode_chunk
+        if name == tag:
+            rec["graph_vs_eager"], _ = _decode_graph_vs_eager(gen, dev,
+                                                              tag=phase)
         del gen, buf, graph
         torch.cuda.empty_cache()
     rec["kernels_fewer_per_step"] = (rec["plain"]["kernels_per_step"]
-                                     - rec["k7"]["kernels_per_step"])
-    log(f"[phase13] decode graphs {json.dumps(rec)}")
+                                     - rec[tag]["kernels_per_step"])
+    log(f"[{phase.replace(' ', '')}] decode graphs {json.dumps(rec)}")
     del params
-    torch.cuda.empty_cache()
-    if rec["k7"]["capture_launches"] < 2 * cfg.n_layers \
-            or rec["plain"]["capture_launches"] != 0:
-        raise AssertionError(f"phase 13: K7 launches at capture {rec}")
-    if rec["kernels_fewer_per_step"] < 28 * cfg.n_layers:
-        raise AssertionError(f"phase 13: the K7 step graph is not ~31 "
-                             f"kernels a layer smaller: {rec}")
+    _free_cuda()
     return rec
 
 
@@ -5269,13 +5275,23 @@ def phase13(dev):
     and with the plain block; (d) greedy speculation against plain greedy
     at 8B with f32 activations.  Returns the phase's record."""
     import torch
+    from sdag_tpu_torch.ops import attention as A
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     rec = {"a": [_k7_case(*case, g, dev) for case in K7_CASES]}
     rec["b"] = [_k7_window_rows(dev, 1, False),
                 _k7_window_rows(dev, 4, True)]
-    rec["c"] = _k7_decode_graphs(dev)
+    rec["c"] = c = _decode_graphs(dev, "k7", "decode_attention",
+                                  A.decode_attention,
+                                  A.decode_attention_reference,
+                                  "decode_attention")
+    if c["k7"]["capture_launches"] < 2 * c["n_layers"] \
+            or c["plain"]["capture_launches"] != 0:
+        raise AssertionError(f"phase 13: K7 launches at capture {c}")
+    if c["kernels_fewer_per_step"] < 28 * c["n_layers"]:
+        raise AssertionError(f"phase 13: the K7 step graph is not ~31 "
+                             f"kernels a layer smaller: {c}")
     rec["d"] = _k7_speculation(dev)
     rec["phase_s"] = time.perf_counter() - t0
     return rec
@@ -5850,90 +5866,6 @@ def _k9_rows(dev, dtype, d, g):
     return rec
 
 
-def _k9_decode_graphs(dev, lp=896, max_new=32, prompt=782, replays=10):
-    """The top-5 cell's decode shape at the 8B width and depth (random
-    bf16 weights, batch 8, 896 prompt slots with 782 valid, 32 new tokens,
-    K7 in both): the captured graph with K9 and with the plain composition
-    swapped in; kernels a step in one replay, ms a step over replays (same
-    card, same call), K9's launches a step run at capture (the eager
-    warm-up step and the captured ones), the norm kernels (rsqrt, mean)
-    left in a replay; then graph against eager tokens through K9."""
-    import torch
-    import sdag_tpu_torch.models.llama as L
-    from sdag_tpu_torch._build import LAUNCHES
-    from sdag_tpu_torch.models.llama import DecoderConfig, init_decoder_params
-    from sdag_tpu_torch.models.tokenizer import load_tokenizer
-    from sdag_tpu_torch.ops import norm as N
-    from sdag_tpu_torch.sdag.generate import Generator
-    cfg = DecoderConfig.llama3_8b()
-    g = torch.Generator(device=dev)
-    g.manual_seed(3)
-    params = init_decoder_params(g, cfg, device=dev)
-    rec = {}
-    for name, norm in (("k9", N.add_rms_norm),
-                       ("plain", N.add_rms_norm_reference)):
-        L.add_rms_norm = norm
-        try:
-            gen = Generator(params, cfg, load_tokenizer(""), temperature=0.0,
-                            batch_bucket=8, device=dev)
-            before = LAUNCHES["rms_norm"]
-            buf = gen._buffers(8, lp, max_new, graphs=True)
-            launches = LAUNCHES["rms_norm"] - before
-        finally:
-            L.add_rms_norm = N.add_rms_norm
-        steps = 1 + sum(buf.step_counts())
-        buf.base_mask[:, :prompt] = True
-        graph = buf.graphs[gen.decode_chunk]
-        buf.t.zero_()
-        names = _graph_kernel_names(graph)
-        times = []
-        for _ in range(replays):
-            buf.t.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            graph.replay()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / gen.decode_chunk)
-        norm_kernels = sum(n for k, n in names.items()
-                           if "rsqrt" in k or "MeanOps" in k)
-        rec[name] = {"capture_launches": launches, "steps_run": steps,
-                     "launches_per_step": launches / steps,
-                     "kernels_per_step": sum(names.values())
-                     / gen.decode_chunk,
-                     "norm_kernels_per_step": norm_kernels / gen.decode_chunk,
-                     "k9_kernels_per_step": sum(
-                         n for k, n in names.items() if "sdag_rms_norm" in k)
-                     / gen.decode_chunk,
-                     "ms_per_step": sorted(times)[len(times) // 2],
-                     "ms_per_step_all": times}
-        if name == "k9":
-            rec["graph_vs_eager"], _ = _decode_graph_vs_eager(
-                gen, dev, tag="phase 15")
-        del gen, buf, graph
-        torch.cuda.empty_cache()
-    rec["kernels_fewer_per_step"] = (rec["plain"]["kernels_per_step"]
-                                     - rec["k9"]["kernels_per_step"])
-    log(f"[phase15] decode graphs {json.dumps(rec)}")
-    del params
-    _free_cuda()
-    # the counter is exact; torch.profiler may drop a few of a long
-    # replay's ~4,300 events (36 seen after the earlier phases), so the
-    # kernels it names are held to within one a step
-    want = 2 * cfg.n_layers + 1
-    if rec["k9"]["launches_per_step"] != want \
-            or not want - 1 <= rec["k9"]["k9_kernels_per_step"] <= want \
-            or rec["k9"]["norm_kernels_per_step"] != 0 \
-            or rec["plain"]["capture_launches"] != 0:
-        raise AssertionError(f"phase 15: K9 launches at capture (want "
-                             f"{want} a step) or norm kernels left: {rec}")
-    if rec["kernels_fewer_per_step"] < 16 * cfg.n_layers:
-        raise AssertionError(f"phase 15: the K9 step graph is not ~16 "
-                             f"kernels a layer smaller: {rec}")
-    return rec
-
-
 def _k9_speculation(dev):
     """Phase 13(d)'s count with K9 in place: greedy speculative decode (D
     = 4) against plain greedy decode at the 8B width and depth with int8
@@ -5988,6 +5920,7 @@ def phase15(dev):
     bf16 speculation count with K9 in place.  Returns the phase's
     record."""
     import torch
+    from sdag_tpu_torch.ops import norm as N
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(15)
@@ -5995,7 +5928,23 @@ def phase15(dev):
     rec["b"] = [_k9_rows(dev, dt, d, g) for dt, d in (
         ("bfloat16", 4096), ("bfloat16", 2304), ("float32", 4096),
         ("float32", 192))]
-    rec["c"] = _k9_decode_graphs(dev)
+    rec["c"] = c = _decode_graphs(
+        dev, "k9", "add_rms_norm", N.add_rms_norm, N.add_rms_norm_reference,
+        "rms_norm", names={"norm_kernels_per_step": ("rsqrt", "MeanOps"),
+                           "k9_kernels_per_step": ("sdag_rms_norm",)})
+    # the counter is exact; torch.profiler may drop a few of a long
+    # replay's ~4,300 events (36 seen after the earlier phases), so the
+    # kernels it names are held to within one a step
+    want = 2 * c["n_layers"] + 1
+    if c["k9"]["launches_per_step"] != want \
+            or not want - 1 <= c["k9"]["k9_kernels_per_step"] <= want \
+            or c["k9"]["norm_kernels_per_step"] != 0 \
+            or c["plain"]["capture_launches"] != 0:
+        raise AssertionError(f"phase 15: K9 launches at capture (want "
+                             f"{want} a step) or norm kernels left: {c}")
+    if c["kernels_fewer_per_step"] < 16 * c["n_layers"]:
+        raise AssertionError(f"phase 15: the K9 step graph is not ~16 "
+                             f"kernels a layer smaller: {c}")
     rec["d"] = _k9_speculation(dev)
     rec["phase_s"] = time.perf_counter() - t0
     return rec

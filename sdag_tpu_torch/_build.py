@@ -13,8 +13,8 @@ build raises.  ``LAUNCHES`` counts kernel launches per kernel (per kernel
 body where one library holds several, as K1's f32 and bf16 bodies, K4/K5
 in ``topk_matmul.cu`` or K6's two in ``int8_matmul.cu``; K7,
 ``decode_attention``, counts its two launches a call under one key, K8,
-``moe_experts``, its four, K9, ``rms_norm``, its one): each
-wrapper adds one where it launches its kernel, nowhere else.
+``moe_experts``, its four, K9, ``rms_norm``, its one): every wrapper
+launches through ``launch``, which counts them, nowhere else.
 """
 
 from __future__ import annotations
@@ -124,3 +124,20 @@ def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
     if rc != 0:
         msg = lib.kernel_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def launch(lib: ctypes.CDLL, fn: str, *args, device, count_key=None,
+           n: int = 1) -> None:
+    """Call the launch function ``fn`` of ``lib`` (its argtypes set by the
+    wrapper) on ``device``'s current stream: a tensor or None goes as its
+    device pointer, any other argument as it is, the stream's handle
+    last.  Raises on a CUDA error code, then adds ``n`` to
+    ``LAUNCHES[count_key]`` (None: a prologue counted with its kernel)."""
+    import torch
+    rc = getattr(lib, fn)(*(
+        ctypes.c_void_p(None if a is None else a.data_ptr())
+        if a is None or isinstance(a, torch.Tensor) else a for a in args),
+        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    check(lib, rc, fn)
+    if count_key is not None:
+        LAUNCHES[count_key] += n

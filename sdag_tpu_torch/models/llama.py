@@ -5,7 +5,9 @@ Counterpart of ``sdag_tpu/models/llama.py``: RMSNorm, RoPE (with HF
 the SDAG block-sparse attention (kernel K1 on CUDA) with document metadata
 given, plain causal without; decode attends the whole KV cache causally
 (reference decode semantics; over a native cache each layer's RoPE, K/V
-write and attention are kernel K7 on CUDA).
+write and attention are kernel K7 on CUDA).  Prefill, the decode step and
+the verification window run one layer body (``_layer``); the KV cache's
+format is read in one place (``_layer_kv``).
 
 Parameters are a plain dict with the JAX package's tree layout and weight
 orientation (``x @ w``, w: [in, out]), so ``params_from_numpy`` maps a JAX
@@ -38,7 +40,7 @@ from sdag_tpu_torch.ops.attention import (
 from sdag_tpu_torch.ops.int8_matmul import int8_matmul
 from sdag_tpu_torch.ops.moe import moe_decode, moe_prefill
 from sdag_tpu_torch.ops.norm import add_rms_norm, rms_norm  # noqa: F401
-from sdag_tpu_torch.parallel.collectives import (all_reduce_, copy_to_group,
+from sdag_tpu_torch.parallel.collectives import (copy_to_group,
                                                  gather_from_group,
                                                  reduce_from_group)
 from sdag_tpu_torch.sdag.mask import HOLE_DOC_ID
@@ -413,6 +415,32 @@ def token_rows(doc_id: torch.Tensor, valid_len: torch.Tensor) -> torch.Tensor:
     return valid.reshape(-1).nonzero()[:, 0]
 
 
+def _layer(layer: Dict[str, Any], cfg: DecoderConfig, li: int,
+           x: torch.Tensor, pending: Optional[torch.Tensor], attend, mask,
+           window_mask, experts, tp_group=None):
+    """Decoder layer ``li``, the one body of ``layer_forward`` (prefill,
+    GPipe), ``decode_step`` and ``decode_window``.  The layer's kind sets
+    its RoPE frequencies, softmax scale and mask (``window_mask`` for a
+    windowed layer, else ``mask``); how the K/V are read and written is
+    the caller's ``attend(li, q, k, v, freqs, scale, mask)`` -> (out [B,
+    Hq, L, Dh], kv), q/k/v unrotated; ``experts(li, moe, h)`` runs an
+    expert layer.  ``pending``: the previous layer's MLP output, added in
+    the first norm.  Returns (x, out, kv), the output x + out."""
+    B, L, _ = x.shape
+    x, h = add_rms_norm(x, pending, layer["ln1"], cfg.norm_eps)
+    q, k, v = _project_qkv(layer["attn"], copy_to_group(h, tp_group), cfg)
+    attn, kv = attend(li, q, k, v, layer_freqs(cfg, li, x.device),
+                      cfg.attn_scale(li),
+                      window_mask if cfg.windowed(li) else mask)
+    attn = reduce_from_group(_mm(attn.transpose(1, 2).reshape(B, L, -1),
+                                 layer["attn"]["wo"]), tp_group)
+    x, h = add_rms_norm(x, attn, layer["ln2"], cfg.norm_eps)
+    h = copy_to_group(h, tp_group)
+    if cfg.n_experts:
+        return x, experts(li, layer["moe"], h), kv
+    return x, reduce_from_group(_mlp(layer["mlp"], h), tp_group), kv
+
+
 def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   x: torch.Tensor, positions: torch.Tensor,
                   doc_id: torch.Tensor, nbr_bits: torch.Tensor,
@@ -420,11 +448,11 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
                   mask_plan=None, tp_group=None, attn_impl: str = "auto",
                   li: int = 0, rows=None, stats=None, routes=None,
                   residual: Optional[torch.Tensor] = None):
-    """One decoder layer (attention + MLP with residuals).
-    Returns (x, mlp_out, (k, v)): the layer's output is x + mlp_out, an add
-    left to the caller's next norm (the next layer's ``residual``, or the
-    final norm), so that each residual add shares a launch with the norm
-    after it (``add_rms_norm``, kernel K9 on CUDA).
+    """One decoder layer over a prompt (attention + MLP with residuals).
+    Returns (x, mlp_out, (k, v)), k rotated: the layer's output is x +
+    mlp_out, an add left to the caller's next norm (the next layer's
+    ``residual``, or the final norm), so that each residual add shares a
+    launch with the norm after it (``add_rms_norm``, kernel K9 on CUDA).
 
     residual: the previous layer's MLP output not yet added to ``x`` (None
     for the first layer); its add runs in this layer's first norm.
@@ -444,37 +472,29 @@ def layer_forward(layer: Dict[str, Any], cfg: DecoderConfig,
     ``rows`` rows only (``token_rows``; built here when None), adds its
     (token, expert) rows to ``stats["moe_prefill_rows"]`` and (rows,
     picks) to the list ``routes``."""
-    B, L, _ = x.shape
     window = cfg.window(li)
     if mask_plan is None:
         mask_plan = layer_mask_plan(doc_id, nbr_bits, sys_user_len,
                                     valid_len, attn_impl, window=window,
                                     positions=positions)
-    x, h = add_rms_norm(x, residual, layer["ln1"], cfg.norm_eps)
-    h = copy_to_group(h, tp_group)
-    q, k, v = _project_qkv(layer["attn"], h, cfg)
-    theta, scaling, yarn = cfg.layer_rope(li)
-    q = rope(q, positions, theta, scaling, yarn)
-    k = rope(k, positions, theta, scaling, yarn)
-    scale = cfg.attn_scale(li)
-    if attn_impl == "xla":
-        attn_out = sdag_attention_dense(q, k, v, mask_plan, scale=scale)
-    else:
-        attn_out = sdag_prefill_attention(
+    if cfg.n_experts and rows is None:
+        rows = token_rows(doc_id, valid_len)
+
+    def attend(li, q, k, v, freqs, scale, plan):
+        q = apply_rope(q, positions, freqs)
+        k = apply_rope(k, positions, freqs)
+        if attn_impl == "xla":
+            return sdag_attention_dense(q, k, v, plan, scale=scale), (k, v)
+        return sdag_prefill_attention(
             q, k, v, doc_id, nbr_bits, sys_user_len, valid_len=valid_len,
-            scale=scale, mask_plan=mask_plan, window=window,
-            positions=positions)
-    attn_out = reduce_from_group(_mm(attn_out.transpose(1, 2).reshape(
-        B, L, -1), layer["attn"]["wo"]), tp_group)
-    x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
-    h = copy_to_group(h, tp_group)
-    if cfg.n_experts:
-        if rows is None:
-            rows = token_rows(doc_id, valid_len)
-        out = moe_prefill(layer["moe"], cfg, h, rows, stats, routes)
-    else:
-        out = reduce_from_group(_mlp(layer["mlp"], h), tp_group)
-    return x, out, (k, v)
+            scale=scale, mask_plan=plan, window=window,
+            positions=positions), (k, v)
+
+    def experts(li, moe, h):
+        return moe_prefill(moe, cfg, h, rows, stats, routes)
+
+    return _layer(layer, cfg, li, x, residual, attend, mask_plan, mask_plan,
+                  experts, tp_group)
 
 
 def make_kv_cache(cfg: DecoderConfig, batch: int, size: int,
@@ -508,10 +528,92 @@ def local_kv_heads(params: Dict[str, Any], cfg: DecoderConfig) -> int:
     return out // cfg.head_dim
 
 
-def _quantize_kv(k: torch.Tensor, v: torch.Tensor):
-    """K and V quantized per slot in one pass (one set of kernels in a
-    decode step): int8 values [2, ...] and f32 scales [2, ...], K first."""
-    return quantize_kv_heads_int8(torch.stack([k, v]))
+def _layer_kv(cache: Dict[str, torch.Tensor], li: int, k=None, v=None,
+              slot: Optional[torch.Tensor] = None,
+              rows: Optional[torch.Tensor] = None):
+    """Layer ``li`` of the KV cache as (k, v, k_scale, v_scale), the
+    scales None in a native cache: the one place that reads its format.
+    Given ``k`` and ``v`` [B, Hkv, n, Dh] (k rotated) it first writes
+    them in place, quantized per slot into an int8 cache: into slots [0,
+    n) (a prompt; a slice copy, no index read an element), the slot
+    ``slot`` (int64 [1], a step's) or n slots from each row's base
+    ``rows`` [B] (a window: rows advance by their own accepted counts),
+    indices on the device (a CUDA graph captures the write)."""
+    int8 = "k_scale" in cache
+    names = ("k", "v", "k_scale", "v_scale") if int8 else ("k", "v")
+    layer = [cache[name][li] for name in names]
+    if k is not None:
+        if int8:      # K and V in one pass: one set of kernels
+            vals, scales = quantize_kv_heads_int8(torch.stack([k, v]))
+            new = [*vals, *scales]
+        else:
+            new = [k, v]
+        B, _, n = k.shape[:3]
+        if rows is not None:
+            idx = rows.long()[:, None] + torch.arange(n, device=rows.device)
+        for dst, t in zip(layer, new):
+            if slot is not None:
+                dst.index_copy_(2, slot, t)
+            elif rows is not None:     # scales [B, Hkv, n], values + Dh
+                dst.scatter_(2, idx.view(B, 1, n, *(1,) * (t.dim() - 3))
+                             .expand(t.shape), t)
+            else:
+                dst[:, :, :n] = t
+    return tuple(layer) if int8 else (*layer, None, None)
+
+
+def _step_attention(cache, write_index, positions, li, q, k, v, freqs, scale,
+                    mask):
+    """A decode step's ``attend`` (``_layer``): over a native cache
+    ``decode_attention`` (kernel K7 on CUDA: RoPE, the K/V write at
+    ``write_index``, attention); over an int8 one RoPE, the quantized
+    write and ``masked_decode_attention_int8``."""
+    k_c, v_c, k_s, v_s = _layer_kv(cache, li)
+    if k_s is None:
+        return decode_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0], k_c,
+                                v_c, mask, write_index, positions, freqs,
+                                scale=scale)[:, :, None], None
+    pos = positions[:, None]
+    q = apply_rope(q, pos, freqs)
+    _layer_kv(cache, li, apply_rope(k, pos, freqs), v, slot=write_index)
+    return masked_decode_attention_int8(q[:, :, 0], k_c, v_c, k_s, v_s,
+                                        mask, scale)[:, :, None], None
+
+
+def _window_attention(cache, write_slots, positions, li, q, k, v, freqs,
+                      scale, mask):
+    """A verification window's ``attend``: RoPE, the K/V write at each
+    row's base slot, then row by row over the cache by its format."""
+    q = apply_rope(q, positions, freqs)
+    k = apply_rope(k, positions, freqs)
+    k_c, v_c, k_s, v_s = _layer_kv(cache, li, k, v, rows=write_slots)
+    if k_s is None:
+        return masked_decode_window_attention(q, k_c, v_c, mask, scale), None
+    return masked_decode_window_attention_int8(q, k_c, v_c, k_s, v_s, mask,
+                                               scale), None
+
+
+def _decode_layers(params, cfg: DecoderConfig, x: torch.Tensor, attend,
+                   mask, window_mask, tp_group, moe_reads=None,
+                   row_live=None, moe_routes=None) -> torch.Tensor:
+    """``decode_step``'s and ``decode_window``'s forward from the embedded
+    tokens x [B, G, d]: every ``_layer`` (an expert layer's B * G rows
+    through ``moe_decode``), the final norm, the vocab logits."""
+    if cfg.has_windows and window_mask is None:
+        raise ValueError("decode: a model with windowed layers needs "
+                         "window_mask")
+
+    def experts(li, moe, h):
+        return moe_decode(moe, cfg, h.reshape(-1, h.shape[-1]), moe_reads,
+                          row_live, None if moe_routes is None
+                          else moe_routes[li]).reshape(h.shape)
+
+    pending = None     # a layer's MLP output, added in the next norm
+    for li, layer in enumerate(params["layers"]):
+        x, pending, _ = _layer(layer, cfg, li, x, pending, attend, mask,
+                               window_mask, experts, tp_group)
+    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x, tp_group)
 
 
 def positions_from_doc_id(doc_id: torch.Tensor) -> torch.Tensor:
@@ -582,14 +684,8 @@ def prefill(params: Dict[str, Any], cfg: DecoderConfig,
             valid_len, mask_plan=plans[cfg.window(li)], tp_group=tp_group,
             attn_impl=attn_impl, li=li, rows=rows, stats=stats,
             routes=routes, residual=pending)
-        if cache is not None and "k_scale" in cache:
-            kv_q, kv_s = _quantize_kv(k, v)
-            for i, name in enumerate(("k", "v")):
-                cache[name][li, :, :, :L] = kv_q[i]
-                cache[f"{name}_scale"][li, :, :, :L] = kv_s[i]
-        elif cache is not None:
-            cache["k"][li, :, :, :L] = k
-            cache["v"][li, :, :, :L] = v
+        if cache is not None:
+            _layer_kv(cache, li, k, v)
 
     _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
     if logits_last_only:
@@ -625,74 +721,14 @@ def decode_step(params: Dict[str, Any], cfg: DecoderConfig,
     ``moe_reads`` (int64 [1], on the device) and writing its picks to
     ``moe_routes`` (int32 [layers, B, k], -1 for a row not live) where
     given.  Returns (logits [B, V] f32, cache)."""
-    B = tokens.shape[0]
     if not isinstance(write_index, torch.Tensor):
         write_index = torch.tensor([write_index], device=tokens.device)
     x = _embed_rows(params["embed"], tokens, cfg.dtype)[:, None, :]  # B,1,d
-    pos = positions[:, None]
-    int8_kv = "k_scale" in cache
-    if cfg.has_windows and window_mask is None:
-        raise ValueError("decode_step: a model with windowed layers needs "
-                         "window_mask")
-    pending = None     # a layer's MLP output, added in the next norm
-    for li, layer in enumerate(params["layers"]):
-        freqs = layer_freqs(cfg, li, tokens.device)
-        mask = window_mask if cfg.windowed(li) else cache_mask
-        x, h = add_rms_norm(x, pending, layer["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H, 1, hd]
-        if int8_kv:
-            q = apply_rope(q, pos, freqs)
-            kv_q, kv_s = _quantize_kv(apply_rope(k, pos, freqs), v)
-            for i, name in enumerate(("k", "v")):
-                cache[name][li].index_copy_(2, write_index, kv_q[i])
-                cache[f"{name}_scale"][li].index_copy_(2, write_index,
-                                                       kv_s[i])
-            attn_out = masked_decode_attention_int8(
-                q[:, :, 0, :], cache["k"][li], cache["v"][li],
-                cache["k_scale"][li], cache["v_scale"][li], mask,
-                cfg.attn_scale(li))
-        else:
-            attn_out = decode_attention(q[:, :, 0], k[:, :, 0], v[:, :, 0],
-                                        cache["k"][li], cache["v"][li],
-                                        mask, write_index, positions,
-                                        freqs, scale=cfg.attn_scale(li))
-        attn_out = all_reduce_(_mm(attn_out.reshape(B, 1, -1),
-                                   layer["attn"]["wo"]), tp_group)
-        x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
-        if cfg.n_experts:
-            pending = moe_decode(layer["moe"], cfg, h[:, 0], moe_reads,
-                                 row_live, None if moe_routes is None
-                                 else moe_routes[li])[:, None]
-        else:
-            pending = all_reduce_(_mlp(layer["mlp"], h), tp_group)
-    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x, tp_group)[:, 0, :].float(), cache
-
-
-def _window_rows(slots: torch.Tensor, G: int) -> torch.Tensor:
-    """Slots [B, G] (int64) of a G-token window at per-row bases."""
-    return slots.long()[:, None] + torch.arange(G, device=slots.device)
-
-
-def _update_rows_at(cache_layer: torch.Tensor, new: torch.Tensor,
-                    slots: torch.Tensor) -> None:
-    """Write G consecutive slots per batch row at per-row bases, in place.
-
-    cache_layer: [B, Hkv, S, Dh]; new: [B, Hkv, G, Dh]; slots: [B] base
-    slot per row (a device tensor: a scatter along the slot axis, no host
-    value, so a CUDA graph can capture it).  Speculative decoding advances
-    each row by its own accepted count, so rows write at diverging
-    offsets."""
-    rows = _window_rows(slots, new.shape[2])
-    cache_layer.scatter_(2, rows[:, None, :, None].expand(new.shape), new)
-
-
-def _update_scale_rows_at(scale_layer: torch.Tensor, new: torch.Tensor,
-                          slots: torch.Tensor) -> None:
-    """Per-row scale companion of :func:`_update_rows_at`:
-    scale_layer [B, Hkv, S], new [B, Hkv, G], slots [B]."""
-    rows = _window_rows(slots, new.shape[2])
-    scale_layer.scatter_(2, rows[:, None, :].expand(new.shape), new)
+    logits = _decode_layers(
+        params, cfg, x, functools.partial(_step_attention, cache,
+                                          write_index, positions),
+        cache_mask, window_mask, tp_group, moe_reads, row_live, moe_routes)
+    return logits[:, 0, :].float(), cache
 
 
 def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
@@ -701,7 +737,7 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
                   cache: Dict[str, torch.Tensor],
                   write_slots: torch.Tensor,   # [B] per-row base cache slot
                   cache_mask: torch.Tensor,    # [B, G, S'] valid slots
-                  tp_group=None,
+                  tp_group=None, window_mask=None,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Speculative verification step: one forward over a G-token window.
 
@@ -713,33 +749,11 @@ def decode_window(params: Dict[str, Any], cfg: DecoderConfig,
     (quantized per slot into an int8 cache, scales alongside); the caller
     treats only the accepted prefix as history, and the next window starts
     at or before the rejected slots and overwrites them.  ``tp_group``: as
-    in ``layer_forward``.  Returns (logits [B, G, V] f32, cache)."""
-    B, G = tokens.shape
+    in ``layer_forward``.  ``window_mask`` [B, G, S']: ``decode_step``'s,
+    a row each.  Returns (logits [B, G, V] f32, cache)."""
     x = _embed_rows(params["embed"], tokens, cfg.dtype)   # [B, G, d]
-    int8_kv = "k_scale" in cache
-    pending = None     # a layer's MLP output, added in the next norm
-    for li, layer in enumerate(params["layers"]):
-        x, h = add_rms_norm(x, pending, layer["ln1"], cfg.norm_eps)
-        q, k, v = _project_qkv(layer["attn"], h, cfg)   # [B, H|Hkv, G, hd]
-        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-        if int8_kv:
-            kv_q, kv_s = _quantize_kv(k, v)
-            for i, name in enumerate(("k", "v")):
-                _update_rows_at(cache[name][li], kv_q[i], write_slots)
-                _update_scale_rows_at(cache[f"{name}_scale"][li], kv_s[i],
-                                      write_slots)
-            attn_out = masked_decode_window_attention_int8(
-                q, cache["k"][li], cache["v"][li], cache["k_scale"][li],
-                cache["v_scale"][li], cache_mask)
-        else:
-            _update_rows_at(cache["k"][li], k, write_slots)
-            _update_rows_at(cache["v"][li], v, write_slots)
-            attn_out = masked_decode_window_attention(
-                q, cache["k"][li], cache["v"][li], cache_mask)
-        attn_out = all_reduce_(_mm(attn_out.transpose(1, 2).reshape(B, G, -1),
-                                   layer["attn"]["wo"]), tp_group)
-        x, h = add_rms_norm(x, attn_out, layer["ln2"], cfg.norm_eps)
-        pending = all_reduce_(_mlp(layer["mlp"], h), tp_group)
-    _, x = add_rms_norm(x, pending, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, cfg, x, tp_group).float(), cache
+    logits = _decode_layers(
+        params, cfg, x, functools.partial(_window_attention, cache,
+                                          write_slots, positions),
+        cache_mask, window_mask, tp_group)
+    return logits.float(), cache

@@ -549,19 +549,13 @@ def sdag_prefill_cuda(q, k, v, plan, scale: Optional[float] = None):
                          "the q/k lengths")
     scale = scale if scale is not None else Dh ** -0.5
     out = torch.empty_like(q)
-    lib = _k1_lib()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = lib.sdag_prefill(
-        ptr(q), ptr(k), ptr(v), ptr(out), ptr(plan["valid_len"]),
-        ptr(plan["q_offset"]), ptr(plan["counts"]), ptr(plan["kv_list"]),
-        ptr(plan["kind_list"]), ptr(plan["order"]), ptr(plan["mask_bits"]),
-        ptr(plan["mask_slot"]), B, Hq, Hkv, Lq, Lk, Dh,
-        plan["nq"], plan["nk"], float(scale),
-        _K1_DTYPES[q.dtype], k1_group_items(Hq, Hkv)[0],
-        _build.sm_count(q.device),
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    _build.check(lib, rc, "sdag_prefill")
-    _build.LAUNCHES[K1_BODIES[q.dtype]] += 1
+    _build.launch(
+        _k1_lib(), "sdag_prefill", q, k, v, out, plan["valid_len"],
+        plan["q_offset"], plan["counts"], plan["kv_list"], plan["kind_list"],
+        plan["order"], plan["mask_bits"], plan["mask_slot"], B, Hq, Hkv, Lq,
+        Lk, Dh, plan["nq"], plan["nk"], float(scale), _K1_DTYPES[q.dtype],
+        k1_group_items(Hq, Hkv)[0], _build.sm_count(q.device),
+        device=q.device, count_key=K1_BODIES[q.dtype])
     return out
 
 
@@ -832,20 +826,14 @@ def decode_attention_cuda(q, k_cache, v_cache, cache_mask, new_kv=None,
     bmax = torch.empty((B, Hq, n_split), **f32)
     live = torch.empty((B, n_chunks), dtype=torch.uint8, device=q.device)
     k, v, write_index, positions, freqs = step
-    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
-        None if t is None else t.data_ptr())
-    lib = _k7_lib()
-    rc = lib.decode_attention(
-        ptr(q), q.stride(0), q.stride(1), ptr(k), ptr(v),
+    _build.launch(
+        _k7_lib(), "decode_attention", q, q.stride(0), q.stride(1), k, v,
         0 if k is None else k.stride(0), 0 if k is None else k.stride(1),
-        ptr(positions), ptr(freqs), ptr(write_index), ptr(k_cache),
-        ptr(v_cache), ptr(cache_mask), cache_mask.stride(0), ptr(scores),
-        ptr(bmax), ptr(live), ptr(out), out.stride(0), out.stride(1), B, Hkv,
-        Hq // Hkv, Dh, S, S_cache, n_split, _K7_DTYPES[dtype],
-        Dh ** -0.5 if scale is None else scale,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
-    _build.check(lib, rc, "decode_attention")
-    _build.LAUNCHES["decode_attention"] += 2
+        positions, freqs, write_index, k_cache, v_cache, cache_mask,
+        cache_mask.stride(0), scores, bmax, live, out, out.stride(0),
+        out.stride(1), B, Hkv, Hq // Hkv, Dh, S, S_cache, n_split,
+        _K7_DTYPES[dtype], Dh ** -0.5 if scale is None else scale,
+        device=q.device, count_key="decode_attention", n=2)
     return out
 
 
@@ -874,7 +862,8 @@ def decode_attention(q, k, v, k_cache, v_cache, cache_mask, write_index,
 # reads the cache G times; the mask may cover a prefix of the cache's
 # slots, and only that prefix is attended.
 
-def masked_decode_window_attention(q, k_cache, v_cache, cache_mask):
+def masked_decode_window_attention(q, k_cache, v_cache, cache_mask,
+                                   scale: Optional[float] = None):
     """Multi-token decode attention for speculative verification windows
     (the JAX ``masked_decode_window_attention``).
 
@@ -883,23 +872,27 @@ def masked_decode_window_attention(q, k_cache, v_cache, cache_mask):
     prefix); the first S' slots are attended.  Output in the cache
     dtype.  On CUDA each row goes through K7's attention entry (written
     into its place of the output, the cache read where it lies); on the
-    CPU through the plain single-token attention."""
+    CPU through the plain single-token attention.  ``scale``: the softmax
+    scale (None: Dh ** -0.5)."""
     G, S = q.shape[2], cache_mask.shape[-1]
     if q.device.type == "cuda":
         out = torch.empty(q.shape, dtype=v_cache.dtype, device=q.device)
         for g in range(G):
             decode_attention_cuda(q[:, :, g], k_cache, v_cache,
-                                  cache_mask[:, g], out=out[:, :, g])
+                                  cache_mask[:, g], out=out[:, :, g],
+                                  scale=scale)
         return out
     k = k_cache[:, :, :S].contiguous()
     v = v_cache[:, :, :S].contiguous()
     return torch.stack([
         masked_decode_attention(q[:, :, g].contiguous(), k, v,
-                                cache_mask[:, g]) for g in range(G)], dim=2)
+                                cache_mask[:, g], scale) for g in range(G)],
+        dim=2)
 
 
 def masked_decode_window_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
-                                        cache_mask):
+                                        cache_mask,
+                                        scale: Optional[float] = None):
     """:func:`masked_decode_window_attention` over an int8 cache, with the
     scale folding of :func:`masked_decode_attention_int8` (the int8 K/V
     cast to q's dtype once for the window's rows)."""
@@ -908,7 +901,7 @@ def masked_decode_window_attention_int8(q, k_i8, v_i8, k_scale, v_scale,
     k_s, v_s = k_scale[:, :, :S], v_scale[:, :, :S]
     return torch.stack([
         _int8_attention(q[:, :, g].contiguous(), k_t, v_t, k_s, v_s,
-                        cache_mask[:, g]) for g in range(G)],
+                        cache_mask[:, g], scale) for g in range(G)],
         dim=2).to(q.dtype)
 
 

@@ -200,15 +200,11 @@ def bm25_topk_cuda(term_ids, impacts, q_terms, q_weights, k: int,
     cand_i = torch.empty(nb, qn, k, dtype=torch.int32, device=dev)
     out_v = torch.empty(qn, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(qn, k, dtype=torch.int32, device=dev)
-    lib = _k2_lib()
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())  # noqa: E731
-    rc = lib.bm25_scan_topk(
-        ptr(term_ids), ptr(impacts), ptr(q_terms), ptr(q_weights),
-        ptr(cand_v), ptr(cand_i), ptr(out_v), ptr(out_i), lp, qn, t, k,
-        valid_n, geom["td"], geom["n_tiles"], nb, geom["ht_log2"], vec16,
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, rc, "bm25_scan_topk")
-    _build.LAUNCHES["bm25_scan_topk"] += 1
+    _build.launch(
+        _k2_lib(), "bm25_scan_topk", term_ids, impacts, q_terms, q_weights,
+        cand_v, cand_i, out_v, out_i, lp, qn, t, k, valid_n, geom["td"],
+        geom["n_tiles"], nb, geom["ht_log2"], vec16, device=dev,
+        count_key="bm25_scan_topk")
     return out_v, out_i
 
 

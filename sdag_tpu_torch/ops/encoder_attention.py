@@ -207,15 +207,11 @@ def encoder_attention_cuda(qkv: torch.Tensor, valid_len: torch.Tensor,
     geom = encoder_attention_geometry(B, n_heads, L, dh,
                                       _build.sm_count(qkv.device),
                                       str(qkv.dtype).split(".")[1])
-    lib = _k3_lib()
-    rc = lib.encoder_attention(
-        ctypes.c_void_p(qkv.data_ptr()), ctypes.c_void_p(vl.data_ptr()),
-        ctypes.c_void_p(out.data_ptr()), B, n_heads, L, dh, dh ** -0.5,
-        _K3_DTYPES[qkv.dtype], geom["nwg"], geom["stages"], geom["splits"],
-        geom["grid"],
-        ctypes.c_void_p(torch.cuda.current_stream(qkv.device).cuda_stream))
-    _build.check(lib, rc, "encoder_attention")
-    _build.LAUNCHES[K3_BODIES[qkv.dtype]] += 1
+    _build.launch(
+        _k3_lib(), "encoder_attention", qkv, vl, out, B, n_heads, L, dh,
+        dh ** -0.5, _K3_DTYPES[qkv.dtype], geom["nwg"], geom["stages"],
+        geom["splits"], geom["grid"], device=qkv.device,
+        count_key=K3_BODIES[qkv.dtype])
     return out
 
 

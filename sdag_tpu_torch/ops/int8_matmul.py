@@ -165,16 +165,10 @@ def int8_matmul_cuda(x: torch.Tensor, w: torch.Tensor,
     if x.dtype == torch.float32 and geo["splits"] > 1:
         part = torch.empty((geo["splits"], M, N), dtype=torch.float32,
                            device=x.device)
-    lib = _k6_lib()
-    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
-        None if t is None else t.data_ptr())
-    rc = lib.int8_matmul(
-        ptr(x), ptr(w), ptr(s), ptr(y), ptr(part), M, K, N,
+    _build.launch(
+        _k6_lib(), "int8_matmul", x, w, s, y, part, M, K, N,
         _K6_DTYPES[x.dtype], geo["warps"], geo["splits"], geo["kc"],
-        geo["stages"],
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, rc, "int8_matmul")
-    _build.LAUNCHES[K6_BODIES[x.dtype]] += 1
+        geo["stages"], device=x.device, count_key=K6_BODIES[x.dtype])
     return y
 
 

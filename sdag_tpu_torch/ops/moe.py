@@ -238,16 +238,10 @@ def moe_experts_cuda(x: torch.Tensor, router: torch.Tensor,
     h = torch.empty((B * k, f), **f32)
     y = torch.empty((B * k, d), **f32)
     out = torch.empty((B, d), dtype=torch.bfloat16, device=dev)
-    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
-        None if t is None else t.data_ptr())
-    lib = _k8_lib()
-    rc = lib.moe_experts(
-        ptr(x), ptr(router), ptr(gate_up), ptr(down), ptr(row_live),
-        ptr(idx), ptr(w), ptr(h), ptr(y), ptr(out), ptr(reads), B, d, f,
-        n_exp, k, int(x.stride(0)), int(norm_topk),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(lib, rc, "moe_experts")
-    _build.LAUNCHES["moe_experts"] += 4
+    _build.launch(
+        _k8_lib(), "moe_experts", x, router, gate_up, down, row_live, idx, w,
+        h, y, out, reads, B, d, f, n_exp, k, int(x.stride(0)),
+        int(norm_topk), device=dev, count_key="moe_experts", n=4)
     return out
 
 

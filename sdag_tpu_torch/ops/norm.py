@@ -111,15 +111,9 @@ def add_rms_norm_cuda(x: torch.Tensor, delta: Optional[torch.Tensor],
         return add_rms_norm_reference(x, delta, w, eps)
     h = torch.empty_like(x)
     s = None if delta is None else torch.empty_like(x)
-    ptr = lambda t: ctypes.c_void_p(  # noqa: E731
-        None if t is None else t.data_ptr())
-    lib = _k9_lib()
-    rc = lib.rms_norm(ptr(x), ptr(delta), ptr(w), ptr(s), ptr(h), rows, d,
-                      nt, vpt, _build.sm_count(x.device), _K9_DTYPES[x.dtype],
-                      eps, ctypes.c_void_p(
-                          torch.cuda.current_stream(x.device).cuda_stream))
-    _build.check(lib, rc, "rms_norm")
-    _build.LAUNCHES["rms_norm"] += 1
+    _build.launch(_k9_lib(), "rms_norm", x, delta, w, s, h, rows, d, nt, vpt,
+                  _build.sm_count(x.device), _K9_DTYPES[x.dtype], eps,
+                  device=x.device, count_key="rms_norm")
     return (x if s is None else s), h
 
 

@@ -277,10 +277,6 @@ def _k4_lib():
     return lib
 
 
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
 def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                      valid_n: Optional[int] = None,
                      q_scales: Optional[torch.Tensor] = None,
@@ -311,8 +307,6 @@ def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
     if not 1 <= k <= K4_MAX_K:
         raise ValueError(f"topk_matmul_cuda: needs 1 <= k <= {K4_MAX_K}, "
                          f"got {k}")
-    null = ctypes.c_void_p(None)
-    qs_p = cs_p = null
     if dt == torch.int8:
         for name, s, rows in (("q_scales", q_scales, qn),
                               ("c_scales", c_scales, n)):
@@ -322,8 +316,6 @@ def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
                 raise ValueError(f"topk_matmul_cuda: {name} must be a "
                                  f"contiguous, 16-byte aligned float32 "
                                  f"[{rows}] on the corpus' device")
-        qs_p = ctypes.c_void_p(q_scales.data_ptr())
-        cs_p = ctypes.c_void_p(c_scales.data_ptr())
     valid_n = n if valid_n is None else max(0, min(int(valid_n), n))
     dev = corpus.device
     if dt == torch.float32:
@@ -332,22 +324,14 @@ def topk_matmul_cuda(queries: torch.Tensor, corpus: torch.Tensor, k: int,
         geo = topk_mma_geometry(qn, valid_n, d, k, dt, _build.sm_count(dev))
     out_v = torch.empty(qn, k, dtype=torch.float32, device=dev)
     out_i = torch.empty(qn, k, dtype=torch.int32, device=dev)
-    cand_v_p = cand_i_p = null
-    if not geo["direct"]:
-        # the splits' lists: values, then indices, in one scratch tensor
-        cand = torch.empty(2, geo["n_splits"], qn, k, dtype=torch.float32,
-                           device=dev)
-        cand_v_p = ctypes.c_void_p(cand.data_ptr())
-        cand_i_p = ctypes.c_void_p(cand[1].data_ptr())
-    lib = _k4_lib()
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    rc = lib.topk_matmul(
-        ptr(queries), ptr(corpus), qs_p, cs_p, cand_v_p, cand_i_p,
-        ptr(out_v), ptr(out_i), qn, n, d, k, valid_n, geo["n_splits"],
-        geo["tiles_per_split"], geo["q_rows"], geo["cap"], geo["stages"],
-        _K4_DTYPES[dt], _stream(dev))
-    _build.check(lib, rc, "topk_matmul")
-    _build.LAUNCHES[K4_BODIES[dt]] += 1
+    # the splits' lists: values, then indices, in one scratch tensor
+    cand = (None, None) if geo["direct"] else torch.empty(
+        2, geo["n_splits"], qn, k, dtype=torch.float32, device=dev)
+    _build.launch(
+        _k4_lib(), "topk_matmul", queries, corpus, q_scales, c_scales,
+        cand[0], cand[1], out_v, out_i, qn, n, d, k, valid_n,
+        geo["n_splits"], geo["tiles_per_split"], geo["q_rows"], geo["cap"],
+        geo["stages"], _K4_DTYPES[dt], device=dev, count_key=K4_BODIES[dt])
     return out_v, out_i
 
 
@@ -365,11 +349,8 @@ def quantize_rows_int8_cuda(x: torch.Tensor
     qn, d = x.shape
     q = torch.empty(qn, d, dtype=torch.int8, device=x.device)
     scales = torch.empty(qn, dtype=torch.float32, device=x.device)
-    lib = _k4_lib()
-    rc = lib.quantize_rows_int8(
-        ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(q.data_ptr()),
-        ctypes.c_void_p(scales.data_ptr()), qn, d, _stream(x.device))
-    _build.check(lib, rc, "quantize_rows_int8")
+    _build.launch(_k4_lib(), "quantize_rows_int8", x, q, scales, qn, d,
+                  device=x.device)
     return q, scales
 
 

@@ -564,9 +564,13 @@ class Generator:
                                                   & (att < base[:, None]))
         win = (att[:, None, :] >= base[:, None, None]) & \
             (att[:, None, :] <= base[:, None, None] + iota_g[None, :, None])
+        mask = hist[:, None, :] | win
+        window_mask = None if buf.slot_pos is None else mask & (
+            buf.slot_pos[:, None, :lp + max_new]
+            > (pos - buf.window)[:, :, None])
         logits, _ = decode_window(self.params, self.cfg, w, pos, buf.cache,
-                                  base, hist[:, None, :] | win,
-                                  tp_group=self.tp_group)
+                                  base, mask, tp_group=self.tp_group,
+                                  window_mask=window_mask)
         # ---- accept the longest valid draft prefix (+ EOS / budget)
         if self.temperature == 0.0:
             g_tok = torch.argmax(logits, dim=-1).to(torch.int32)

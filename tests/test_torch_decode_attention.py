@@ -6,6 +6,7 @@ against ``masked_decode_attention`` and against itself (row independence);
 the CUDA wrapper's checks; the CPU path's launch count.  The kernel itself
 runs only on the card (``chip_smoke.py`` phase 13)."""
 
+import dataclasses
 import math
 
 import pytest
@@ -288,3 +289,116 @@ def test_cpu_paths_do_not_launch():
     TA.decode_attention(x["q"], x["k"], x["v"], x["k_cache"], x["v_cache"],
                         x["mask"], x["write_index"], x["positions"], freqs)
     assert _build.LAUNCHES["decode_attention"] == before
+
+
+# a model whose layers differ in kind: windowed (plain RoPE) and full
+# (YaRN frequencies and scale), the window shorter than the history
+WINDOWED = TL.DecoderConfig(
+    vocab_size=64, d_model=64, n_layers=4, n_heads=4, n_kv_heads=2,
+    d_ff=96, layer_types=("sliding_attention", "full_attention") * 2,
+    sliding_window=5, rope_yarn=(4.0, 16, 32.0, 1.0, 1.2))
+WINDOWED_MOE = dataclasses.replace(WINDOWED, n_experts=8,
+                                   experts_per_token=2, expert_ff=32)
+
+
+def _window_case(cfg, B=2, L=12, G=3):
+    """Prefill of right-padded prompts, then G tokens' masks as the
+    Generator builds them: each row's visible prompt slots and the
+    slots written since, and the windowed layers' share of them (slots a
+    window's width or more behind the token's position left out)."""
+    params = TL.init_decoder_params(torch.Generator().manual_seed(2), cfg,
+                                    device="cpu")
+    g = torch.Generator().manual_seed(4)
+    ids = torch.randint(2, cfg.vocab_size, (B, L), generator=g)
+    vl = torch.tensor([L, L - 4], dtype=torch.int32)[:B]
+    S = L + G + 2
+    _, cache = TL.prefill(params, cfg, ids, valid_len=vl, cache_size=S)
+    slot = torch.arange(S)[None, :]
+    slot_pos = torch.where(slot < L, slot, vl[:, None] + slot - L)
+    positions = vl[:, None].long() + torch.arange(G)[None, :]
+    masks = [(slot < vl[:, None]) | ((slot >= L) & (slot <= L + i))
+             for i in range(G)]
+    windows = [m & (slot_pos > positions[:, i:i + 1] - cfg.sliding_window)
+               for i, m in enumerate(masks)]
+    tokens = torch.randint(2, cfg.vocab_size, (B, G), generator=g)
+    return params, cache, tokens, positions, masks, windows, L
+
+
+@pytest.mark.parametrize("cfg", [WINDOWED, WINDOWED_MOE],
+                         ids=["dense", "experts"])
+def test_window_rows_equal_steps_on_windowed_yarn_layers(cfg):
+    """decode_window over G tokens gives the logits and the cache of G
+    successive decode_step calls on a model with windowed and YaRN
+    layers: each layer's frequencies, scale and mask are read as a
+    step reads them; without window_mask it raises."""
+    params, cache, tokens, positions, masks, windows, L = _window_case(cfg)
+    assert any(not torch.equal(m, w) for m, w in zip(masks, windows))
+    B, G = tokens.shape
+    c_step = {k: t.clone() for k, t in cache.items()}
+    steps = torch.stack([TL.decode_step(
+        params, cfg, tokens[:, i], positions[:, i], c_step, L + i,
+        masks[i], window_mask=windows[i])[0] for i in range(G)], 1)
+    c_win = {k: t.clone() for k, t in cache.items()}
+    got, _ = TL.decode_window(params, cfg, tokens, positions, c_win,
+                              torch.full((B,), L), torch.stack(masks, 1),
+                              window_mask=torch.stack(windows, 1))
+    torch.testing.assert_close(got, steps, atol=1e-5, rtol=1e-5)
+    for k in cache:
+        torch.testing.assert_close(c_win[k], c_step[k], atol=1e-5, rtol=0)
+    with pytest.raises(ValueError, match="window_mask"):
+        TL.decode_window(params, cfg, tokens, positions, c_win,
+                         torch.full((B,), L), torch.stack(masks, 1))
+
+
+class _Tok:
+    pad_token_id, eos_token_id = 0, 1
+
+
+@pytest.mark.parametrize("draft", [2, 4])
+def test_greedy_speculation_on_windowed_layers_equals_plain_greedy(draft):
+    """The Generator's verification windows carry the windowed layers'
+    mask: on a model with windowed and YaRN layers, greedy speculation
+    emits plain greedy decode's tokens, past the window's width."""
+    from sdag_tpu_torch.sdag.generate import Generator
+    params = TL.init_decoder_params(torch.Generator().manual_seed(2),
+                                    WINDOWED, device="cpu")
+    g = torch.Generator().manual_seed(8)
+    B, lp, max_new = 2, 16, 12
+    ids = torch.randint(2, 8, (B, lp), generator=g, dtype=torch.int32)
+    doc = torch.full((B, lp), -1, dtype=torch.int32)
+    args = (ids, doc, torch.zeros_like(doc), torch.zeros(B, dtype=torch.int32),
+            torch.tensor([lp, lp - 5], dtype=torch.int32), max_new)
+    out = {}
+    for d in (0, draft):
+        gen = Generator(params, WINDOWED, _Tok(), temperature=0.0,
+                        speculative_draft=d, device="cpu")
+        out[d] = gen._generate(*args)
+    assert torch.equal(out[0][0], out[draft][0])
+    assert torch.equal(out[0][1], out[draft][1])
+    assert int(out[0][1].min()) > WINDOWED.sliding_window
+
+
+@pytest.mark.parametrize("kv_dtype", ["native", "int8"])
+def test_cache_write_patterns_agree(kv_dtype):
+    """``_layer_kv``'s three index patterns write the same values and
+    scales: the prompt's slice, a step's slot, a window's per-row bases."""
+    cfg = TL.DecoderConfig.tiny()
+    g = torch.Generator().manual_seed(6)
+    B, n, S = 2, 3, 10
+    k, v = (torch.randn(B, cfg.n_kv_heads, n, cfg.head_dim, generator=g)
+            for _ in range(2))
+    caches = [TL.make_kv_cache(cfg, B, S, device="cpu", kv_dtype=kv_dtype)
+              for _ in range(3)]
+    TL._layer_kv(caches[0], 1, k, v)
+    for i in range(n):
+        TL._layer_kv(caches[1], 1, k[:, :, i:i + 1], v[:, :, i:i + 1],
+                     slot=torch.tensor([i]))
+    TL._layer_kv(caches[2], 1, k, v, rows=torch.zeros(B, dtype=torch.long))
+    names = ("k", "v", "k_scale", "v_scale") if kv_dtype == "int8" \
+        else ("k", "v")
+    layer = TL._layer_kv(caches[0], 1)
+    assert (layer[2] is None) == (kv_dtype == "native")
+    for name in names:
+        assert caches[0][name][1, :, :, :n].abs().sum() > 0
+        for c in caches[1:]:
+            assert torch.equal(c[name], caches[0][name]), name

@@ -758,3 +758,44 @@ def test_k2_cuda_wrapper_rejects_cpu_tensors():
     z = torch.zeros(4, 8, dtype=torch.int32)
     with pytest.raises(ValueError, match="not on CUDA"):
         tb.bm25_topk_cuda(z, z.float(), z, z.float(), 2)
+
+
+# ------------------------------------------------------------ launch
+class _FakeLib:
+    """A library whose launch function records its arguments and returns
+    the code it is given."""
+
+    def __init__(self, rc):
+        self.rc, self.args = rc, None
+
+    def k(self, *args):
+        self.args = args
+        return self.rc
+
+    def kernel_error_string(self, rc):
+        return b"planted"
+
+
+def test_launch_passes_pointers_and_the_stream_then_counts(monkeypatch):
+    """``_build.launch``: a tensor goes as its data pointer, None as a
+    null pointer, a number as it is, the current stream's handle last;
+    the count rises by ``n`` only after a launch that returned 0, and a
+    CUDA error code raises with the function's name."""
+    from sdag_tpu_torch import _build
+    stream = type("S", (), {"cuda_stream": 77})()
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: stream)
+    t = torch.zeros(4)
+    lib = _FakeLib(0)
+    before = _build.LAUNCHES["fake"]
+    _build.launch(lib, "k", t, None, 3, 0.5, device="cuda",
+                  count_key="fake", n=2)
+    ptr, null, i, f, s = lib.args
+    assert (ptr.value, null.value, i, f, s.value) == (t.data_ptr(), None, 3,
+                                                      0.5, 77)
+    assert _build.LAUNCHES["fake"] == before + 2
+    _build.launch(lib, "k", t, device="cuda")
+    assert _build.LAUNCHES["fake"] == before + 2
+    with pytest.raises(RuntimeError, match="k launch failed.*planted"):
+        _build.launch(_FakeLib(719), "k", t, device="cuda", count_key="fake")
+    assert _build.LAUNCHES["fake"] == before + 2
+    del _build.LAUNCHES["fake"]

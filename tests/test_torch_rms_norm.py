@@ -295,10 +295,8 @@ def test_prefill_and_decode_equal_the_old_forwards(dtype):
         q, k, v = TL._project_qkv(layer["attn"], h, cfg)
         q = TL.rope(q, win_pos, cfg.rope_theta, cfg.rope_scaling)
         k = TL.rope(k, win_pos, cfg.rope_theta, cfg.rope_scaling)
-        TL._update_rows_at(cache["k"][li], k, slots)
-        TL._update_rows_at(cache["v"][li], v, slots)
-        o = TL.masked_decode_window_attention(q, cache["k"][li],
-                                              cache["v"][li], wmask)
+        k_c, v_c, _, _ = TL._layer_kv(cache, li, k, v, rows=slots)
+        o = TL.masked_decode_window_attention(q, k_c, v_c, wmask)
         x = x + o.transpose(1, 2).reshape(B, G, -1) @ layer["attn"]["wo"]
         x = x + TL._mlp(layer["mlp"], _old_rms_norm(x, layer["ln2"],
                                                     cfg.norm_eps))
