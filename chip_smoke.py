@@ -273,19 +273,22 @@ Phase 14 K8 (csrc/moe_experts.cu) and the windows of Mellum2-12B-A2.5B:
          (a) K8 against its plain version (moe_experts_reference, given
          K8's own routes) at the cell's decode shape (B 8, 64 experts, top
          8, 2,304 x 896, bf16), two rows done, every row on the same
-         experts, B 1, B 32 on the same experts: rows within 1e-2 of their
-         RMS, routes and weights equal to the plain router's, the
-         distinct-expert counter exact, a captured replay equal to the
-         eager call; a dropped expert (its weights zeroed) must read over
-         the limit; timed beside the plain version, route + grouped
-         products, and the bound; (b) the windowed K1 plan and K7's
+         experts, B 1, B 32 on the same experts, B 8 rows around two base
+         rows that name 16-24 experts (as the cell's steps do): rows
+         within 1e-2 of their RMS, routes and weights equal to the plain
+         router's, the distinct-expert counter exact, a captured replay
+         equal to the eager call; a dropped expert (its weights zeroed)
+         must read over the limit; the two B 8 cases timed beside the
+         plain version, route + grouped products, and the bound; each row
+         of the B 8 call bit for bit its B 1 call and its row of a B 32
+         call; (b) the windowed K1 plan and K7's
          windowed step (YaRN scale) against the plain windowed versions at
          ~3k tokens / 3,232 slots, bf16 and f32, each with a window one
          slot too wide that must read over the f32 limits (q = 0 and v's
-         first dim the position: each row's mean over its keys); (c) one
-         period of the model at its widths (4 layers): 32 greedy tokens of
-         8 prompts past the window, captured graphs against eager steps
-         (K7, K8 and K9 launches counted).
+         first dim the position: each row's mean over its keys); (c) the
+         whole 28-layer model at its widths: 32 greedy tokens of 8 prompts
+         past the window, captured graphs against eager steps (K7, K8 and
+         K9 launches counted).
 
 Phase 15 K9 (csrc/rms_norm.cu), a layer's residual add and the RMSNorm
          after it: (a) against its plain version (add_rms_norm_reference)
@@ -5377,7 +5380,7 @@ def _k8_case(name, x, moe, k, live=None, timed=False, plant=False):
            "graph_equal": bool(torch.equal(out_g, out_k))}
     if not (rel <= K8_ROW_TOL and rec["expert_reads"] == distinct
             and rec["dead_rows_zero"] and rec["graph_equal"]
-            and w_err <= 1e-5 and launches == 4
+            and w_err <= 1e-5 and launches == M.K8_LAUNCHES
             and rec["route_rows_differ"] <= max(1, B // 8)):
         raise AssertionError(f"K8 {name}: {json.dumps(rec)}")
     if plant:
@@ -5413,9 +5416,44 @@ def _k8_case(name, x, moe, k, live=None, timed=False, plant=False):
     return rec
 
 
+def _k8_rows_independent(x, moe, k):
+    """Each row of a B 8 call bit for bit its own B 1 call and its row of
+    a B 32 call (the 8 rows first, then 24 others): the output, the picks
+    and their weights.  Returns the record; raises where a row differs."""
+    import torch
+    from sdag_tpu_torch.ops import moe as M
+    dev = x.device
+    B, d = x.shape
+    w3 = (moe["router"], moe["gate_up"], moe["down"], k)
+
+    def call(rows):
+        n = rows.shape[0]
+        idx = torch.empty(n, k, dtype=torch.int32, device=dev)
+        w = torch.empty(n, k, dtype=torch.float32, device=dev)
+        return M.moe_experts_cuda(rows, *w3, idx_out=idx, w_out=w), idx, w
+    g = torch.Generator(device=dev)
+    g.manual_seed(141)
+    x32 = torch.cat([x, torch.randn(32 - B, d, generator=g, device=dev).to(
+        torch.bfloat16)])
+    b8, b32 = call(x), call(x32)
+    alone = [call(x[b:b + 1].contiguous()) for b in range(B)]
+    rec = {"name": "rows_independent", "B": B,
+           "rows_equal_b1": sum(all(torch.equal(a, o[b:b + 1])
+                                    for a, o in zip(alone[b], b8))
+                                for b in range(B)),
+           "rows_equal_b32": sum(all(torch.equal(o32[b], o[b])
+                                     for o32, o in zip(b32, b8))
+                                 for b in range(B))}
+    log(f"[phase14] {json.dumps(rec)}")
+    if rec["rows_equal_b1"] != B or rec["rows_equal_b32"] != B:
+        raise AssertionError(f"K8: rows depend on the batch: {rec}")
+    return rec
+
+
 def _p14_k8(dev):
     """(a) K8 at the cell's decode shape and beside it."""
     import torch
+    from kernel_times import k8_few_expert_rows
     E, k, d, f = K8_DIMS
     g = torch.Generator(device=dev)
     g.manual_seed(14)
@@ -5427,18 +5465,24 @@ def _p14_k8(dev):
     live = torch.ones(8, dtype=torch.bool, device=dev)
     live[[2, 5]] = False
     same8 = rows(1).expand(8, d).contiguous()
+    few = k8_few_expert_rows(g, moe["router"], k)
     recs = [_k8_case("a_decode_b8", x, moe, k, timed=True, plant=True),
             _k8_case("b_two_rows_done", x, moe, k, live=live),
             _k8_case("c_every_row_the_same_experts", same8, moe, k),
             _k8_case("e_b1", rows(1), moe, k),
             _k8_case("f_b32_same_experts", rows(1).expand(32, d).contiguous(),
-                     moe, k)]
+                     moe, k),
+            _k8_case("g_b8_few_experts", few, moe, k, timed=True,
+                     plant=True)]
     by = {r["name"]: r for r in recs}
     if not by["a_decode_b8"]["distinct_experts"] < E:
         raise AssertionError("K8: every expert got a row; no empty expert")
     if by["c_every_row_the_same_experts"]["expert_reads"] != k:
         raise AssertionError("K8: identical rows read more than k experts")
-    return recs
+    if not 16 <= by["g_b8_few_experts"]["distinct_experts"] <= 24:
+        raise AssertionError("K8: the few-experts case names "
+                             f"{by['g_b8_few_experts']['distinct_experts']}")
+    return recs, _k8_rows_independent(x, moe, k)
 
 
 def _p14_layout(L, vl, dev):
@@ -5583,7 +5627,8 @@ def _p14_decode(dev):
     ~3k tokens (past the window), 32 greedy tokens in captured graphs,
     the launches counted from zero over that decode (a captured graph's
     count at capture; each capture holds at least one step): K8 at least
-    4 x 28, K7 at least 2 x 28 and K9 at least 2 x 28 + 1 a capture.
+    4 x 28 (``K8_LAUNCHES`` a layer), K7 at least 2 x 28 and K9 at least
+    2 x 28 + 1 a capture.
     Then the eager steps and the graphs again: tokens and expert reads
     equal; ms a step."""
     import numpy as np
@@ -5591,6 +5636,7 @@ def _p14_decode(dev):
     from sdag_tpu_torch._build import LAUNCHES
     from sdag_tpu_torch.models.llama import (DecoderConfig,
                                              init_decoder_params)
+    from sdag_tpu_torch.ops import moe as M
     from sdag_tpu_torch.sdag.generate import Generator
     cfg = DecoderConfig.mellum2_12b_a2p5b()
     g = torch.Generator(device=dev)
@@ -5646,14 +5692,15 @@ def _p14_decode(dev):
            "peak_mem_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
     log(f"[phase14] decode {json.dumps(rec)}")
     need_k8, need_k7, need_k9 = (k * graph["captures"] for k in (
-        4 * n_l, 2 * n_l, 2 * n_l + 1))
+        M.K8_LAUNCHES * n_l, 2 * n_l, 2 * n_l + 1))
     if not (rec["graphs_equal_eager"] and graph["expert_reads"]
             == eager["expert_reads"] == again["expert_reads"] > 0
             and graph["captures"] >= 1
             and graph["launches"]["moe_experts"] >= need_k8
             and graph["launches"]["decode_attention"] >= need_k7
             and graph["launches"]["rms_norm"] >= need_k9
-            and rec["k8_launches_eager"] == 4 * n_l * eager["steps"] > 0):
+            and rec["k8_launches_eager"]
+            == M.K8_LAUNCHES * n_l * eager["steps"] > 0):
         raise AssertionError(f"phase 14 decode (K8 >= {need_k8}, K7 >= "
                              f"{need_k7}, K9 >= {need_k9} launches): "
                              f"{json.dumps(rec)}")
@@ -5672,7 +5719,7 @@ def phase14(dev):
     its widths: captured decode (K7 and K8 launches counted) against
     eager.  Returns the phase's record."""
     t0 = time.perf_counter()
-    rec = {"a": _p14_k8(dev)}
+    rec = dict(zip(("a", "a_rows"), _p14_k8(dev)))
     _free_cuda()
     rec["b"] = _p14_windows(dev)
     _free_cuda()
@@ -6252,11 +6299,15 @@ def main() -> int:
         f"{p13c['plain']['ms_per_step']:.3f}); greedy speculation = plain "
         f"greedy at 8B (f32 tree); phase {p13['phase_s']:.1f} s on {card}")
     k8, p14c = p14["a"][0], p14["c"]
+    few = {r["name"]: r for r in p14["a"]}["g_b8_few_experts"]
     log(f"[summary] phase 14 K8: {len(p14['a'])} cases within "
         f"{max(r['max_row_rel_err'] for r in p14['a']):.3g} of a row's RMS, "
         f"a dropped expert {k8['fault_max_row_rel_err']:.3g}; "
-        f"{k8['ms']:.4f} ms a call at the cell's shape (bound "
-        f"{k8['bound_ms']:.4f}); windowed K1 / K7 within their limits, a "
+        f"{k8['ms']:.4f} ms a call at the cell's shape, "
+        f"{k8['distinct_experts']} experts (bound {k8['bound_ms']:.4f}), "
+        f"{few['ms']:.4f} at {few['distinct_experts']} (bound "
+        f"{few['bound_ms']:.4f}); rows bit-equal alone and in B 32; "
+        f"windowed K1 / K7 within their limits, a "
         f"window one slot off flagged; the whole Mellum2 graph = eager, "
         f"{p14c['graph_ms_a_step']:.2f} ms a step, K8 "
         f"{p14c['launches']['moe_experts']} / K7 "

@@ -61,10 +61,12 @@ that builds that tree's kernels with nvcc:
   pass's device time (``--only k7``; a tree without K7 times the plain
   block alone);
 * K8 ``moe_experts_cuda`` (a decode step's expert layer) at
-  mellum2.poison_top20's decode shape, beside its plain version and the
-  library's grouped products, with its bound and each kernel's device
-  time, and the prefill's expert products grouped and per expert
-  (``--only k8``; a tree without K8 times nothing);
+  mellum2.poison_top20's decode shape, random rows (~37 experts) and rows
+  naming 16-24 experts as the cell's steps do, beside its plain version
+  and the library's grouped products, with its bound, each kernel's
+  device time, the experts read and the work items a call, and the
+  prefill's expert products grouped and per expert (``--only k8``; a tree
+  without K8 times nothing);
 * K9 ``add_rms_norm_cuda`` (a layer's residual add and the RMSNorm after
   it) at a decode step's rows (8 x 4,096 bf16), the top-20 prefill's
   (25,600 x 4,096), Mellum2's prefill (25,600 x 2,304) and qa_ckpt's in
@@ -511,18 +513,41 @@ def k7_times(c, dev, out, new_tokens=32, generated=16, calls=20):
                     out[f"{name}_{pas}_ms"] = dev_us / 1e3 / e.count
 
 
+def k8_few_expert_rows(g, router, k, B=8, want=(16, 24)):
+    """B bf16 rows around two base rows (row b near base b % 2, noise of
+    0.05-0.2 of a base's scale: the first scale whose rows' picks name
+    ``want`` distinct experts by the plain router), drawn from the CUDA
+    generator ``g``: as few experts as mellum2.poison_top20's decode steps
+    name (~18 a layer), where random rows name ~37."""
+    import torch
+    from sdag_tpu_torch.ops import moe as M
+    d = router.shape[0]
+    base = torch.randn(2, d, generator=g, device=router.device)
+    noise = torch.randn(B, d, generator=g, device=router.device)
+    for eps in (0.1, 0.15, 0.2, 0.05):
+        x = (base[torch.arange(B) % 2] + eps * noise).to(torch.bfloat16)
+        if want[0] <= M.route(x, router, k)[1].unique().numel() <= want[1]:
+            return x
+    raise AssertionError(f"K8: no noise scale gives {want} experts")
+
+
 def k8_times(c, dev, out, calls=10):
     """K8, a decode step's expert layer, at mellum2.poison_top20's decode
     shape (B = 8, 64 experts, top 8, d = 2,304, F = 896, bf16; one layer's
-    experts, 792 MB, so every call reads its weights from device memory):
-    device time a call of a replayed graph, launches, the bound (the
-    distinct experts' bytes and the rows in and out, or the routed rows'
-    operations at 989 TFLOP/s), each kernel's device time
-    (torch.profiler), the plain version's and the library's (route +
-    ``torch._grouped_mm`` over the picks sorted by expert).  Then the
-    prefill's expert products at a top-20 LLM batch's routed rows (23,200
-    tokens x 8) both ways (``ops/moe.py`` ``_expert_products``).  A tree
-    without K8 times nothing."""
+    experts, 792 MB, so every call reads its weights from device memory),
+    for random rows (~37 experts) and for rows that name 16-24
+    (``k8_few_expert_rows``, as the cell's steps do): device time a call of
+    a replayed graph, launches, the experts the counter reads, the work
+    items a call (``k8_plan``'s items over those experts; a tree without
+    it reports none), the bound (the distinct experts' bytes and the rows
+    in and out, or the routed rows' operations at 989 TFLOP/s), each
+    kernel's device time (torch.profiler), a digest of the output's bits
+    (sum of its int16 view, weighted by position), and at random rows the
+    plain version's and the library's (route + ``torch._grouped_mm`` over
+    the picks sorted by expert).  Then the prefill's expert products at a
+    top-20 LLM batch's routed rows (23,200 tokens x 8) both ways
+    (``ops/moe.py`` ``_expert_products``).  A tree without K8 times
+    nothing."""
     import importlib.util
     if importlib.util.find_spec("sdag_tpu_torch.ops.moe") is None:
         return
@@ -537,18 +562,38 @@ def k8_times(c, dev, out, calls=10):
     moe = c._k8_weights(g, dev, E, d, f)
     w3 = (moe["router"], moe["gate_up"], moe["down"], k)
     x = torch.randn(8, d, generator=g, device=dev).to(torch.bfloat16)
-    reads = torch.zeros(1, dtype=torch.int64, device=dev)
-    before = _build.LAUNCHES["moe_experts"]
-    M.moe_experts_cuda(x, *w3, reads=reads)
-    out["K8_b8_launches"] = _build.LAUNCHES["moe_experts"] - before
-    out["K8_b8_expert_reads"] = int(reads)
-    nbytes = int(reads) * 3 * d * f * 2 + 2 * 8 * d * 2
-    flops = 2.0 * 3 * d * f * k * 8
-    out["K8_b8_bound_ms"] = 1e3 * max(nbytes / c.H100_BYTES_PER_S,
-                                      flops / c.PEAK_FLOPS["bfloat16"])
-    out["K8_b8_ms"] = graph_ms(lambda: M.moe_experts_cuda(x, *w3),
-                               calls=calls)
-    out["K8_b8_roofline"] = out["K8_b8_bound_ms"] / out["K8_b8_ms"]
+    cases = (("b8", x), ("b8_few", k8_few_expert_rows(g, moe["router"], k)))
+    for case, rows in cases:
+        key = f"K8_{case}"
+        reads = torch.zeros(1, dtype=torch.int64, device=dev)
+        before = _build.LAUNCHES["moe_experts"]
+        res = M.moe_experts_cuda(rows, *w3, reads=reads)
+        out[key + "_launches"] = _build.LAUNCHES["moe_experts"] - before
+        out[key + "_expert_reads"] = int(reads)
+        if hasattr(M, "k8_items"):
+            out[key + "_items"] = M.k8_items(d, f, int(reads))
+        pos = torch.arange(1, res.numel() + 1, device=dev)
+        out[key + "_digest"] = int((res.view(torch.int16).reshape(-1).long()
+                                    * pos).sum())
+        nbytes = int(reads) * 3 * d * f * 2 + 2 * 8 * d * 2
+        flops = 2.0 * 3 * d * f * k * 8
+        out[key + "_bound_ms"] = 1e3 * max(nbytes / c.H100_BYTES_PER_S,
+                                           flops / c.PEAK_FLOPS["bfloat16"])
+        out[key + "_ms"] = graph_ms(lambda: M.moe_experts_cuda(rows, *w3),
+                                    calls=calls)
+        out[key + "_roofline"] = out[key + "_bound_ms"] / out[key + "_ms"]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                M.moe_experts_cuda(rows, *w3)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "sdag_moe" in e.key:
+                dev_us = getattr(e, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = e.self_cuda_time_total
+                name = e.key.split("sdag_moe_")[1].split("<")[0].split("(")[0]
+                out[f"{key}_{name}_ms"] = dev_us / 1e3 / e.count
     out["K8_b8_plain_ms"] = graph_ms(
         lambda: M.moe_experts_reference(x, *w3), calls=3)
 
@@ -556,18 +601,6 @@ def k8_times(c, dev, out, calls=10):
         w, i = M.route(x, moe["router"], k)
         return M.expert_products(x, w, i, moe["gate_up"], moe["down"])
     out["K8_b8_library_ms"] = c.cuda_ms(library, iters=5, warmup=2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            M.moe_experts_cuda(x, *w3)
-        torch.cuda.synchronize()
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and "sdag_moe" in e.key:
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = e.self_cuda_time_total
-            name = e.key.split("sdag_moe_")[1].split("<")[0].split("(")[0]
-            out[f"K8_b8_{name}_ms"] = dev_us / 1e3 / e.count
     T = 23200
     u = torch.randn(T, d, generator=g, device=dev).to(torch.bfloat16)
     w, i = M.route(u, moe["router"], k)

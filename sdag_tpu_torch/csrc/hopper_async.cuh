@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (topk_matmul.cu, sdag_prefill.cu, int8_matmul.cu): mbarriers, TMA loads
-// (cp.async.bulk with a tensor map), cluster barriers and distributed
+// (topk_matmul.cu, sdag_prefill.cu, int8_matmul.cu, moe_experts.cu):
+// mbarriers, TMA loads (cp.async.bulk with a tensor map, or of plain
+// contiguous bytes), cluster barriers and distributed
 // shared-memory reads, shared-memory matrix descriptors and the wgmma
 // forms the kernels issue.  Plain inline PTX; no library product.
 //
@@ -72,6 +73,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// whether the barrier has left the phase of parity `parity`, without
+// waiting
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
 }
 
 // generic-proxy accesses to shared memory before this are ordered before

@@ -25,6 +25,23 @@ Decode (``moe_decode``): the routing and experts of a step's rows, with no
 host value, so a CUDA graph captures it: K8 (``csrc/moe_experts.cu``) on
 CUDA, the plain version ``moe_experts_reference`` on the CPU.  Both add
 the number of distinct experts they read to a device counter.
+
+K8 is bound by the bytes of the picked experts (three matrices each, read
+once a step whatever the rows that picked them).  Four launches a call:
+the route, split over 32 slices of d, whose last block builds a work list
+on the device (the distinct picked experts in ascending order, each one's
+picks in pick order; the distinct-expert counter reads its length); gate/up
+and down, each a persistent block an SM over the list's tiles ((expert, 4
+columns of F: their gate and up rows); (expert, 8 rows of down)), every
+block an equal run of them; then each row's weighted sum.  A producer
+thread streams each tile's rows into a shared-memory ring by bulk copies
+on mbarriers, after x's rows (gate/up) or each expert's h (down) where they
+fit; a consumer warp a slot multiplies them with its picks' rows on the
+tensor cores (``mma.sync``, bf16 in, f32 out, 64-column blocks on a fresh
+accumulator added in f32; h stored as three bf16 parts whose sum is h
+exactly).  Every sum runs in an order fixed by d and F, so a row's bits
+depend on its own picks only.  ``k8_plan`` sizes the grid, the rings and
+what is staged, once, from B, the widths and the SM count.
 """
 
 from __future__ import annotations
@@ -155,17 +172,100 @@ def moe_experts_reference(x: torch.Tensor, router: torch.Tensor,
 
 
 # what K8 (csrc/moe_experts.cu) is built for: expert counts, the most
-# experts a token, the most rows a call
+# experts a token, the most rows a call; its launches a call
 K8_EXPERTS = (64, 128, 256)
 K8_MAX_TOPK = 32
 K8_MAX_ROWS = 1024
+K8_LAUNCHES = 4
+# the kernel's constants: slices of d the logits are summed in, weight
+# rows a tile (the mma's n: a gate/up tile holds 4 columns' gate and up
+# rows, a down tile 8 rows), consumer warps of an expert block (one a
+# ring slot), the barriers' bytes before a ring, a block's shared memory
+# on sm_90
+K8_SLICES = 32
+K8_TILE_ROWS = 8
+K8_WARPS = 16
+K8_BAR_BYTES = 1024
+K8_SMEM_LIMIT = 232448
+# the bytes of weights a ring holds: tiles in flight cover HBM's latency
+# at the SM's share of the bandwidth; at most 164 KB of shared memory
+# leaves ~90 KB of L1 for the picks' x and h rows the tiles are read with
+K8_RING_BYTES = 160 * 1024
+
+
+def k8_row_stride(n: int) -> int:
+    """Bytes between rows of n bf16 in shared memory (a tile's, or staged
+    x or h): the row padded to 8 more 32-bit words than a multiple of 16,
+    so that the 8 rows an mma reads by 8-byte loads fall on distinct
+    banks."""
+    return 2 * n + 4 * ((8 - n // 2 % 16) % 16)
+
+
+def k8_plan(B: int, d: int, f: int, sms: int) -> Dict[str, int]:
+    """K8's launch plan for B rows at widths d and F on a card of ``sms``
+    SMs: one persistent block an SM for gate/up and down, and each ring's
+    slots with its shared-memory bytes: as many tiles as
+    ``K8_RING_BYTES`` holds, at least one and at most ``K8_WARPS`` (each
+    slot has its own consumer warp).  A tile is ``K8_TILE_ROWS`` rows of d
+    (gate/up) or F (down) bf16.  After its ring, gate/up stages x's B rows
+    and down an expert's picks' h (three bf16 parts, at most B picks),
+    each where it fits (``x_staged``, ``h_staged``); else their warps read
+    them from device memory.  Raises when one tile does not fit a block's
+    shared memory."""
+    plan = {"grid": int(sms)}
+    for name, n in (("gate_up", d), ("down", f)):
+        tile = K8_TILE_ROWS * k8_row_stride(n)
+        slots = max(1, min(K8_WARPS, K8_RING_BYTES // tile))
+        smem = K8_BAR_BYTES + slots * tile
+        if smem > K8_SMEM_LIMIT:
+            raise ValueError(f"k8_plan: a {name} tile of {tile} bytes (d "
+                             f"{d}, F {f}) does not fit shared memory")
+        plan[name + "_slots"], plan[name + "_smem"] = slots, smem
+    for name, flag, staged in (("gate_up", "x_staged", B * k8_row_stride(d)),
+                               ("down", "h_staged",
+                                3 * B * k8_row_stride(f))):
+        plan[flag] = int(plan[name + "_smem"] + staged <= K8_SMEM_LIMIT)
+        plan[name + "_smem"] += staged * plan[flag]
+    return plan
+
+
+def k8_items(d: int, f: int, experts: int) -> int:
+    """The tiles a K8 call streams when its rows pick ``experts`` distinct
+    experts: 4 columns of F (gate/up) and 8 rows of down (columns of d)
+    an expert's tile."""
+    return experts * (f // (K8_TILE_ROWS // 2) + d // K8_TILE_ROWS)
+
+
+def k8_scratch_sizes(B: int, d: int, f: int, n_exp: int,
+                     k: int) -> Tuple[int, int]:
+    """Elements of K8's f32 scratch (the logits' partials by slice, the
+    down products y, then h as three bf16 planes: two to an element) and
+    int32 scratch (the work list: its length, the experts, their starts,
+    the picks)."""
+    P = B * k
+    return (K8_SLICES * B * n_exp + P * d + 3 * P * f // 2,
+            2 + 2 * n_exp + P)
+
+
+# the route's tickets a device (one for the row groups, one a group of 8
+# rows), zeroed once; the kernel resets them as it goes
+_K8_STATE: Dict[torch.device, torch.Tensor] = {}
+
+
+def _k8_state(dev: torch.device) -> torch.Tensor:
+    state = _K8_STATE.get(dev)
+    if state is None:
+        state = torch.zeros(1 + K8_MAX_ROWS // 8, dtype=torch.int32,
+                            device=dev)
+        _K8_STATE[dev] = state
+    return state
 
 
 def _k8_lib():
     lib = _build.load("moe_experts")
     if lib.moe_experts.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.moe_experts.argtypes = [p] * 11 + [i] * 7 + [p]
+        lib.moe_experts.argtypes = [p] * 12 + [i] * 12 + [p]
         lib.moe_experts.restype = i
     return lib
 
@@ -177,9 +277,10 @@ def moe_experts_cuda(x: torch.Tensor, router: torch.Tensor,
                      reads: Optional[torch.Tensor] = None,
                      idx_out: Optional[torch.Tensor] = None,
                      w_out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel K8 (``csrc/moe_experts.cu``), four launches: route each row,
-    gate/up + SiLU of each picked expert over its rows, down of each picked
-    expert, each row's weighted sum.  x [B, d] bf16 with contiguous rows;
+    """Kernel K8 (``csrc/moe_experts.cu``), four launches: route each row
+    and build the work list of the picked experts, gate/up + SiLU of each
+    picked expert over its picks, down of each, each row's weighted sum.
+    x [B, d] bf16 with contiguous rows;
     router [d, E] and gate_up [E, 2F, d], down [E, d, F] bf16 contiguous,
     E in ``K8_EXPERTS``, k <= ``K8_MAX_TOPK``, d and F multiples of 8;
     row_live bool [B] (all rows when None); reads int64 [1] on x's device
@@ -231,17 +332,21 @@ def moe_experts_cuda(x: torch.Tensor, router: torch.Tensor,
             or any(t.device != dev for t in (router, gate_up, down)):
         raise ValueError("moe_experts_cuda: every tensor must be on x's "
                          "device")
-    f32 = dict(dtype=torch.float32, device=dev)
-    idx = torch.empty((B, k), dtype=torch.int32, device=dev) \
-        if idx_out is None else idx_out
-    w = torch.empty((B, k), **f32) if w_out is None else w_out
-    h = torch.empty((B * k, f), **f32)
-    y = torch.empty((B * k, d), **f32)
+    plan = k8_plan(B, d, f, _build.sm_count(dev))
+    i32 = dict(dtype=torch.int32, device=dev)
+    idx = torch.empty((B, k), **i32) if idx_out is None else idx_out
+    w = torch.empty((B, k), dtype=torch.float32, device=dev) \
+        if w_out is None else w_out
+    n_f32, n_i32 = k8_scratch_sizes(B, d, f, n_exp, k)
+    fs = torch.empty(n_f32, dtype=torch.float32, device=dev)
+    is_ = torch.empty(n_i32, **i32)
     out = torch.empty((B, d), dtype=torch.bfloat16, device=dev)
     _build.launch(
         _k8_lib(), "moe_experts", x, router, gate_up, down, row_live, idx, w,
-        h, y, out, reads, B, d, f, n_exp, k, int(x.stride(0)),
-        int(norm_topk), device=dev, count_key="moe_experts", n=4)
+        fs, is_, _k8_state(dev), out, reads, B, d, f, n_exp, k,
+        int(x.stride(0)), int(norm_topk), plan["grid"], plan["gate_up_slots"],
+        plan["down_slots"], plan["x_staged"], plan["h_staged"], device=dev,
+        count_key="moe_experts", n=K8_LAUNCHES)
     return out
 
 

@@ -24,6 +24,7 @@ from sdag_tpu_torch.models.llama import (DecoderConfig, _mlp, _project_qkv,
                                          yarn_ramp_bounds)
 from sdag_tpu_torch.ops.attention import (decode_attention,
                                           sdag_prefill_attention)
+from sdag_tpu_torch.ops import moe as M
 from sdag_tpu_torch.ops.moe import (expert_products, moe_experts_reference,
                                     moe_prefill, route)
 from sdag_tpu_torch.sdag.generate import Generator
@@ -311,6 +312,75 @@ def test_k8_plain_version_equals_dense_expert_sums():
     w, idx = route(x, moe["router"], cfg.experts_per_token)
     pre = expert_products(x, w, idx, moe["gate_up"], moe["down"])
     assert torch.allclose(pre, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d,f,sms", [(2304, 896, 132), (2048, 768, 132),
+                                     (4096, 14336, 114), (7168, 2048, 132),
+                                     (8, 8, 1), (12288, 8, 132)])
+def test_k8_plan_fills_each_ring_within_shared_memory(d, f, sms):
+    """K8's plan: a persistent block an SM; each ring takes as many tiles
+    as its byte budget holds (at least one, at most one a consumer warp)
+    and fits a block's shared memory; gate/up stages x's B rows, and down
+    an expert's h parts, after their rings where they fit."""
+    for B in (1, 8, 32, 1024):
+        plan = M.k8_plan(B, d, f, sms)
+        assert plan["grid"] == sms
+        for name, n, flag, staged in (
+                ("gate_up", d, "x_staged", B * M.k8_row_stride(d)),
+                ("down", f, "h_staged", 3 * B * M.k8_row_stride(f))):
+            tile = M.K8_TILE_ROWS * M.k8_row_stride(n)
+            slots = plan[name + "_slots"]
+            assert 1 <= slots <= M.K8_WARPS
+            assert slots * tile <= max(M.K8_RING_BYTES, tile)
+            assert slots == M.K8_WARPS \
+                or (slots + 1) * tile > M.K8_RING_BYTES
+            ring = M.K8_BAR_BYTES + slots * tile
+            assert plan[flag] == int(ring + staged <= M.K8_SMEM_LIMIT)
+            assert plan[name + "_smem"] == ring + staged * plan[flag] \
+                <= M.K8_SMEM_LIMIT
+    if (d, f) == (2304, 896):   # mellum2.poison_top20's widths
+        assert (plan["gate_up_slots"], plan["down_slots"]) == (4, 11)
+        assert [(M.k8_plan(B, d, f, sms)["x_staged"],
+                 M.k8_plan(B, d, f, sms)["h_staged"])
+                for B in (8, 12, 13, 17, 18)] == [
+            (1, 1), (1, 1), (1, 0), (1, 0), (0, 0)]
+
+
+@pytest.mark.parametrize("n", [8, 16, 24, 896, 2304, 2312, 4096])
+def test_k8_row_stride_spreads_an_mmas_rows_over_the_banks(n):
+    """An mma step's 8-byte loads (lane 4g + t: row g, words 2t, 2t + 1;
+    a half-warp's 16 lanes at once) fall on 32 distinct banks in each half,
+    and each row starts 16-byte aligned for its bulk copy."""
+    stride = M.k8_row_stride(n)
+    assert stride % 16 == 0 and 2 * n <= stride <= 2 * n + 64
+    for half in (range(4), range(4, 8)):
+        banks = {(g * stride // 4 + 2 * t + e) % 32
+                 for g in half for t in range(4) for e in range(2)}
+        assert len(banks) == 32
+
+
+@pytest.mark.parametrize("d,f", [(2304, 65536), (65536, 896)])
+def test_k8_plan_refuses_a_tile_wider_than_shared_memory(d, f):
+    with pytest.raises(ValueError, match="does not fit shared memory"):
+        M.k8_plan(8, d, f, 132)
+
+
+def test_k8_scratch_and_items_by_hand():
+    """f32: 32 slices x B x E partials, y [B k, d], h [B k, F] as three
+    bf16 planes; int32: the list's length, E experts, E + 1 starts, B k
+    picks; 18 experts stream 18 x (896 / 4 + 2304 / 8) tiles."""
+    B, d, f, E, k = 8, 2304, 896, 64, 8
+    assert M.k8_scratch_sizes(B, d, f, E, k) == (
+        32 * 8 * 64 + 64 * 2304 + 3 * 64 * 896 // 2, 1 + 64 + 65 + 64)
+    assert M.k8_items(d, f, 18) == 18 * (224 + 288)
+
+
+def test_k8_wrapper_refuses_cpu_tensors():
+    moe = params_for(TINY)["layers"][1]["moe"]
+    x = torch.zeros(2, TINY.d_model, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 CUDA tensor"):
+        M.moe_experts_cuda(x, *(moe[n].bfloat16() for n in
+                                ("router", "gate_up", "down")), 3)
 
 
 def _old_layer(layer, cfg, x, positions, doc_id, valid_len, sul):
